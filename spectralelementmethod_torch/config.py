@@ -1,0 +1,51 @@
+"""Device and precision defaults for the PyTorch port.
+
+The JAX package's ``config`` switches x64 mode and a compilation cache; the
+port needs neither (PyTorch runs float64 natively and compiles its CUDA
+kernels once into ``_build/``, see :mod:`.ops.kernels`).  What it does fix
+process-wide is precision: the ``highest`` tier of the reference means true
+float32, so TF32 is switched off for matrix products and convolutions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on.
+
+    ``None`` means the CUDA card, and raises when there is none: the port
+    never falls back to the CPU on its own.  Pass ``device="cpu"`` to run
+    the plain PyTorch versions of the kernels on the CPU.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return canonical_device(dev)
+
+
+def canonical_device(device) -> torch.device:
+    """``torch.device`` with the CUDA index filled in (``cuda`` ->
+    ``cuda:0``), so devices compare equal to a tensor's ``.device``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """numpy/torch dtype -> torch dtype (``None`` stays ``None``)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return {np.dtype(np.float64): torch.float64,
+            np.dtype(np.float32): torch.float32}[np.dtype(dtype)]

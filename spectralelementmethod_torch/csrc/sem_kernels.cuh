@@ -1,0 +1,154 @@
+// Shared device code of the spectral-element CUDA kernels (sm_90a).
+//
+// Storage: transposed L-vectors, row-major (n, E) — row j holds local node j
+// of every element, so element e of row j sits at j * E + e and a warp of
+// consecutive elements reads 32 consecutive words of one row.
+//
+// The local affine product S[:, e] = sum_c a_c(e) K_c u[:, e] runs one thread
+// per element: the element's n values live in registers, the three (n, n)
+// stiffness blocks in dynamic shared memory (3 * 81 * 84 * 4 B = 81.6 KB at
+// p = 8, above the 48 KB static limit, hence cudaFuncSetAttribute), read as
+// float4 broadcasts.  The direct stiffness summation (DSS) is a second pass,
+// dss_gather_kernel: the exchanged rows [0, nb) of S go to a scratch array B
+// and are gathered per roll class from B[src, e + delta] under the class
+// mask.  Masks are false wherever e + delta leaves [0, E), and the read is
+// guarded by the range as well.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sem {
+
+constexpr int kThreads = 256;
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Sum over the block; the result is valid in thread 0.  Safe to call
+// several times in a row (the leading barrier protects the scratch).
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) warp_sums[wid] = v;
+  __syncthreads();
+  v = threadIdx.x < (blockDim.x >> 5) ? warp_sums[threadIdx.x] : 0.f;
+  if (wid == 0) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// Dynamic shared memory of the local product: the three blocks K_c (c, i, j)
+// with row stride pad4(N), zero padded.
+template <int N>
+constexpr size_t k_smem_bytes() {
+  return sizeof(float) * 3 * N * pad4(N);
+}
+
+// K: (3, N, N) row-major in global memory -> Ks (3, N, pad4(N)) in shared.
+template <int N>
+__device__ __forceinline__ void load_K(const float* __restrict__ K, float* Ks) {
+  constexpr int NP = pad4(N);
+  for (int t = threadIdx.x; t < 3 * N * NP; t += blockDim.x) {
+    const int j = t % NP;
+    const int ci = t / NP;  // c * N + i
+    Ks[t] = j < N ? K[ci * N + j] : 0.f;
+  }
+  __syncthreads();
+}
+
+// Row i of the element's affine product: a0 (K0 u)_i + a1 (K1 u)_i +
+// a2 (K2 u)_i, u zero padded to pad4(N).
+template <int N>
+__device__ __forceinline__ float affine_row(const float* Ks, int i,
+                                            const float (&u)[pad4(N)],
+                                            float a0, float a1, float a2) {
+  constexpr int NP = pad4(N);
+  const float4* k0 = reinterpret_cast<const float4*>(Ks + i * NP);
+  const float4* k1 = reinterpret_cast<const float4*>(Ks + (N + i) * NP);
+  const float4* k2 = reinterpret_cast<const float4*>(Ks + (2 * N + i) * NP);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int q = 0; q < NP / 4; ++q) {
+    const float4 x = k0[q], y = k1[q], z = k2[q];
+    s0 = fmaf(x.x, u[4 * q], s0);
+    s0 = fmaf(x.y, u[4 * q + 1], s0);
+    s0 = fmaf(x.z, u[4 * q + 2], s0);
+    s0 = fmaf(x.w, u[4 * q + 3], s0);
+    s1 = fmaf(y.x, u[4 * q], s1);
+    s1 = fmaf(y.y, u[4 * q + 1], s1);
+    s1 = fmaf(y.z, u[4 * q + 2], s1);
+    s1 = fmaf(y.w, u[4 * q + 3], s1);
+    s2 = fmaf(z.x, u[4 * q], s2);
+    s2 = fmaf(z.y, u[4 * q + 1], s2);
+    s2 = fmaf(z.z, u[4 * q + 2], s2);
+    s2 = fmaf(z.w, u[4 * q + 3], s2);
+  }
+  return a0 * s0 + a1 * s1 + a2 * s2;
+}
+
+// out[d, e] = B[d, e] + sum over the entries t of row d (row_ptr[d] ..
+// row_ptr[d + 1]) of mask[t.z, e] * B[t.x, e + t.y], for d < nb.
+// Entries are int4 (src_row, delta, mask_index, dst_row).
+__global__ void __launch_bounds__(kThreads)
+    dss_gather_kernel(const float* __restrict__ B, float* __restrict__ out,
+                      const int* __restrict__ row_ptr,
+                      const int4* __restrict__ ent,
+                      const bool* __restrict__ masks, int E, int nb) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  for (int d = 0; d < nb; ++d) {
+    float acc = B[(size_t)d * E + e];
+    const int t1 = row_ptr[d + 1];
+    for (int t = row_ptr[d]; t < t1; ++t) {
+      const int4 q = ent[t];
+      const int s = e + q.y;
+      if (masks[(size_t)q.z * E + e] && s >= 0 && s < E)
+        acc += B[(size_t)q.x * E + s];
+    }
+    out[(size_t)d * E + e] = acc;
+  }
+}
+
+inline cudaError_t launch_dss_gather(const float* B, float* out,
+                                     const int* row_ptr, const int4* ent,
+                                     const bool* masks, int E, int nb,
+                                     cudaStream_t stream) {
+  if (nb == 0) return cudaSuccess;
+  const int grid = (E + kThreads - 1) / kThreads;
+  dss_gather_kernel<<<grid, kThreads, 0, stream>>>(B, out, row_ptr, ent,
+                                                    masks, E, nb);
+  return cudaGetLastError();
+}
+
+}  // namespace sem
+
+// Element counts n = (p + 1)^2 with a compiled instantiation (p = 2 .. 8).
+#define SEM_FOR_EACH_N(X) X(9) X(16) X(25) X(36) X(49) X(64) X(81)
+
+extern "C" const char* sem_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,296 @@
+"""Poisson solver (matrix-free, element-local L-vectors, PCG) — PyTorch port.
+
+Port of the 2D main path of the JAX package's ``models/poisson.py``:
+
+    -div(c grad u) = f   on Omega
+    u = g_D              on named Dirichlet boundaries
+    n . grad u = g_N     on named Neumann boundaries
+
+The model and its boundary data are host numpy (as in the reference);
+:meth:`Poisson.solve_local` runs Jacobi-preconditioned CG on transposed
+(n, E) L-vectors on a device: the CUDA card by default, or the CPU with
+``device="cpu"``, where every kernel runs its plain PyTorch version.
+Ported: affine 2D meshes, the Jacobi preconditioner, ``cg_kernel`` in
+{``auto``, ``plain``, ``fused``}, ``p_dtype`` in {None, ``torch.bfloat16``},
+the transposed (n, E) layout.  Not yet: curved meshes, 3D, fdm/pmg
+preconditioners, ``certify``, ``defer_x``, batched solves (ROADMAP
+queues).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import resolve_device, torch_dtype
+from ..core.discretization import Discretization
+from ..ops import kernels, sumfac
+from ..solver.cg import CGResult, cg, cg_fused, jacobi_preconditioner
+
+
+class PoissonSolution(NamedTuple):
+    u: np.ndarray          # (n_nodes,) nodal solution (GLL nodal values)
+    cg: CGResult
+
+
+def _as_callable(value) -> Callable:
+    if callable(value):
+        return value
+    return lambda *xs: np.full_like(np.asarray(xs[0], float), float(value))
+
+
+def fused_cg_operands(diagT, freeT, wT, p_dtype, device):
+    """Masked inverse diagonal and dot weights of the fused CG kernels.
+
+    ``diagT``, ``freeT``, ``wT``: (n, E) numpy local operator diagonal,
+    free mask and inverse-multiplicity weights.  Both outputs are zeroed on
+    Dirichlet rows; with ``p_dtype=torch.bfloat16`` they are rounded to
+    bf16 (they only steer the preconditioner and weigh the convergence
+    metric; x and r stay float32).
+    """
+    free = torch.as_tensor(np.ascontiguousarray(freeT), device=device)
+    diag = torch.as_tensor(np.ascontiguousarray(diagT, dtype=np.float32),
+                           device=device)
+    one = torch.ones_like(diag)
+    zero = torch.zeros_like(diag)
+    inv = torch.where(free, one / torch.where(diag != 0, diag, one), zero)
+    w = torch.as_tensor(np.ascontiguousarray(wT, dtype=np.float32),
+                        device=device)
+    w_free = torch.where(free, w, zero)
+    if p_dtype is not None:
+        inv = inv.to(p_dtype)
+        w_free = w_free.to(p_dtype)
+    return inv, w_free
+
+
+class BoundaryConditionMixin:
+    """Named-boundary Dirichlet/Neumann handling shared by scalar models.
+
+    Requires ``self.disc``, ``self.x_nodes``, ``self._dirichlet_mask``,
+    ``self._dirichlet_vals``, ``self._neumann``.
+    """
+
+    def set_dirichlet(self, boundary_name: str, value) -> None:
+        """Essential BC u = g(x, y) on a named boundary."""
+        g = _as_callable(value)
+        nodes = self.disc.boundary_node_set(boundary_name)
+        x = self.x_nodes[:, nodes]
+        self._dirichlet_mask[nodes] = True
+        self._dirichlet_vals[nodes] = g(*x)
+        # Dirichlet masks are baked into cached operators: changing BCs
+        # after a solve must rebuild them
+        cache = getattr(self, "_op_cache", None)
+        if cache:
+            cache.clear()
+
+    def set_neumann(self, boundary_name: str, value) -> None:
+        """Natural BC: adds the surface integral ∫ g v dS to the RHS."""
+        g = _as_callable(value)
+        disc = self.disc
+        ndim = disc.mesh.ndim
+        for fg in disc.face_geometry_groups(boundary_name):
+            gvals = g(*(fg.x[:, d] for d in range(ndim)))  # (k, m)
+            contrib = gvals * fg.dSxW
+            gidx = disc._face_nodes_of(fg)
+            np.add.at(self._neumann, gidx.ravel(), contrib.ravel())
+
+
+class Poisson(BoundaryConditionMixin):
+    """Poisson problem on a discretized 2D mesh.
+
+    Parameters
+    ----------
+    disc : Discretization
+        Single-component discretization.
+    forcing : callable(x, y) or scalar
+        Right-hand side f (default 1).
+    coefficient : callable(x, y) or None
+        Variable diffusivity c(x, y) for -div(c grad u); None = 1.  A
+        coefficient that varies inside an element makes the factors
+        non-affine, which the port does not solve yet.
+    dtype : dtype of the device solve: float64 (CPU, reference-matching
+        accuracy) or float32 (the CUDA kernels take float32 only).
+    """
+
+    def __init__(self, disc: Discretization, forcing=1.0, coefficient=None,
+                 dtype=np.float64):
+        if disc.dpn != 1:
+            raise ValueError("Poisson requires dofs_per_node=1")
+        self.disc = disc
+        self.dtype = dtype
+
+        from ..utils.stages import stage
+
+        with stage("model/coords"):
+            self.x_nodes = disc.global_gll_coords()  # (2, n_nodes)
+
+        ndim = disc.mesh.ndim
+        coords = [disc.x_coeffs[:, d] for d in range(ndim)]
+        coeff = None
+        if coefficient is not None:
+            coeff = _as_callable(coefficient)(*coords)
+        with stage("model/factors"):
+            self._G_host = np.asarray(disc.laplacian_factors(coeff),
+                                      dtype=dtype)
+        self._D0_host = np.asarray(disc.basis.subbases[0].D1, dtype=dtype)
+        self._D1_host = np.asarray(disc.basis.subbases[1].D1, dtype=dtype)
+
+        f_gll = _as_callable(forcing)(*coords)
+        # weak forcing: ∫ f phi = scatter(f * detJxW) at collocated GLL
+        # quadrature
+        with stage("model/forcing"):
+            self._b = disc.scatter_add(
+                np.asarray(f_gll * disc.detJxW)).astype(dtype)
+
+        self._dirichlet_mask = np.zeros(disc.n_nodes, dtype=bool)
+        self._dirichlet_vals = np.zeros(disc.n_nodes)
+        self._neumann = np.zeros(disc.n_nodes)
+        self._exchange = None
+        self._op_cache = {}
+
+    def operator_diagonal(self) -> np.ndarray:
+        """Assembled operator diagonal (host numpy, cached)."""
+        d = getattr(self, "_diag_host", None)
+        if d is None:
+            from ..utils.stages import stage
+
+            with stage("model/diagonal"):
+                de = sumfac.laplacian_diag_local_host(
+                    self._G_host, self._D0_host, self._D1_host)
+                d = np.zeros(self.disc.n_nodes, dtype=de.dtype)
+                np.add.at(d, self.disc.gather_nodes.ravel(), de.ravel())
+                self._diag_host = d.astype(self.dtype)
+        return self._diag_host
+
+    # -- solve -----------------------------------------------------------------
+
+    def _local_setup(self, device):
+        """Operators and preconditioner of the L-vector solve on
+        ``device``, cached in ``_op_cache`` (cleared by set_dirichlet)."""
+        from ..ops.exchange import make_exchange
+
+        if self._exchange is None:
+            self._exchange = make_exchange(self.disc)
+        key = ("ctx", str(device))
+        ctx = self._op_cache.get(key)
+        if ctx is not None:
+            return ctx
+        disc, ex = self.disc, self._exchange
+        dt = torch_dtype(self.dtype)
+        gih = torch.as_tensor(ex.gather_hier, device=device)
+
+        def to_local(u_global):
+            u = torch.as_tensor(np.asarray(u_global), device=device).to(dt)
+            return u[gih].T.contiguous()
+
+        Gf = self._G_host.reshape(disc.E, 3, -1)
+        Dhat = sumfac.make_stacked_derivative(self._D0_host, self._D1_host)
+        free_np = np.ascontiguousarray(
+            (~self._dirichlet_mask)[ex.gather_hier].T)
+        free_local = torch.as_tensor(free_np, device=device)
+        # CG iterates are masked by induction (M masks its output, x0 = 0):
+        # skip the apply's input-mask pass
+        A = sumfac.make_local_laplacian_operator(
+            ex, Gf, Dhat, free_local, assume_masked_input=True,
+            device=device)
+        A_raw = sumfac.make_local_laplacian_operator(ex, Gf, Dhat, None,
+                                                     device=device)
+        M = jacobi_preconditioner(to_local(self.operator_diagonal()),
+                                  free_local)
+        ctx = dict(ex=ex, to_local=to_local, A=A, A_raw=A_raw, M=M,
+                   free_local=free_local, free_np=free_np)
+        self._op_cache[key] = ctx
+        return ctx
+
+    def solve_local(self, tol: float = 1e-12, max_iter: int | None = None,
+                    cg_kernel: str = "auto",
+                    p_dtype=None,
+                    device=None) -> PoissonSolution:
+        """Solve with Jacobi PCG on element-local (n, E) L-vectors.
+
+        ``device``: where the solve runs — ``None`` is the CUDA card (and
+        raises when there is none), ``"cpu"`` runs the plain PyTorch
+        versions of the kernels.
+        ``cg_kernel``: ``"plain"`` — one :func:`..ops.kernels.
+        affine_apply_dss` per iteration plus PyTorch vector ops;
+        ``"fused"`` — each iteration is the kernel pair
+        :func:`..ops.kernels.cg_kernel_a` / :func:`..ops.kernels.
+        cg_kernel_b` (float32 models only); ``"auto"`` — fused when
+        ``p_dtype`` asks for bf16 direction storage on the card, as the
+        reference engages its fused kernels only in that mode.
+        ``p_dtype``: ``torch.bfloat16`` stores the fused-CG search
+        direction in bf16 (Ap is computed from the stored direction, so
+        the r recurrence stays exact).
+        Iterates are mathematically those of the reference's
+        ``solve_local``; the stopping rule is ``||r|| <= tol ||b||`` in the
+        multiplicity-weighted norm.
+        """
+        dev = resolve_device(device)
+        disc = self.disc
+        if disc.mesh.ndim != 2:
+            raise NotImplementedError(
+                "3D solve_local is not ported yet (ROADMAP Queue 1, the 3D "
+                "path)")
+        if cg_kernel not in ("auto", "plain", "fused"):
+            raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
+        if p_dtype is not None and p_dtype != torch.bfloat16:
+            raise ValueError(f"p_dtype must be None or torch.bfloat16, "
+                             f"got {p_dtype}")
+
+        ctx = self._local_setup(dev)
+        ex, to_local = ctx["ex"], ctx["to_local"]
+        A, A_raw, M = ctx["A"], ctx["A_raw"], ctx["M"]
+        free_local = ctx["free_local"]
+
+        # rhs and Dirichlet lift in local form
+        b = np.asarray(self._b) + self._neumann
+        u_d = np.where(self._dirichlet_mask, self._dirichlet_vals, 0.0)
+        bL = to_local(b)
+        u_dL = to_local(u_d)
+        r = torch.where(free_local, bL - A_raw(u_dL), torch.zeros_like(bL))
+
+        if max_iter is None:
+            max_iter = max(200, 20 * int(np.sqrt(disc.ndof)))
+
+        f32 = np.dtype(self.dtype) == np.float32
+        want_fused = cg_kernel == "fused" or (
+            cg_kernel == "auto" and p_dtype is not None
+            and dev.type == "cuda")
+        if cg_kernel == "fused" and not f32:
+            raise ValueError("cg_kernel='fused' requires a float32 model")
+        if want_fused and f32:
+            key = ("cg_fused", str(p_dtype), str(dev))
+            fused = self._op_cache.get(key)
+            if fused is None:
+                fused = self._op_cache[key] = (
+                    *kernels.make_fused_cg_kernels(A.Kst, A.aT, A.plan),
+                    *self._fused_cg_operands(ex, ctx["free_np"], p_dtype,
+                                             dev))
+            kA, kB, inv, w_free = fused
+            # A enables the true-residual restart when the bf16-direction
+            # recurrence floors just above stop (see cg_fused)
+            res = cg_fused(kA, kB, r, inv=inv, w_free=w_free, tol=tol,
+                           max_iter=max_iter, p_dtype=p_dtype, A=A)
+        else:
+            w = ex.weights_T(self.dtype, dev)
+            res = cg(A, r, M=M, tol=tol, max_iter=max_iter, dot_weight=w)
+        uL = u_dL + res.x.to(u_dL.dtype)
+        u = ex.global_from_local_T(uL.cpu().numpy())
+        return PoissonSolution(u, res)
+
+    def _fused_cg_operands(self, ex, free_np, p_dtype, device):
+        """(inv, w_free) of the fused CG kernels on ``device``."""
+        diagT = np.asarray(self.operator_diagonal())[ex.gather_hier].T
+        return fused_cg_operands(diagT, free_np, ex.weights.T, p_dtype,
+                                 device)
+
+    # -- post-processing -------------------------------------------------------
+
+    def l2_error(self, u: np.ndarray, exact: Callable) -> float:
+        """Quadrature L2 error against an exact solution callable(x, y)."""
+        disc = self.disc
+        ue = disc.gather(u)
+        ex = exact(*(disc.x_coeffs[:, d] for d in range(disc.mesh.ndim)))
+        return float(np.sqrt(np.sum((ue - ex) ** 2 * disc.detJxW)))
