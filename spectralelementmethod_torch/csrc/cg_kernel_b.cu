@@ -18,13 +18,12 @@
 //
 // Design: one elementwise pass with two reductions, written in CUDA C++ in
 // the same library scheme as the other two kernels.  A grid-stride loop
-// over the n * E entries, a fixed grid of 4 blocks per SM, one pair of
-// partial sums per block; the CG loop sums the partials.
+// over the n * E entries, a grid of 4 blocks per SM (the wrapper reads the
+// card's SM count and passes the block count), one pair of partial sums per
+// block; the CG loop sums the partials.
 #include "sem_kernels.cuh"
 
 namespace sem {
-
-constexpr int kBlocksB = 132 * 4;
 
 template <typename WT>
 __global__ void __launch_bounds__(kThreads)
@@ -64,19 +63,17 @@ int cg_kernel_b(const void* r, const void* ap, const void* inv, const void* w,
 
 }  // namespace sem
 
-// Number of blocks (and partial pairs) the wrapper must size parts for.
-extern "C" int sem_cg_kernel_b_blocks() { return sem::kBlocksB; }
-
 // r, ap, r_out: n * E f32; inv, w: n * E f32 (_f32) or bf16 (_bf16);
 // alpha: f32 scalar on the device; parts: (2, blocks) f32 — row 0 the
-// <w r', inv r'> partials, row 1 the <w r', r'> partials.  Returns a
-// cudaError_t code (0 on success).
+// <w r', inv r'> partials, row 1 the <w r', r'> partials; blocks: the
+// grid size.  Returns a cudaError_t code (0 on success).
 #define SEM_CG_B_ENTRY(NAME, WT)                                            \
   extern "C" int NAME(const void* r, const void* ap, const void* inv,      \
                       const void* w, const void* alpha, void* r_out,       \
-                      void* parts, long long total, void* stream) {        \
+                      void* parts, long long total, int blocks,            \
+                      void* stream) {                                      \
     return sem::cg_kernel_b<WT>(r, ap, inv, w, alpha, r_out, parts, total,  \
-                                sem::kBlocksB, stream);                     \
+                                blocks, stream);                            \
   }
 SEM_CG_B_ENTRY(sem_cg_kernel_b_f32, float)
 SEM_CG_B_ENTRY(sem_cg_kernel_b_bf16, __nv_bfloat16)

@@ -40,19 +40,12 @@ class LocalExchange:
     here for anisotropic meshes whose roll classes would carry edge tails.
     """
 
-    def __init__(self, disc, pad_to: int | None = None,
-                 layout: str = "edges-first"):
+    def __init__(self, disc):
         geometry = disc.geometry
         m0, m1 = disc.shape
         self.disc = disc
         E = disc.E
-        #: padded element count (>= disc.E) — pad rows are inert no-op
-        #: elements so the element axis divides a device-mesh shard count
-        Ep = E if pad_to is None else int(pad_to)
-        if Ep < E:
-            raise ValueError(f"pad_to={Ep} < E={E}")
-        self.E, self.m = Ep, m0
-        self.E_real = E
+        self.E, self.m = E, m0
         self.n_loc = disc.n_loc
         self.is_square = m0 == m1
         #: edge-interior nodes per face slot, hierarchical edge order
@@ -67,36 +60,26 @@ class LocalExchange:
         self.ne = m0 - 2 if self.is_square else None
         self.n_edge_block = int(sum(self.edge_len))
 
-        # local node order: blocks at lane-aligned offsets.  "edges-first"
-        # = [edge interiors | vertices | cell interior] so every exchange
-        # block slice starts at lane offset 0 or neb (the vertex-first
-        # hierarchical order forces offset-4 lane slices, which cost a
-        # cross-lane relayout per dss on TPU); "verts-first" keeps the
-        # reference hierarchical order (sem/geometry.py:197-212).
+        # local node order, "edges-first": [edge interiors | vertices |
+        # cell interior] (the reference's hierarchical order,
+        # sem/geometry.py:197-212, with the vertex block moved behind the
+        # edges), so the exchanged rows are the leading block [0, neb + 4)
         hier0 = geometry.hierarchical_node_order
         neb = self.n_edge_block
-        if layout == "edges-first":
-            order = np.concatenate(
-                [hier0[4:4 + neb], hier0[:4], hier0[4 + neb:]])
-            self.off_edge, self.off_vert = 0, neb
-        elif layout == "verts-first":
-            order = np.asarray(hier0)
-            self.off_vert, self.off_edge = 0, 4
-        else:
-            raise ValueError(f"unknown layout {layout!r}")
-        self.layout = layout
+        order = np.concatenate(
+            [hier0[4:4 + neb], hier0[:4], hier0[4 + neb:]])
+        self.off_edge, self.off_vert = 0, neb
         self.off_int = neb + 4
-        #: the active local node order (lex index -> L-vector column)
+        #: the local node order (lex index -> L-vector column)
         self.hier = order
-        #: (Ep, n_loc) global node ids in the local order
-        #: (pad rows alias node 0; their values never enter any reduction)
-        self.gather_hier = np.zeros((Ep, self.n_loc), dtype=np.int64)
-        self.gather_hier[:E] = disc.gather_nodes[:, order]
+        #: (E, n_loc) global node ids in the local order
+        self.gather_hier = np.asarray(disc.gather_nodes[:, order],
+                                      dtype=np.int64)
 
         # ---- edge pairing -------------------------------------------------
-        nb_lin = np.arange(Ep * 4, dtype=np.int32)  # default: self
-        has_nb = np.zeros((Ep, 4), dtype=bool)
-        flip = np.zeros((Ep, 4), dtype=bool)
+        nb_lin = np.arange(E * 4, dtype=np.int32)  # default: self
+        has_nb = np.zeros((E, 4), dtype=bool)
+        flip = np.zeros((E, 4), dtype=bool)
 
         def slot_nodes(e_idx, f_idx):
             """Global node ids of the edge-interior nodes of slots (e, f)
@@ -150,15 +133,15 @@ class LocalExchange:
         # neighbor); orientation flips are folded into the index.  One
         # flat gather then serves any (an)isotropic slot layout.
         cols = np.arange(self.n_loc, dtype=np.int64)
-        recv_col = np.tile(cols, (Ep, 1))
-        erow = np.arange(Ep, dtype=np.int64)[:, None]
+        recv_col = np.tile(cols, (E, 1))
+        erow = np.arange(E, dtype=np.int64)[:, None]
         recv_row = np.tile(erow, (1, self.n_loc))
         for f in range(4):
             l_f = self.edge_len[f]
             if l_f == 0:
                 continue
             o = self.off_edge + self.edge_off[f]
-            nb = nb_lin[np.arange(Ep) * 4 + f]
+            nb = nb_lin[np.arange(E) * 4 + f]
             j_e, j_f = nb // 4, nb % 4
             # partner slot offset per element (same length by conformity)
             o_j = (self.off_edge
@@ -170,27 +153,21 @@ class LocalExchange:
         oe, neb = self.off_edge, self.n_edge_block
         self._edge_recv_flat = np.asarray(
             (recv_row * self.n_loc + recv_col)[:, oe:oe + neb].reshape(-1))
-        edge_mask = np.zeros((Ep, neb), dtype=bool)
+        edge_mask = np.zeros((E, neb), dtype=bool)
         for f in range(4):
             o = self.edge_off[f]
             edge_mask[:, o:o + self.edge_len[f]] = has_nb[:, f][:, None]
         self._edge_recv_mask = np.asarray(edge_mask)
 
         # ---- vertex numbering --------------------------------------------
-        # pad-row vertex copies get fresh singleton ids so they never join
-        # a real vertex's reduction or multiplicity
-        vert_g = self.gather_hier[:E, self.off_vert:self.off_vert + 4]
-        uniq, inv_real = np.unique(vert_g.ravel(), return_inverse=True)
-        self.n_vertices = uniq.size + 4 * (Ep - E)
-        inv = np.concatenate([
-            inv_real,
-            uniq.size + np.arange(4 * (Ep - E), dtype=inv_real.dtype),
-        ])
+        vert_g = self.gather_hier[:, self.off_vert:self.off_vert + 4]
+        uniq, inv = np.unique(vert_g.ravel(), return_inverse=True)
+        self.n_vertices = uniq.size
         self._vert_gid_np = inv.astype(np.int64)
-        self.vert_gid = inv.astype(np.int64)             # (Ep*4,)
+        self.vert_gid = inv.astype(np.int64)             # (E*4,)
 
         # ---- multiplicity weights (host-side) ----------------------------
-        mult = np.ones((Ep, self.n_loc))
+        mult = np.ones((E, self.n_loc))
         if self.n_edge_block > 0:
             # edge-interior nodes of faces with a neighbor appear twice
             mult[:, self.off_edge:self.off_edge + self.n_edge_block] += (
@@ -198,14 +175,12 @@ class LocalExchange:
             )
         vert_counts = np.bincount(inv, minlength=self.n_vertices)
         mult[:, self.off_vert:self.off_vert + 4] = (
-            vert_counts[inv].reshape(Ep, 4)
+            vert_counts[inv].reshape(E, 4)
         )
         self.multiplicity = mult
-        weights = 1.0 / mult
-        weights[E:] = 0.0     # pad rows never contribute to inner products
         # kept host-side; device copies materialize lazily per dtype and
         # device in weights_T
-        self._weights_np = weights
+        self._weights_np = 1.0 / mult
 
     # -- conversions (host) ------------------------------------------------
 
@@ -215,10 +190,10 @@ class LocalExchange:
 
     def global_from_local(self, uL) -> np.ndarray:
         """Consistent (E, n_loc[, k]) L-vector -> global (n_nodes[, k])."""
-        uL = np.asarray(uL)[:self.E_real]
+        uL = np.asarray(uL)
         out_shape = (self.disc.n_nodes,) + uL.shape[2:]
         out = np.zeros(out_shape, dtype=uL.dtype)
-        out[self.gather_hier[:self.E_real].ravel()] = uL.reshape(
+        out[self.gather_hier.ravel()] = uL.reshape(
             (-1,) + uL.shape[2:]
         )
         return out
@@ -307,9 +282,7 @@ class RollExchange(LocalExchange):
     #: least this fraction of faces/vertex-copies (else it joins the tail)
     MIN_CLASS_FRACTION = 0.02
 
-    def __init__(self, disc, pad_to: int | None = None,
-                 layout: str = "edges-first",
-                 min_class_fraction: float | None = None):
+    def __init__(self, disc, min_class_fraction: float | None = None):
         """``min_class_fraction`` overrides :data:`MIN_CLASS_FRACTION`.
 
         The default keeps only large classes (each class costs an O(E)
@@ -319,7 +292,7 @@ class RollExchange(LocalExchange):
         per boundary direction) that must stay classes — the CUDA kernels
         require zero tails.
         """
-        super().__init__(disc, pad_to=pad_to, layout=layout)
+        super().__init__(disc)
         E, ne = self.E, self.ne
         if min_class_fraction is None:
             min_count = max(8, int(self.MIN_CLASS_FRACTION * E))
@@ -583,40 +556,35 @@ def roll_dss_T(vT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
 
 
 def _make_exchange_impl(disc, threshold: float = 0.25,
-                        pad_to: int | None = None,
-                        layout: str = "edges-first",
                         min_class_fraction: float | None = None):
     """Best exchange structure for ``disc``: roll classes when they cover
-    enough of the mesh, generic gather otherwise.  ``pad_to`` pads the
-    element axis with inert elements.
+    enough of the mesh, generic gather otherwise.
 
-    The JAX factory's ``fused_pad`` re-padding exists only for the TPU
-    kernels' lane tiling; the CUDA kernels take any element count, so the
-    port never pads on its own.
+    The element axis is never padded: the JAX factory's padding exists
+    only for the TPU kernels' lane tiling, and the CUDA kernels take any
+    element count.
     """
     if len(disc.shape) != 2:
         raise NotImplementedError(
             "3D exchanges are not ported yet (ROADMAP Queue 1, the 3D path)")
     try:
-        ex = RollExchange(disc, pad_to=pad_to, layout=layout,
-                          min_class_fraction=min_class_fraction)
+        ex = RollExchange(disc, min_class_fraction=min_class_fraction)
     except NotImplementedError:
         # anisotropic node grid with edge tails: the roll fast path
         # needs full class coverage there — generic exchange instead
-        return LocalExchange(disc, pad_to=pad_to, layout=layout)
+        return LocalExchange(disc)
     if (min_class_fraction is None
             and (ex.n_edge_tail or ex.n_vert_tail)):
         # tails may be small *uniform* classes below the default size
         # threshold (panel-ordered meshes: one cross-panel-boundary class
         # per direction); zero tails unlock the CUDA kernels — worth a
         # bounded number of extra roll classes
-        ex2 = RollExchange(disc, pad_to=pad_to, layout=layout,
-                           min_class_fraction=0.0)
+        ex2 = RollExchange(disc, min_class_fraction=0.0)
         if (not (ex2.n_edge_tail or ex2.n_vert_tail)
                 and len(ex2.edge_classes) + len(ex2.vert_classes) <= 64):
             ex = ex2
     if ex.tail_fraction > threshold:
-        return LocalExchange(disc, pad_to=pad_to, layout=layout)
+        return LocalExchange(disc)
     return ex
 
 

@@ -60,10 +60,11 @@ _SIGNATURES = {
     "sem_affine_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
     "sem_cg_kernel_a_f32": [_P] * 16 + [_I] * 3 + [_P],
     "sem_cg_kernel_a_bf16": [_P] * 16 + [_I] * 3 + [_P],
-    "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _P],
-    "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _P],
-    "sem_cg_kernel_b_blocks": [],
+    "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _I, _P],
+    "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _I, _P],
 }
+#: kernel B's grid: blocks per SM of the card
+BLOCKS_PER_SM_B = 4
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -322,13 +323,14 @@ def cg_kernel_b(r, Ap, inv, w_free, alpha):
     _require(w_free, "w_free", (inv.dtype,), shape, dev)
     alpha = _scalar(alpha, dev)
     lib = _lib("cg_kernel_b")
-    blocks = lib.sem_cg_kernel_b_blocks()
+    blocks = BLOCKS_PER_SM_B * torch.cuda.get_device_properties(
+        dev).multi_processor_count
     r_out = torch.empty_like(r)
     parts = torch.empty((2, blocks), dtype=torch.float32, device=dev)
     fn = (lib.sem_cg_kernel_b_bf16 if inv.dtype == torch.bfloat16
           else lib.sem_cg_kernel_b_f32)
     rc = fn(_ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free), _ptr(alpha),
-            _ptr(r_out), _ptr(parts), r.numel(), _stream(dev))
+            _ptr(r_out), _ptr(parts), r.numel(), blocks, _stream(dev))
     _check(lib, rc, f"cg_kernel_b (shape={shape}, inv {inv.dtype})")
     cg_kernel_b.launches += 1
     return r_out, parts[0], parts[1]

@@ -94,20 +94,6 @@ def make_affine_element_matrices(Dhat, W, order=None):
     return np.concatenate([K0, K1, K2], axis=1)
 
 
-def _pad_factors_to_exchange(Gf, exchange):
-    """Zero-pad (E_real, ...) per-element factors to the exchange's padded
-    element count (pad elements are inert: zero factors, and the
-    exchange's masks and weights already exclude them)."""
-    E_ex = exchange.E
-    if int(Gf.shape[0]) == E_ex:
-        return Gf
-    if int(Gf.shape[0]) > E_ex:
-        raise ValueError(
-            f"factors have {Gf.shape[0]} rows > exchange E={E_ex}")
-    pad = [(0, E_ex - int(Gf.shape[0]))] + [(0, 0)] * (Gf.ndim - 1)
-    return np.pad(np.asarray(Gf), pad)
-
-
 class AffineLaplacianT(torch.nn.Module):
     """Weak Laplacian ``DSS(sum_c a_c K_c u)`` on (n, E) L-vectors.
 
@@ -166,7 +152,10 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
         raise NotImplementedError(
             "the affine apply needs a tail-free roll-class exchange "
             "(RollExchange); the generic-gather DSS has no kernel yet")
-    Gf = _pad_factors_to_exchange(np.asarray(Gf), exchange)
+    Gf = np.asarray(Gf)
+    if Gf.shape[0] != exchange.E:
+        raise ValueError(f"factors have {Gf.shape[0]} rows, the exchange "
+                         f"{exchange.E} elements")
     Wgrid = exchange.disc.basis.weight_grid().reshape(-1)
     a, exact = affine_factorization(Gf, Wgrid)
     if not exact:
