@@ -8,17 +8,25 @@ Phases (any failure exits non-zero and prints no result line):
 1. build the CUDA kernels from ``spectralelementmethod_torch/csrc`` (one
    ``nvcc`` per source, all started together) and print the build seconds;
 2. at the main path's full shapes — ``rectangle_mesh(316, 316, 8)``,
-   E = 99,856 elements, n = 81 nodes each, float32 — hold each kernel
-   against its plain PyTorch version on the same inputs on the card, and
-   time both (CUDA events), beside the least time the card could take;
-   then hold the product kernels against their plain versions at the
-   other compiled orders (p = 2..7) on a small mesh;
+   E = 99,856 elements, n = 81 nodes each, float32, and stacks of K = 4
+   right-hand sides — hold each kernel (single-RHS, deferred-x and
+   batched variants) against its plain PyTorch version on the same inputs
+   on the card, and time both (CUDA events), beside the least time the
+   card could take; time the deferred-x catch-up; then hold the kernels
+   against their plain versions at the other compiled orders (p = 2..7)
+   on a small mesh;
 3. run ``Poisson.solve_local`` on that mesh in the three main-path modes
-   (plain CG; fused CG; fused CG with bf16 directions) to two tolerances,
-   with the launch counts set to 0 just before each solve and read just
-   after; require convergence (except the bf16 mode at the tight
-   tolerance, whose stopping point is recorded) and agreement on
-   iterations, print each solve's true residual, then profile each mode;
+   (plain CG; fused CG; fused CG with bf16 directions) and with deferred x
+   (``defer_x=8``), and ``Poisson.solve_local_batch`` on K = 4 forcings in
+   five modes (plain; fused; fused with bf16 directions; each fused mode
+   with ``defer_x=8``), to two tolerances, with the launch counts set to
+   0 just before each solve and read just after; require convergence
+   (except the bf16 modes at the tight tolerance, whose stopping point is
+   recorded) and agreement on iterations, print each solve's (each RHS's)
+   true residual, the gap between the L-vector solution and its global
+   field, and ms per issued iteration per RHS; time every mode's steady
+   state (two fixed-length runs); then profile each single-RHS mode and
+   the batched bf16 deferred mode;
 4. solve a manufactured problem (u = 0.1 (x + y), Dirichlet + Neumann)
    and require the reference's error bar;
 5. print the card, one ``{"kernels": [...]}`` line and, last, the
@@ -52,7 +60,10 @@ MAX_ITER = 20000
 # so only the f32 modes must reach TOL_F32; the bf16 mode's run to TOL_F32
 # records where it stops (its best residual and iteration)
 TOL_ALL, TOL_F32 = 2e-3, 1e-4
-PROFILE_ITERS = 1024
+PROFILE_ITERS = 512    # the profiler's post-processing grows with them
+K = 4                  # right-hand sides of the batched solves (the bench's)
+DEFER = 8              # defer_x of the deferred modes (the bench's)
+STEADY = (512, 1536)   # iterations of the two steady-state timing runs
 # the fused modes may take up to this factor more (or fewer) iterations
 # than plain CG: the fused solver's true-residual restarts (taken when a
 # 64+-iteration block shrinks the residual by < 4x) discard the Krylov
@@ -112,6 +123,14 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
+def rhs_rel(a, b, k: int) -> float:
+    """Largest relative difference between the per-RHS totals of two
+    partial-sum arrays ((G, k), (E, k), or (G,) / (E,) for one RHS)."""
+    ta = a.double().reshape(-1, k).sum(0)
+    tb = b.double().reshape(-1, k).sum(0)
+    return ((ta - tb).abs() / tb.abs()).max().item()
+
+
 def bf16_ulp_ok(got, ref) -> bool:
     """|got - ref| <= one bf16 ulp of ref, elementwise."""
     import torch
@@ -123,6 +142,11 @@ def bf16_ulp_ok(got, ref) -> bool:
 
 def main() -> int:
     t_start = time.perf_counter()
+
+    def at() -> str:
+        """Seconds since the start, for the phase headers."""
+        return f"(at {time.perf_counter() - t_start:.0f} s)"
+
     try:
         import torch
     except ImportError:
@@ -143,6 +167,7 @@ def main() -> int:
         from spectralelementmethod_torch.models.poisson import Poisson
         from spectralelementmethod_torch.ops import kernels
         from spectralelementmethod_torch.ops.exchange import roll_dss_T
+        from spectralelementmethod_torch.solver.cg import _catch_up
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -181,11 +206,12 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[2] setup of E={E}, n={n} in {time.perf_counter() - t0:.1f} s "
         f"({plan.n_entries} DSS entries in {plan.masks.shape[0]} classes, "
-        f"nb={plan.nb})")
+        f"nb={plan.nb}) {at()}")
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(dtype=torch.float32):
-        return torch.randn((n, E), generator=g, device=dev).to(dtype)
+    def randn(k=1, dtype=torch.float32):
+        """A random (k n, E) stack."""
+        return torch.randn((k * n, E), generator=g, device=dev).to(dtype)
 
     nE = n * E
     # the CG scalars as float32 device tensors, as the solver passes them:
@@ -196,166 +222,343 @@ def main() -> int:
     small = aT.numel() * 4 + Kst.numel() * 4 + mask_bytes
     rows = []
 
-    # kernel 1
-    sets = [(randn(), Kst, aT, plan) for _ in range(3)]
-    got = kernels.affine_apply_dss(*sets[0])
-    ref = kernels.affine_apply_dss_plain(*sets[0])
-    torch.cuda.synchronize()
-    err, rel = rel_err(got, ref)
-    log(f"  affine_apply_dss: max abs err {err:.3e}, rel {rel:.3e}")
-    check(rel <= 1e-5, "affine_apply_dss matches its plain version (1e-5)")
-    K2 = Kst.reshape(3 * n, n)
-    ms = gpu_ms(kernels.affine_apply_dss, sets)
-    plain_ms = gpu_ms(kernels.affine_apply_dss_plain, sets)
-    lib_ms = gpu_ms(torch.matmul, [(K2, s[0]) for s in sets])
-    b_ms, b_by = bound(8 * nE + small, 6 * n * n * E + 5 * nE
-                       + plan.n_entries * E)
-    rows.append(dict(name="affine_apply_dss", max_abs_err=err, ms=ms,
-                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms))
+    def kernel_a_row(name, fn, plain, k, with_x, pdt, inv, sc):
+        """Kernel A variant ``fn`` on a k-stack against its plain version:
+        checks, times and the bound (k stacks of r, p, p', Ap' and, with
+        x, x and x'; inv once)."""
+        def args():
+            a_ = [randn(k), randn(k, pdt), inv]
+            a_ += [randn(k), *sc] if with_x else [sc[0]]
+            return (*a_, Kst, aT, plan)
 
-    # kernel A, f32 and bf16 directions
-    for tag, pdt, inv in (("f32", torch.float32, inv32),
-                          ("bf16", torch.bfloat16, inv16)):
-        sets = [(randn(), randn(pdt), inv, randn(), beta, alpha_prev, Kst,
-                 aT, plan) for _ in range(2)]
-        gp, gAp, gx, gd = kernels.cg_kernel_a(*sets[0])
-        rp, rAp, rx, rd = kernels.cg_kernel_a_plain(*sets[0])
+        sets = [args() for _ in range(2)]
+        got, ref = fn(*sets[0]), plain(*sets[0])
         torch.cuda.synchronize()
-        _, rel_x = rel_err(gx, rx)
-        check(rel_x <= 1e-5, f"cg_kernel_a[{tag}] x' (1e-5)")
+        gp, gAp, gd = got[0], got[1], got[-1]
+        rp, rAp, rd = ref[0], ref[1], ref[-1]
+        if with_x:
+            _, rel_x = rel_err(got[2], ref[2])
+            check(rel_x <= 1e-5, f"{name} x' (1e-5)")
         if pdt == torch.bfloat16:
-            check(bf16_ulp_ok(gp, rp), f"cg_kernel_a[{tag}] p' within 1 "
-                  "bf16 ulp")
+            check(bf16_ulp_ok(gp, rp), f"{name} p' within 1 bf16 ulp")
             # Ap' and the partials from the kernel's own stored p'
-            S = kernels._local_product(gp.float(), Kst, aT)
-            rAp, rd = roll_dss_T(S, plan), (gp.float() * S).sum(0)
+            p3 = gp.float().view(k, n, E)
+            S = kernels._local_product(p3, Kst, aT)
+            rAp, rd = roll_dss_T(S, plan).view(gAp.shape), (p3 * S).sum(1).T
         else:
             _, rel_p = rel_err(gp, rp)
-            check(rel_p <= 1e-5, f"cg_kernel_a[{tag}] p' (1e-5)")
+            check(rel_p <= 1e-5, f"{name} p' (1e-5)")
         err, rel = rel_err(gAp, rAp)
-        check(rel <= 1e-5, f"cg_kernel_a[{tag}] Ap' (1e-5 of max)")
-        d_rel = abs(gd.sum().item() - rd.sum().item()) / abs(rd.sum().item())
-        check(d_rel <= 1e-5, f"cg_kernel_a[{tag}] <p', Ap'> partials "
-              f"({d_rel:.2e} <= 1e-5)")
-        log(f"  cg_kernel_a[{tag}]: max abs err Ap' {err:.3e}, rel {rel:.3e}")
-        ms = gpu_ms(kernels.cg_kernel_a, sets)
-        plain_ms = gpu_ms(kernels.cg_kernel_a_plain, sets)
-        # r, x in and x', Ap' out in f32; p, inv in and p' out in p's dtype
-        s = 2 if pdt == torch.bfloat16 else 4
-        b_ms, b_by = bound(4 * 4 * nE + 3 * s * nE + small,
-                           6 * n * n * E + 12 * nE + plan.n_entries * E)
-        rows.append(dict(name=f"cg_kernel_a[{tag}]", max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None))
+        check(rel <= 1e-5, f"{name} Ap' (1e-5 of max)")
+        d_rel = rhs_rel(gd, rd, k)
+        check(d_rel <= 1e-5, f"{name} <p', Ap'> partials ({d_rel:.2e} <= "
+              "1e-5)")
+        log(f"  {name}: max abs err Ap' {err:.3e}, rel {rel:.3e}")
+        ms = gpu_ms(fn, sets)
+        plain_ms = gpu_ms(plain, sets)
+        # per RHS: r in and Ap' out (f32), x in and x' out (f32, with x),
+        # p in and p' out (p's dtype); inv once
+        s_ = 2 if pdt == torch.bfloat16 else 4
+        per_rhs = 8 + (8 if with_x else 0) + 2 * s_
+        b_ms, b_by = bound(k * per_rhs * nE + s_ * nE + small,
+                           k * (6 * n * n * E + (12 if with_x else 10) * nE
+                                + plan.n_entries * E))
+        return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    # kernel B, f32 and bf16 operands
-    for tag, inv, w in (("f32", inv32, w32), ("bf16", inv16, w16)):
-        sets = [(randn(), randn(), inv, w, alpha) for _ in range(3)]
-        gr, grz, grn = kernels.cg_kernel_b(*sets[0])
-        rr, rrz, rrn = kernels.cg_kernel_b_plain(*sets[0])
+    # kernel 1, one RHS and a K-stack
+    K2 = Kst.reshape(3 * n, n)
+    for name, k, fn, plain in (
+            ("affine_apply_dss", 1, kernels.affine_apply_dss,
+             kernels.affine_apply_dss_plain),
+            ("affine_apply_dss_batched", K, kernels.affine_apply_dss_batched,
+             kernels.affine_apply_dss_batched_plain)):
+        sets = [(randn(k), Kst, aT, plan) for _ in range(3 if k == 1 else 2)]
+        got = fn(*sets[0])
+        ref = plain(*sets[0])
         torch.cuda.synchronize()
-        err, rel = rel_err(gr, rr)
-        log(f"  cg_kernel_b[{tag}]: max abs err r' {err:.3e}, rel {rel:.3e}")
-        check(rel <= 1e-6, f"cg_kernel_b[{tag}] r' (1e-6)")
-        for what, a, b in (("<w r', z'>", grz, rrz), ("<w r', r'>", grn, rrn)):
-            d = abs(a.sum().item() - b.sum().item()) / abs(b.sum().item())
-            check(d <= 1e-5, f"cg_kernel_b[{tag}] {what} partials "
-                  f"({d:.2e} <= 1e-5)")
-        ms = gpu_ms(kernels.cg_kernel_b, sets)
-        plain_ms = gpu_ms(kernels.cg_kernel_b_plain, sets)
-        s = 2 if inv.dtype == torch.bfloat16 else 4
-        b_ms, b_by = bound(3 * 4 * nE + 2 * s * nE, 7 * nE)
-        rows.append(dict(name=f"cg_kernel_b[{tag}]", max_abs_err=err, ms=ms,
+        err, rel = rel_err(got, ref)
+        log(f"  {name}: max abs err {err:.3e}, rel {rel:.3e}")
+        check(rel <= 1e-5, f"{name} matches its plain version (1e-5)")
+        ms = gpu_ms(fn, sets)
+        plain_ms = gpu_ms(plain, sets)
+        lib_ms = gpu_ms(torch.matmul,
+                        [(K2, s_[0].view(k, n, E) if k > 1 else s_[0])
+                         for s_ in sets])
+        b_ms, b_by = bound(8 * k * nE + small, k * (6 * n * n * E + 5 * nE
+                                                    + plan.n_entries * E))
+        rows.append(dict(name=name, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None))
+                         library_ms=lib_ms))
+
+    # kernel A: f32 and bf16 directions; one RHS and a K-stack; with the
+    # lagged x update and deferred (no x)
+    scal = {1: (beta, alpha_prev),
+            K: (torch.tensor([0.7, 0.4, 1.1, 0.0], device=dev),
+                torch.tensor([0.4, 0.0, 0.9, 0.3], device=dev))}
+    for base, k, with_x in (("cg_kernel_a", 1, True),
+                            ("cg_kernel_a_deferred", 1, False),
+                            ("cg_kernel_a_batched", K, True),
+                            ("cg_kernel_a_batched_deferred", K, False)):
+        fn, plain = kernels.WRAPPERS[base], getattr(kernels, base + "_plain")
+        for tag, pdt, inv in (("f32", torch.float32, inv32),
+                              ("bf16", torch.bfloat16, inv16)):
+            rows.append(kernel_a_row(f"{base}[{tag}]", fn, plain, k, with_x,
+                                     pdt, inv, scal[k]))
+
+    # kernel B, f32 and bf16 operands, one RHS and a K-stack
+    for base, k, fn, plain, a_ in (
+            ("cg_kernel_b", 1, kernels.cg_kernel_b,
+             kernels.cg_kernel_b_plain, alpha),
+            ("cg_kernel_b_batched", K, kernels.cg_kernel_b_batched,
+             kernels.cg_kernel_b_batched_plain, scal[K][1])):
+        for tag, inv, w in (("f32", inv32, w32), ("bf16", inv16, w16)):
+            name = f"{base}[{tag}]"
+            sets = [(randn(k), randn(k), inv, w, a_) for _ in range(3)]
+            gr, grz, grn = fn(*sets[0])
+            rr, rrz, rrn = plain(*sets[0])
+            torch.cuda.synchronize()
+            err, rel = rel_err(gr, rr)
+            log(f"  {name}: max abs err r' {err:.3e}, rel {rel:.3e}")
+            check(rel <= 1e-6, f"{name} r' (1e-6)")
+            for what, a, b in (("<w r', z'>", grz, rrz),
+                               ("<w r', r'>", grn, rrn)):
+                d = rhs_rel(a, b, k)
+                check(d <= 1e-5, f"{name} {what} partials ({d:.2e} <= 1e-5)")
+            ms = gpu_ms(fn, sets)
+            plain_ms = gpu_ms(plain, sets)
+            s_ = 2 if inv.dtype == torch.bfloat16 else 4
+            b_ms, b_by = bound(3 * 4 * k * nE + 2 * s_ * nE, 7 * k * nE)
+            rows.append(dict(name=name, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None))
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
             f"{r['library_ms']})")
 
+    # the deferred-x catch-up x += sum_j alpha_j P_j (plain PyTorch, once
+    # per DEFER iterations), per super-iteration
+    catch_up = {}
+    for k in (1, K):
+        for tag, pdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            al = [scal[K][0] if k > 1 else beta for _ in range(DEFER)]
+            sets = [(randn(k), al, [randn(k, pdt) for _ in range(DEFER)])
+                    for _ in range(2)]
+            catch_up[f"k{k}-{tag}"] = gpu_ms(_catch_up, sets, reps=10)
+    log(f"  deferred-x catch-up, ms per super-iteration of {DEFER}: "
+        f"{catch_up} {at()}")
+
     # the other compiled orders (n = 9 .. 64) on a small mesh whose E is
-    # no multiple of the block size: the product kernels against their
-    # plain versions
+    # no multiple of the block size: every kernel against its plain
+    # version, one RHS and a stack of three
     for p in range(2, ORDER):
         sdisc = Discretization(rectangle_mesh(24, 20, p), gll_basis_2d(p))
         sprob = Poisson(sdisc, dtype=np.float32)
         sA = sprob._local_setup(dev)["A"]
         sK, saT, splan = sA.Kst, sA.aT, sA.plan
-        shp = (sdisc.n_loc, sdisc.E)
-        u = torch.randn(shp, generator=g, device=dev)
-        _, rel = rel_err(kernels.affine_apply_dss(u, sK, saT, splan),
-                         kernels.affine_apply_dss_plain(u, sK, saT, splan))
-        rels = [rel]
-        for pdt in (torch.float32, torch.bfloat16):
-            args = (u, torch.randn(shp, generator=g, device=dev).to(pdt),
-                    torch.rand(shp, generator=g, device=dev).to(pdt),
-                    torch.randn(shp, generator=g, device=dev), 0.7, 0.4, sK,
-                    saT, splan)
-            got, ref = (kernels.cg_kernel_a(*args),
-                        kernels.cg_kernel_a_plain(*args))
-            rels += [rel_err(a, b)[1] for a, b in zip(got[:3], ref[:3])]
-            rels.append(abs(got[3].sum().item() - ref[3].sum().item())
-                        / abs(ref[3].sum().item()))
+        nl = (sdisc.n_loc, sdisc.E)
+        rels = []
+        for k, b_, sc in ((1, "", (beta, alpha_prev)),
+                          (3, "_batched", (scal[K][0][:3], scal[K][1][:3]))):
+            shp = (k * sdisc.n_loc, sdisc.E)
+
+            def rnd(shape=shp, dtype=torch.float32):
+                return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+            u = rnd()
+            cases = [("affine_apply_dss" + b_, (u, sK, saT, splan))]
+            for pdt in (torch.float32, torch.bfloat16):
+                inv = torch.rand(nl, generator=g, device=dev).to(pdt)
+                w_ = torch.rand(nl, generator=g, device=dev).to(pdt)
+                p_, x_ = rnd(dtype=pdt), rnd()
+                cases += [
+                    ("cg_kernel_a" + b_,
+                     (u, p_, inv, x_, *sc, sK, saT, splan)),
+                    (f"cg_kernel_a{b_}_deferred",
+                     (u, p_, inv, sc[0], sK, saT, splan)),
+                    ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1]))]
+            for name, args in cases:
+                got = kernels.WRAPPERS[name](*args)
+                ref = getattr(kernels, name + "_plain")(*args)
+                if isinstance(got, torch.Tensor):
+                    got, ref = (got,), (ref,)
+                # outputs of the stack's shape elementwise; partials as
+                # per-RHS totals
+                rels += [rel_err(a, b)[1] if a.shape == b.shape
+                         else rhs_rel(a, b, k) for a, b in zip(got, ref)]
         check(max(rels) <= 1e-5, f"p={p} (n={sdisc.n_loc}, E={sdisc.E}): "
-              f"apply and kernel A match their plain versions "
+              f"every kernel, one RHS and three, matches its plain version "
               f"({max(rels):.1e} <= 1e-5)")
 
-    # -- 3. the main path: solve_local in its three modes ---------------------
+    # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}), f32, "
-        f"max_iter={MAX_ITER}")
+        f"max_iter={MAX_ITER} {at()}")
     free, to_local = ctx["free_local"], ctx["to_local"]
     w = ctx["ex"].weights_T(torch.float32, dev)
     bL = to_local(np.asarray(prob._b) + prob._neumann)
+    u_d = np.where(prob._dirichlet_mask, prob._dirichlet_vals, 0.0)
 
-    def true_residual(u):
+    def true_residual(u, b=bL):
         """||b - A u|| on the free rows, weighted: one f32 apply."""
-        rt = torch.where(free, bL - ctx["A_raw"](to_local(u)), 0.0)
+        rt = torch.where(free, b - ctx["A_raw"](to_local(u)), 0.0)
         return float(torch.sqrt(torch.sum(rt * rt * w)))
 
-    r0 = true_residual(np.where(prob._dirichlet_mask, prob._dirichlet_vals,
-                                0.0))
+    r0 = true_residual(u_d)
+    u_dL = to_local(u_d)
+
+    def copy_gap(x, u):
+        """Largest difference between the L-vector solution (the lift plus
+        the solver's x) and its global field localized again (one copy of
+        each shared node), relative to the solution's max."""
+        xL = x.to(u_dL.dtype) + u_dL
+        return float((to_local(u) - xL).abs().max() / xL.abs().max())
+    # the three main-path modes (also driven by the profiles and phase 4),
+    # and deferred x; each mode's tag is the variant of kernels A and B it
+    # runs
     modes = {"plain": dict(cg_kernel="plain"),
              "fused": dict(cg_kernel="fused"),
              "fused-bf16p": dict(cg_kernel="auto", p_dtype=torch.bfloat16)}
-    runs = [(m, tol) for tol in (TOL_ALL, TOL_F32) for m in modes]
+    single = dict(modes, **{
+        f"fused-m{DEFER}": dict(cg_kernel="fused", defer_x=DEFER),
+        f"fused-bf16p-m{DEFER}": dict(cg_kernel="fused",
+                                      p_dtype=torch.bfloat16,
+                                      defer_x=DEFER)})
+    batch = {f"batch-{m}": kw for m, kw in (
+        ("plain", dict(cg_kernel="plain")),
+        ("fused", dict(cg_kernel="fused")),
+        ("fused-bf16p", dict(cg_kernel="fused", p_dtype=torch.bfloat16)),
+        (f"fused-m{DEFER}", dict(cg_kernel="fused", defer_x=DEFER)),
+        (f"fused-bf16p-m{DEFER}", dict(cg_kernel="auto",
+                                       p_dtype=torch.bfloat16,
+                                       defer_x=DEFER)))}
+
+    def tag(kw):
+        if kw["cg_kernel"] == "plain":
+            return None
+        return "bf16" if kw.get("p_dtype") is not None else "f32"
+
+    all_modes = dict(single, **batch)
+    runs = [(m, tol) for tol in (TOL_ALL, TOL_F32) for m in single
+            if (m, tol) != (f"fused-bf16p-m{DEFER}", TOL_F32)]
     solves, launches = {}, {m: dict.fromkeys(kernels.WRAPPERS, 0)
-                            for m in modes}
-    for name, tol in runs:
+                            for m in all_modes}
+
+    def drive(name, fn):
+        """Run one solve with the launch counts set to 0 just before it and
+        read just after; returns (solution, seconds)."""
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        sol = prob.solve_local(tol=tol, max_iter=MAX_ITER, **modes[name])
+        sol = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        for k, c in kernels.launch_counts().items():
-            launches[name][k] += c
+        for k_, c in kernels.launch_counts().items():
+            launches[name][k_] += c
+        return sol, dt
+
+    for name, tol in runs:
+        sol, dt = drive(name, lambda: prob.solve_local(
+            tol=tol, max_iter=MAX_ITER, **single[name]))
         its, issued = int(sol.cg.iterations), sol.cg.issued
         res = float(sol.cg.residual_norm)
         true_rel = true_residual(sol.u) / r0
+        gap = copy_gap(sol.cg.x, sol.u)
         key = f"{name}@{tol:g}"
         solves[key] = dict(iterations=its, issued=issued, seconds=dt,
                            ms_per_issued=1e3 * dt / issued,
                            recurrence_rel=res / r0, true_rel=true_rel,
-                           converged=bool(sol.cg.converged))
+                           copy_gap=gap, converged=bool(sol.cg.converged))
         log(f"  {key}: {its} its / {issued} issued, {dt:.3f} s, "
             f"{1e3 * dt / issued:.4f} ms/iteration issued, residual "
-            f"{res / r0:.3e} relative (true {true_rel:.3e}), converged "
-            f"{bool(sol.cg.converged)}")
+            f"{res / r0:.3e} relative (true {true_rel:.3e}), copy gap "
+            f"{gap:.1e}, converged {bool(sol.cg.converged)}")
         check(bool(np.isfinite(sol.u).all()) and sol.u.shape
               == (disc.n_nodes,), f"{key}: finite solution of the mesh's "
               "shape")
         if (name, tol) != ("fused-bf16p", TOL_F32):
             check(bool(sol.cg.converged), f"{key} converged")
-    log(f"  launches on the main path: {launches}")
-    for tol, names in ((TOL_ALL, ("fused", "fused-bf16p")),
-                       (TOL_F32, ("fused",))):
+    for tol, names in ((TOL_ALL, ("fused", "fused-bf16p", f"fused-m{DEFER}",
+                                  f"fused-bf16p-m{DEFER}")),
+                       (TOL_F32, ("fused", f"fused-m{DEFER}"))):
         p_its = solves[f"plain@{tol:g}"]["iterations"]
         for name in names:
             its = solves[f"{name}@{tol:g}"]["iterations"]
             check(p_its / ITER_RATIO <= its <= ITER_RATIO * p_its,
                   f"{name}@{tol:g} iterations ({its}) within a factor "
                   f"{ITER_RATIO} of plain ({p_its})")
+
+    # K forcings sharing the operator: the single-RHS forcing 1.0 and
+    # K - 1 nodal fields from a seed
+    log(f"[3b] solve_local_batch, K={K} right-hand sides {at()}")
+    F = np.concatenate([np.ones((1, disc.n_nodes)),
+                        np.random.RandomState(7).standard_normal(
+                            (K - 1, disc.n_nodes))])
+    bL_rows = [to_local(disc.scatter_add(disc.gather(f) * disc.detJxW)
+                        .astype(np.float32) + prob._neumann) for f in F]
+    r0_b = np.array([true_residual(u_d, b) for b in bL_rows])
+    # the bench's bf16 configuration at TOL_F32: its stopping point is
+    # recorded, not required to converge
+    tight_bf16 = (f"batch-fused-bf16p-m{DEFER}", TOL_F32)
+    bruns = [(m, TOL_ALL) for m in batch] + [(f"batch-fused-m{DEFER}",
+                                              TOL_F32), tight_bf16]
+    for name, tol in bruns:
+        sol, dt = drive(name, lambda: prob.solve_local_batch(
+            F, tol=tol, max_iter=MAX_ITER, **batch[name]))
+        its, issued = sol.cg.iterations.tolist(), sol.cg.issued
+        res = sol.cg.residual_norm.cpu().numpy() / r0_b
+        true_rel = np.array([true_residual(sol.u[j], bL_rows[j])
+                             for j in range(K)]) / r0_b
+        conv = [bool(c) for c in sol.cg.converged.tolist()]
+        gap = max(copy_gap(sol.cg.x[j], sol.u[j]) for j in range(K))
+        key = f"{name}@{tol:g}"
+        solves[key] = dict(iterations=its, issued=issued, seconds=dt,
+                           ms_per_issued_per_rhs=1e3 * dt / issued / K,
+                           residual_rel=res.tolist(),
+                           true_rel=true_rel.tolist(), copy_gap=gap,
+                           converged=conv)
+        log(f"  {key}: its {its} / {issued} issued, {dt:.3f} s, "
+            f"{1e3 * dt / issued / K:.4f} ms/iteration issued per RHS, "
+            f"residual {np.array2string(res, precision=3)} relative (true "
+            f"{np.array2string(true_rel, precision=3)}), copy gap "
+            f"{gap:.1e}, converged {conv}")
+        check(bool(np.isfinite(sol.u).all()) and sol.u.shape
+              == (K, disc.n_nodes), f"{key}: finite solutions of shape "
+              f"({K}, {disc.n_nodes})")
+        if (name, tol) == tight_bf16:
+            continue
+        check(all(conv), f"{key}: every RHS converged")
+        p_its = solves[f"plain@{tol:g}"]["iterations"]
+        check(p_its / ITER_RATIO <= its[0] <= ITER_RATIO * p_its,
+              f"{key} RHS 0 iterations ({its[0]}) within a factor "
+              f"{ITER_RATIO} of the single-RHS plain solve ({p_its})")
+    log("  launches on the main path: " + str(
+        {m: {k_: c for k_, c in d.items() if c} for m, d in launches.items()}))
+
+    # steady-state ms per issued iteration (per RHS): two runs of
+    # STEADY[0] and STEADY[1] iterations at tol = 0, whose difference
+    # cancels each solve's setup (the forcings, staging, host copies);
+    # every mode twice, in the modes' order and then in reverse
+    steady = {m: [] for m in all_modes}
+    for order in (list(all_modes), list(all_modes)[::-1]):
+        for name in order:
+            kw, k_ = all_modes[name], K if name in batch else 1
+            ts = []
+            for it in STEADY:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sol = (prob.solve_local_batch(F, tol=0.0, max_iter=it, **kw)
+                       if k_ > 1 else prob.solve_local(tol=0.0, max_iter=it,
+                                                       **kw))
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0, sol.cg.issued))
+            steady[name].append(1e3 * (ts[1][0] - ts[0][0])
+                                / (ts[1][1] - ts[0][1]) / k_)
+    log(f"[3c] steady-state ms per issued iteration per RHS ({STEADY[1]} - "
+        f"{STEADY[0]} iterations at tol 0; forward, reverse) {at()}: "
+        + ", ".join(f"{m} {v[0]:.4f} {v[1]:.4f}" for m, v in steady.items()))
+    solves["steady_ms_per_issued_per_rhs"] = steady
+    solves["catch_up_ms_per_super_iteration"] = catch_up
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
     # where one solve's time goes: PROFILE_ITERS iterations of each mode
@@ -364,12 +567,17 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, kw in modes.items():
+    profiled = [(name, lambda kw=kw: prob.solve_local(
+        tol=0.0, max_iter=PROFILE_ITERS, **kw)) for name, kw in modes.items()]
+    bname = f"batch-fused-bf16p-m{DEFER}"
+    profiled.append((bname, lambda: prob.solve_local_batch(
+        F, tol=0.0, max_iter=PROFILE_ITERS, **batch[bname])))
+    for name, run in profiled:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            prob.solve_local(tol=0.0, max_iter=PROFILE_ITERS, **kw)
+            run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = [e for e in prof.key_averages()
@@ -378,7 +586,7 @@ def main() -> int:
         log(f"  profile {name}: {PROFILE_ITERS} iterations in {wall:.3f} s "
             f"wall (profiled), device busy {busy:.3f} s "
             f"({busy / wall:.0%})")
-        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"    {e.self_device_time_total / 1e3 / PROFILE_ITERS:8.4f} "
                 f"ms/iter  x{e.count / PROFILE_ITERS:5.2f}  {e.key[:70]}")
 
@@ -395,20 +603,20 @@ def main() -> int:
         err_max = float(np.abs(sol.u - 0.1 * (x + y)).max())
         err_l2 = mprob.l2_error(sol.u, lambda x, y: 0.1 * (x + y))
         log(f"[4] manufactured 32x32 p=8 {name}: {int(sol.cg.iterations)} "
-            f"its, max err {err_max:.3e}, l2 err {err_l2:.3e}")
+            f"its, max err {err_max:.3e}, l2 err {err_l2:.3e} {at()}")
         check(bool(sol.cg.converged) and err_l2 < 1e-4,
               f"manufactured solution ({name}): l2 error below 1e-4")
 
     # -- 5. report --------------------------------------------------------------
-    # launches per row: the apply over all runs (the fused modes call it
-    # for their true-residual restarts), kernels A and B in the mode that
-    # runs each variant
-    total = {k: sum(c[k] for c in launches.values())
-             for k in kernels.WRAPPERS}
-    row_launches = {"affine_apply_dss": total["affine_apply_dss"]}
-    for tag, mode in (("f32", "fused"), ("bf16", "fused-bf16p")):
-        for k in ("cg_kernel_a", "cg_kernel_b"):
-            row_launches[f"{k}[{tag}]"] = launches[mode][k]
+    # launches per row: over the phase-3 solves that run the row's variant
+    # (the applies: all solves; plain CG calls them every iteration, the
+    # fused modes for their true-residual restarts and checks)
+    row_launches = {}
+    for r in rows:
+        base, _, t = r["name"].partition("[")
+        row_launches[r["name"]] = sum(
+            launches[m][base] for m, kw in all_modes.items()
+            if not t or tag(kw) == t[:-1])
     out = []
     for r in rows:
         base = r["name"].split("[")[0]

@@ -1,14 +1,17 @@
 // affine_apply_dss: out = DSS(sum_c a_c K_c u) on transposed (n, E) f32
-// L-vectors, for affine meshes.
+// L-vectors, for affine meshes, or on a (k * n, E) stack of k of them that
+// share the operator (K, the affine scales, the class tables).
 //
 // Replaces the TPU kernel make_fused_affine_laplacian_T
 // (spectralelementmethod_tpu/ops/pallas_kernels.py:986, pallas_call at
-// :1086), the operator apply of every plain-CG iteration on the main path.
+// :1086; n_rhs = k for the stack), the operator apply of every plain-CG
+// iteration on the main path (k = 1) and of the batched plain CG.
 //
 // What bounds it on an H100 (p = 8, n = 81, E = 99,856): the assembled-K form
 // does 2 * 3 * n^2 * E = 3.93 GFLOP of f32 FMAs, 59 us at the SXM part's
 // 67 TFLOP/s on the CUDA cores, against 20 us for the 67.6 MB it must move
 // (u, out, a and the class masks) at 3.35 TB/s: it is bound by operations.
+// A k-stack does k times both.
 //
 // Design: two launches.  affine_local_kernel runs one thread per element
 // with the element's n values in registers and K in dynamic shared memory
@@ -19,6 +22,7 @@
 // p = 8) and keeps every cross-element read out of the product kernel.  No
 // TPU mechanism is carried over: no lane windows or halo triples, no far
 // split, no procedural masks, no bf16x3 split (the FMAs are true f32).
+// The RHS of a stack is blockIdx.y in both launches.
 #include "sem_kernels.cuh"
 
 namespace sem {
@@ -35,6 +39,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   load_K<N>(K, Ks);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
+  u += (size_t)blockIdx.y * N * E;
+  out += (size_t)blockIdx.y * N * E;
+  B += (size_t)blockIdx.y * nb * E;
   constexpr int NP = pad4(N);
   float uv[NP];
 #pragma unroll
@@ -52,13 +59,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <int N>
 cudaError_t launch_affine_local(const float* u, const float* K,
                                 const float* aT, float* out, float* B, int E,
-                                int nb, cudaStream_t stream) {
+                                int nb, int k, cudaStream_t stream) {
   constexpr size_t smem = k_smem_bytes<N>();
   cudaError_t err = cudaFuncSetAttribute(
       affine_local_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int grid = (E + kThreads - 1) / kThreads;
+  const dim3 grid((E + kThreads - 1) / kThreads, k);
   affine_local_kernel<N><<<grid, kThreads, smem, stream>>>(u, K, aT, out, B,
                                                            E, nb);
   return cudaGetLastError();
@@ -66,14 +73,14 @@ cudaError_t launch_affine_local(const float* u, const float* K,
 
 }  // namespace sem
 
-// u, out: (n, E) f32; K: (3, n, n) f32 (the blocks K_c); aT: (3, E) f32;
-// B: (nb, E) f32 scratch; row_ptr: (nb + 1,) int32; entries: (T, 4) int32;
-// masks: (C, E) bool.  Returns a cudaError_t code (0 on success).
+// u, out: (k * n, E) f32; K: (3, n, n) f32 (the blocks K_c); aT: (3, E)
+// f32; B: (k, nb, E) f32 scratch; row_ptr: (nb + 1,) int32; entries: (T, 4)
+// int32; masks: (C, E) bool.  Returns a cudaError_t code (0 on success).
 extern "C" int sem_affine_apply_dss(const void* u, const void* K,
                                     const void* aT, void* out, void* B,
                                     const void* row_ptr, const void* entries,
                                     const void* masks, int n, int E, int nb,
-                                    void* stream) {
+                                    int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* uf = static_cast<const float*>(u);
   const float* Kf = static_cast<const float*>(K);
@@ -84,7 +91,7 @@ extern "C" int sem_affine_apply_dss(const void* u, const void* K,
   switch (n) {
 #define SEM_CASE(NN)                                                       \
   case NN:                                                                 \
-    err = sem::launch_affine_local<NN>(uf, Kf, af, of, Bf, E, nb, s);      \
+    err = sem::launch_affine_local<NN>(uf, Kf, af, of, Bf, E, nb, k, s);   \
     break;
     SEM_FOR_EACH_N(SEM_CASE)
 #undef SEM_CASE
@@ -94,6 +101,6 @@ extern "C" int sem_affine_apply_dss(const void* u, const void* K,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sem::launch_dss_gather(
       Bf, of, static_cast<const int*>(row_ptr),
-      static_cast<const int4*>(entries), static_cast<const bool*>(masks), E,
-      nb, s));
+      static_cast<const int4*>(entries), static_cast<const bool*>(masks), n,
+      E, nb, k, s));
 }

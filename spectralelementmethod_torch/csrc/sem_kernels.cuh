@@ -13,6 +13,10 @@
 // and are gathered per roll class from B[src, e + delta] under the class
 // mask.  Masks are false wherever e + delta leaves [0, E), and the read is
 // guarded by the range as well.
+//
+// A stack of k right-hand sides is k (n, E) arrays one after the other,
+// (k * n, E); every kernel takes the RHS from blockIdx.y, so the k RHS share
+// K, the affine scales and the class tables, and k = 1 is the single array.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,15 +115,19 @@ __device__ __forceinline__ float affine_row(const float* Ks, int i,
 }
 
 // out[d, e] = B[d, e] + sum over the entries t of row d (row_ptr[d] ..
-// row_ptr[d + 1]) of mask[t.z, e] * B[t.x, e + t.y], for d < nb.
-// Entries are int4 (src_row, delta, mask_index, dst_row).
+// row_ptr[d + 1]) of mask[t.z, e] * B[t.x, e + t.y], for d < nb, for the RHS
+// blockIdx.y: B is its (nb, E) scratch block of a (k, nb, E) stack and out
+// its (n, E) block of a (k * n, E) stack.  Entries are int4 (src_row, delta,
+// mask_index, dst_row).
 __global__ void __launch_bounds__(kThreads)
     dss_gather_kernel(const float* __restrict__ B, float* __restrict__ out,
                       const int* __restrict__ row_ptr,
                       const int4* __restrict__ ent,
-                      const bool* __restrict__ masks, int E, int nb) {
+                      const bool* __restrict__ masks, int n, int E, int nb) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
+  B += (size_t)blockIdx.y * nb * E;
+  out += (size_t)blockIdx.y * n * E;
   for (int d = 0; d < nb; ++d) {
     float acc = B[(size_t)d * E + e];
     const int t1 = row_ptr[d + 1];
@@ -135,12 +143,12 @@ __global__ void __launch_bounds__(kThreads)
 
 inline cudaError_t launch_dss_gather(const float* B, float* out,
                                      const int* row_ptr, const int4* ent,
-                                     const bool* masks, int E, int nb,
-                                     cudaStream_t stream) {
+                                     const bool* masks, int n, int E, int nb,
+                                     int k, cudaStream_t stream) {
   if (nb == 0) return cudaSuccess;
-  const int grid = (E + kThreads - 1) / kThreads;
+  const dim3 grid((E + kThreads - 1) / kThreads, k);
   dss_gather_kernel<<<grid, kThreads, 0, stream>>>(B, out, row_ptr, ent,
-                                                    masks, E, nb);
+                                                    masks, n, E, nb);
   return cudaGetLastError();
 }
 

@@ -8,6 +8,8 @@ port's operator, exchange plan and CG operands from them.  Fed the JAX
 package's arrays, both packages then compute the same function on the same
 data, independently of the port's own (copied) host setup; that is how the
 tests hold each kernel's plain version against its TPU counterpart.
+:meth:`InteropOperator.fused_kernels` builds the deferred and batched
+kernels from that state, and ``A.stacked(k)`` is the k-RHS apply.
 
 Arrays padded with inert elements (zero affine scales, false masks, zero
 weights, as the reference pads for its TPU lane tiling) are accepted as
@@ -46,6 +48,16 @@ class InteropOperator(NamedTuple):
     def dot_T(self, uT: torch.Tensor, vT: torch.Tensor) -> torch.Tensor:
         prod = uT * vT
         return torch.sum(prod * self.w.to(prod.dtype))
+
+    def fused_kernels(self, n_rhs: int = 1, defer_x: bool = False):
+        """``(kA, kB)`` bound to this operator: single-RHS
+        (:func:`.ops.kernels.make_fused_cg_kernels`) for ``n_rhs == 1``,
+        else for (n_rhs n, E) stacks; ``defer_x`` drops kernel A's x."""
+        if n_rhs == 1:
+            return kernels.make_fused_cg_kernels(
+                self.A.Kst, self.A.aT, self.plan, defer_x=defer_x)
+        return kernels.make_fused_cg_kernels_batched(
+            self.A.Kst, self.A.aT, self.plan, n_rhs, defer_x=defer_x)
 
 
 def operator_from_numpy(Kcat, a, edge_classes, vert_classes, gather_hier,

@@ -7,14 +7,15 @@ Port of the 2D main path of the JAX package's ``models/poisson.py``:
     n . grad u = g_N     on named Neumann boundaries
 
 The model and its boundary data are host numpy (as in the reference);
-:meth:`Poisson.solve_local` runs Jacobi-preconditioned CG on transposed
-(n, E) L-vectors on a device: the CUDA card by default, or the CPU with
-``device="cpu"``, where every kernel runs its plain PyTorch version.
-Ported: affine 2D meshes, the Jacobi preconditioner, ``cg_kernel`` in
-{``auto``, ``plain``, ``fused``}, ``p_dtype`` in {None, ``torch.bfloat16``},
-the transposed (n, E) layout.  Not yet: curved meshes, 3D, fdm/pmg
-preconditioners, ``certify``, ``defer_x``, batched solves (ROADMAP
-queues).
+:meth:`Poisson.solve_local` (one forcing) and :meth:`Poisson.
+solve_local_batch` (k forcings, one operator) run Jacobi-preconditioned CG
+on transposed (n, E) L-vectors on a device: the CUDA card by default, or
+the CPU with ``device="cpu"``, where every kernel runs its plain PyTorch
+version.  Ported: affine 2D meshes, the Jacobi preconditioner,
+``cg_kernel`` in {``auto``, ``plain``, ``fused``}, ``p_dtype`` in {None,
+``torch.bfloat16``}, ``defer_x``, the transposed (n, E) layout.  Not yet:
+curved meshes, 3D, fdm/pmg preconditioners, ``certify``, the ``en``
+layout (ROADMAP queues).
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ import torch
 from ..config import resolve_device, torch_dtype
 from ..core.discretization import Discretization
 from ..ops import kernels, sumfac
-from ..solver.cg import CGResult, cg, cg_fused, jacobi_preconditioner
+from ..solver.cg import (CGResult, auto_defer_x, auto_defer_x_batched, cg,
+                         cg_batched, cg_fused, cg_fused_batched,
+                         hbm_residency_regime, jacobi_preconditioner)
 
 
 class PoissonSolution(NamedTuple):
@@ -63,6 +66,12 @@ def fused_cg_operands(diagT, freeT, wT, p_dtype, device):
         inv = inv.to(p_dtype)
         w_free = w_free.to(p_dtype)
     return inv, w_free
+
+
+def _check_p_dtype(p_dtype) -> None:
+    if p_dtype is not None and p_dtype != torch.bfloat16:
+        raise ValueError(f"p_dtype must be None or torch.bfloat16, "
+                         f"got {p_dtype}")
 
 
 class BoundaryConditionMixin:
@@ -200,13 +209,14 @@ class Poisson(BoundaryConditionMixin):
         M = jacobi_preconditioner(to_local(self.operator_diagonal()),
                                   free_local)
         ctx = dict(ex=ex, to_local=to_local, A=A, A_raw=A_raw, M=M,
-                   free_local=free_local, free_np=free_np)
+                   free_local=free_local, free_np=free_np, Dhat=Dhat)
         self._op_cache[key] = ctx
         return ctx
 
     def solve_local(self, tol: float = 1e-12, max_iter: int | None = None,
                     cg_kernel: str = "auto",
                     p_dtype=None,
+                    defer_x: int | str = 0,
                     device=None) -> PoissonSolution:
         """Solve with Jacobi PCG on element-local (n, E) L-vectors.
 
@@ -223,6 +233,12 @@ class Poisson(BoundaryConditionMixin):
         ``p_dtype``: ``torch.bfloat16`` stores the fused-CG search
         direction in bf16 (Ap is computed from the stored direction, so
         the r recurrence stays exact).
+        ``defer_x``: m >= 2 (dividing 64) defers the fused-CG solution
+        update — kernel A skips x and the loop applies
+        ``x += sum alpha_j p_j`` once per m iterations
+        (:func:`..solver.cg.cg_fused`); only meaningful with a fused
+        ``cg_kernel``.  ``"auto"`` resolves as the reference does
+        (:func:`..solver.cg.auto_defer_x`).
         Iterates are mathematically those of the reference's
         ``solve_local``; the stopping rule is ``||r|| <= tol ||b||`` in the
         multiplicity-weighted norm.
@@ -235,9 +251,7 @@ class Poisson(BoundaryConditionMixin):
                 "path)")
         if cg_kernel not in ("auto", "plain", "fused"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
-        if p_dtype is not None and p_dtype != torch.bfloat16:
-            raise ValueError(f"p_dtype must be None or torch.bfloat16, "
-                             f"got {p_dtype}")
+        _check_p_dtype(p_dtype)
 
         ctx = self._local_setup(dev)
         ex, to_local = ctx["ex"], ctx["to_local"]
@@ -254,6 +268,8 @@ class Poisson(BoundaryConditionMixin):
         if max_iter is None:
             max_iter = max(200, 20 * int(np.sqrt(disc.ndof)))
 
+        if defer_x == "auto":
+            defer_x = auto_defer_x(ex.E, disc.n_loc)
         f32 = np.dtype(self.dtype) == np.float32
         want_fused = cg_kernel == "fused" or (
             cg_kernel == "auto" and p_dtype is not None
@@ -261,23 +277,155 @@ class Poisson(BoundaryConditionMixin):
         if cg_kernel == "fused" and not f32:
             raise ValueError("cg_kernel='fused' requires a float32 model")
         if want_fused and f32:
-            key = ("cg_fused", str(p_dtype), str(dev))
+            key = ("cg_fused", str(p_dtype), bool(defer_x), str(dev))
             fused = self._op_cache.get(key)
             if fused is None:
                 fused = self._op_cache[key] = (
-                    *kernels.make_fused_cg_kernels(A.Kst, A.aT, A.plan),
+                    *kernels.make_fused_cg_kernels(A.Kst, A.aT, A.plan,
+                                                   defer_x=bool(defer_x)),
                     *self._fused_cg_operands(ex, ctx["free_np"], p_dtype,
                                              dev))
             kA, kB, inv, w_free = fused
             # A enables the true-residual restart when the bf16-direction
             # recurrence floors just above stop (see cg_fused)
             res = cg_fused(kA, kB, r, inv=inv, w_free=w_free, tol=tol,
-                           max_iter=max_iter, p_dtype=p_dtype, A=A)
+                           max_iter=max_iter, p_dtype=p_dtype,
+                           defer_x=defer_x, A=A)
         else:
             w = ex.weights_T(self.dtype, dev)
             res = cg(A, r, M=M, tol=tol, max_iter=max_iter, dot_weight=w)
         uL = u_dL + res.x.to(u_dL.dtype)
         u = ex.global_from_local_T(uL.cpu().numpy())
+        return PoissonSolution(u, res)
+
+    def solve_local_batch(self, forcings, tol: float = 1e-12,
+                          max_iter: int | None = None,
+                          precond: str = "jacobi",
+                          vector_layout: str = "auto",
+                          cg_kernel: str = "auto",
+                          p_dtype=None,
+                          defer_x: int | str = 0,
+                          device=None) -> PoissonSolution:
+        """Solve ``-div(c grad u_j) = f_j`` for a batch of k forcings.
+
+        One operator, one preconditioner and one CG ladder for all k
+        right-hand sides: each RHS converges on its own (per-RHS alpha,
+        beta and freezing), and every host synchronisation and operator
+        setup is shared.  The boundary conditions currently set are shared
+        by every solve, with one Dirichlet lift (one raw apply).
+
+        ``forcings``: a sequence of k forcing fields (callables ``f(x, y)``
+        or scalars), or a (k, n_nodes) array of nodal forcing values (the
+        weak RHS is formed here in either case).  ``device`` as in
+        :meth:`solve_local`.
+        ``cg_kernel``: ``"plain"`` — :func:`..solver.cg.cg_batched` over the
+        k-stack apply (:func:`..ops.kernels.affine_apply_dss_batched`);
+        ``"fused"`` — :func:`..solver.cg.cg_fused_batched` over the batched
+        kernel pair (float32 models; ``p_dtype=torch.bfloat16`` stores the
+        k directions in bf16); ``"auto"`` — fused when ``p_dtype`` asks for
+        bf16 on the card and k >= 2 (or the iterate is past
+        :func:`..solver.cg.hbm_residency_regime`), as the reference decides
+        for affine meshes.  ``defer_x``: m >= 2 dividing 64 defers every
+        RHS's solution update (fused only); ``"auto"`` resolves by
+        :func:`..solver.cg.auto_defer_x_batched`.
+
+        Returns a :class:`PoissonSolution` whose ``u`` is (k, n_nodes) and
+        whose ``cg`` fields are batched (k leading axis).
+        """
+        dev = resolve_device(device)
+        disc = self.disc
+        if disc.mesh.ndim != 2:
+            raise NotImplementedError(
+                "3D solve_local_batch is not ported yet (ROADMAP Queue 1, "
+                "the 3D path)")
+        if precond != "jacobi":
+            raise NotImplementedError(
+                f"precond={precond!r} is not ported yet (ROADMAP Queue 1: "
+                "pmg item 3, fdm item 8)")
+        if vector_layout not in ("auto", "ne"):
+            raise NotImplementedError(
+                f"vector_layout={vector_layout!r}: only the transposed "
+                "(n, E) 'ne' layout is ported (ROADMAP Queue 2 item 8)")
+        if cg_kernel not in ("auto", "plain", "fused"):
+            raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
+        _check_p_dtype(p_dtype)
+
+        ctx = self._local_setup(dev)
+        ex, to_local = ctx["ex"], ctx["to_local"]
+        free_local = ctx["free_local"]
+
+        # weak RHS rows: b_j = scatter(f_j detJxW) + the shared Neumann data
+        coords = [disc.x_coeffs[:, d] for d in range(disc.mesh.ndim)]
+        nodal = (not callable(forcings) and hasattr(forcings, "__len__")
+                 and np.asarray(forcings[0]).ndim == 1)
+        if nodal:
+            forcings = np.asarray(forcings, dtype=np.float64)
+        rows = []
+        for f in forcings:
+            f_gll = (disc.gather(np.asarray(f)) if nodal
+                     else np.asarray(_as_callable(f)(*coords)))
+            b = disc.scatter_add(
+                np.asarray(f_gll * disc.detJxW)).astype(self.dtype)
+            rows.append(b + self._neumann)
+        u_d = np.where(self._dirichlet_mask, self._dirichlet_vals, 0.0)
+        u_dL = to_local(u_d)
+        Au_d = ctx["A_raw"](u_dL)       # the shared lift: one raw apply
+        R = torch.stack([torch.where(free_local, to_local(b) - Au_d, 0.0)
+                         for b in rows])
+        k = int(R.shape[0])
+        if max_iter is None:
+            max_iter = max(200, 20 * int(np.sqrt(disc.ndof)))
+
+        if defer_x == "auto":
+            defer_x = auto_defer_x_batched(ex.E, disc.n_loc, k)
+        f32 = np.dtype(self.dtype) == np.float32
+        if cg_kernel == "auto":
+            cg_kernel = ("fused" if p_dtype is not None and f32
+                         and dev.type == "cuda"
+                         and (k >= 2 or hbm_residency_regime(ex.E,
+                                                             disc.n_loc))
+                         else "plain")
+        if cg_kernel == "fused" and not f32:
+            raise ValueError("cg_kernel='fused' requires a float32 model")
+
+        bkey = ("A_batch", k, str(dev))
+        A_wb = self._op_cache.get(bkey)
+        if A_wb is None:
+            A_wb = self._op_cache[bkey] = sumfac.make_multi_rhs_laplacian_T(
+                ex, self._G_host.reshape(disc.E, 3, -1),
+                ctx["Dhat"], k, free_local=free_local,
+                assume_masked_input=True, device=dev)
+
+        if cg_kernel == "fused":
+            fkey = ("cg_fused_batch", k, str(p_dtype), bool(defer_x),
+                    str(dev))
+            fused = self._op_cache.get(fkey)
+            if fused is None:
+                fused = self._op_cache[fkey] = (
+                    *kernels.make_fused_cg_kernels_batched(
+                        A_wb.Kst, A_wb.aT, A_wb.plan, k,
+                        defer_x=bool(defer_x)),
+                    *self._fused_cg_operands(ex, ctx["free_np"], p_dtype,
+                                             dev))
+            kA, kB, inv, w_free = fused
+            n = disc.n_loc
+
+            def A_flat(xf):
+                # the masked operator on flat (k n, E) stacks, for the
+                # true-residual verification of cg_fused_batched
+                return A_wb(xf.view(k, n, -1)).view(k * n, -1)
+
+            res = cg_fused_batched(kA, kB, R, inv=inv, w_free=w_free,
+                                   tol=tol, max_iter=max_iter,
+                                   p_dtype=p_dtype, defer_x=defer_x,
+                                   A=A_flat)
+        else:
+            w = ex.weights_T(self.dtype, dev)
+            res = cg_batched(A_wb, R, M=ctx["M"], tol=tol, max_iter=max_iter,
+                             dot_weight=w, whole_batch=True)
+        # one device-to-host copy for the whole batch
+        X = (res.x.to(u_dL.dtype) + u_dL).cpu().numpy()
+        u = np.stack([ex.global_from_local_T(X[j]) for j in range(k)])
         return PoissonSolution(u, res)
 
     def _fused_cg_operands(self, ex, free_np, p_dtype, device):

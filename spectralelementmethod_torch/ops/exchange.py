@@ -538,7 +538,8 @@ class DSSPlan:
 
 
 def roll_dss_T(vT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
-    """Plain roll-class DSS of an (n, E) array (no tails): for every class
+    """Plain roll-class DSS of an (n, E) array, or of a (k, n, E) stack of
+    them, each on its own (no tails): for every class
     ``out[dst rows] += where(mask, roll(v[src rows], -delta), 0)``.
 
     ``torch.roll`` wraps around the element axis; the masks are False on
@@ -546,12 +547,13 @@ def roll_dss_T(vT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
     out = vT.clone()
     masks = plan.masks
     for d0, s0, L, delta, flip, k in plan.edge_blocks:
-        src = torch.roll(vT[s0:s0 + L], -delta, dims=1)
+        src = torch.roll(vT[..., s0:s0 + L, :], -delta, dims=-1)
         if flip:
-            src = src.flip(0)
-        out[d0:d0 + L] += torch.where(masks[k], src, 0.0)
+            src = src.flip(-2)
+        out[..., d0:d0 + L, :] += torch.where(masks[k], src, 0.0)
     for d, s, delta, k in plan.vert_rows:
-        out[d] += torch.where(masks[k], torch.roll(vT[s], -delta), 0.0)
+        out[..., d, :] += torch.where(
+            masks[k], torch.roll(vT[..., s, :], -delta, dims=-1), 0.0)
     return out
 
 

@@ -1,19 +1,28 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Three kernels replace the TPU Pallas kernels that the 2D affine
-``solve_local`` runs (sources in ``../csrc``, one shared library each):
+Three CUDA sources (``../csrc``, one shared library each) replace the TPU
+Pallas kernels that the 2D affine ``solve_local`` and ``solve_local_batch``
+run.  Each takes one right-hand side or a ``(k * n, E)`` stack of k that
+share the operator (the RHS is a grid dimension of every launch), and each
+wrapper below launches one variant:
 
-* :func:`affine_apply_dss` — ``DSS(sum_c a_c K_c u)``, the operator apply
-  (``make_fused_affine_laplacian_T``);
-* :func:`cg_kernel_a` — the direction half of a fused PCG iteration
-  (kernel A of ``make_fused_cg_kernels``);
-* :func:`cg_kernel_b` — the residual half (``_build_cg_kernel_b``).
+* :func:`affine_apply_dss` / :func:`affine_apply_dss_batched` —
+  ``DSS(sum_c a_c K_c u)``, the operator apply
+  (``make_fused_affine_laplacian_T``, ``n_rhs = 1`` / k);
+* :func:`cg_kernel_a` / :func:`cg_kernel_a_deferred` — the direction half
+  of a fused PCG iteration, with and without the lagged x update (kernel A
+  of ``make_fused_cg_kernels``, ``defer_x`` False / True);
+  :func:`cg_kernel_a_batched` / :func:`cg_kernel_a_batched_deferred` — the
+  same for k RHS (``make_fused_cg_kernels_batched``);
+* :func:`cg_kernel_b` / :func:`cg_kernel_b_batched` — the residual half
+  (``_build_cg_kernel_b``, ``_build_cg_kernel_b_batched``).
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and for CUDA tensors launches the kernel or raises: there is no
 fallback.  Each keeps a launch count (``wrapper.launches``), incremented
-only where the kernel is launched.
+only where the kernel is launched.  Per-RHS scalars of the batched kernels
+are (k,) float32 tensors on the device; their partial sums are (G, k).
 
 The libraries are compiled with ``nvcc`` for ``sm_90a`` on first use into
 ``../_build`` (keyed by a hash of the sources and flags), in parallel with
@@ -41,13 +50,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _HEADERS = ("sem_kernels.cuh",)
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
+_APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
+                        "cg_kernel_b.cu")
 
 #: kernel name -> (source in csrc/, the TPU kernel it replaces)
 KERNELS = {
-    "affine_apply_dss": ("affine_apply_dss.cu", f"{_REPLACED}:986"),
-    "cg_kernel_a": ("cg_kernel_a.cu", f"{_REPLACED}:1480"),
-    "cg_kernel_b": ("cg_kernel_b.cu", f"{_REPLACED}:1548"),
+    "affine_apply_dss": (_APPLY, f"{_REPLACED}:986"),
+    "affine_apply_dss_batched": (_APPLY, f"{_REPLACED}:986"),
+    "cg_kernel_a": (_CG_A, f"{_REPLACED}:1480"),
+    "cg_kernel_a_deferred": (_CG_A, f"{_REPLACED}:1423"),
+    "cg_kernel_a_batched": (_CG_A, f"{_REPLACED}:2153"),
+    "cg_kernel_a_batched_deferred": (_CG_A, f"{_REPLACED}:2128"),
+    "cg_kernel_b": (_CG_B, f"{_REPLACED}:1548"),
+    "cg_kernel_b_batched": (_CG_B, f"{_REPLACED}:2189"),
 }
+#: the sources, one shared library each
+SOURCES = (_APPLY, _CG_A, _CG_B)
 #: elements per block of the product kernels (one denominator partial each)
 THREADS = 256
 #: nodes per element with a compiled instantiation: (p + 1)^2 for p = 2..8
@@ -57,13 +75,15 @@ SUPPORTED_N = (9, 16, 25, 36, 49, 64, 81)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "sem_affine_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
-    "sem_cg_kernel_a_f32": [_P] * 16 + [_I] * 3 + [_P],
-    "sem_cg_kernel_a_bf16": [_P] * 16 + [_I] * 3 + [_P],
-    "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _I, _P],
-    "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _I, _P],
+    "sem_affine_apply_dss": [_P] * 8 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_f32": [_P] * 16 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_bf16": [_P] * 16 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_defer_f32": [_P] * 13 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_defer_bf16": [_P] * 13 + [_I] * 4 + [_P],
+    "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
+    "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
 }
-#: kernel B's grid: blocks per SM of the card
+#: kernel B's grid: blocks per SM of the card, over all RHS
 BLOCKS_PER_SM_B = 4
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -78,57 +98,56 @@ def _nvcc() -> str:
                        "are compiled from csrc/ on first use")
 
 
-def library_path(name: str) -> Path:
-    """Build target of kernel ``name``, keyed by its sources and flags."""
+def library_path(source: str) -> Path:
+    """Build target of ``source``, keyed by its sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (KERNELS[name][0], *_HEADERS):
+    for f in (source, *_HEADERS):
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict[str, str]:
-    """Compile the kernels' libraries that are missing, one ``nvcc`` per
-    source, all started together; returns ``{name: compiler output}``
-    (with ``-Xptxas -v``: registers, shared memory and spills per kernel).
+def build(sources=None) -> dict[str, str]:
+    """Compile the libraries that are missing, one ``nvcc`` per source, all
+    started together; returns ``{source: compiler output}`` (with
+    ``-Xptxas -v``: registers, shared memory and spills per kernel).
     Raises after every compiler has exited if any failed."""
-    names = list(KERNELS) if names is None else list(names)
+    sources = SOURCES if sources is None else tuple(sources)
     BUILD_DIR.mkdir(exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
+    for src in sources:
+        out = library_path(src)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name], _ = proc.communicate()
+    for src, (proc, tmp, out) in procs.items():
+        logs[src], _ = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:
-            failed.append(name)
+            failed.append(src)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
+                           + "\n".join(logs[s] for s in failed))
     return logs
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+def _lib(source: str) -> ctypes.CDLL:
+    lib = _LIBS.get(source)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([source])
+        lib = ctypes.CDLL(str(library_path(source)))
         for fn, argtypes in _SIGNATURES.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
         lib.sem_error_string.argtypes = [ctypes.c_int]
         lib.sem_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _LIBS[source] = lib
     return lib
 
 
@@ -167,6 +186,15 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.tensor(float(v), dtype=torch.float32, device=device)
 
 
+def _per_rhs(v, k: int, name: str, device) -> torch.Tensor:
+    """A (k,) float32 vector of per-RHS scalars, already on the device."""
+    if not isinstance(v, torch.Tensor):
+        raise TypeError(f"{name}: the batched kernels take a ({k},) float32 "
+                        "tensor on the device")
+    _require(v, name, (torch.float32,), (k,), device)
+    return v
+
+
 def _check_n(n: int) -> None:
     if n not in SUPPORTED_N:
         raise NotImplementedError(
@@ -183,8 +211,14 @@ def _check_plan(plan: DSSPlan, device) -> None:
         raise ValueError(f"plan is on {plan.device}, tensors on {device}")
 
 
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def _n_rhs(rows: int, n: int) -> int:
+    if n <= 0 or rows % n:
+        raise ValueError(f"{rows} rows are no stack of {n}-node L-vectors")
+    return rows // n
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _stream(device) -> int:
@@ -192,17 +226,50 @@ def _stream(device) -> int:
 
 
 def _local_product(uT, Kst, aT):
-    """S = sum_c a_c (K_c u): the element-local affine product."""
-    V = torch.matmul(Kst, uT)                        # (3, n, E)
+    """S = sum_c a_c (K_c u): the element-local affine product of an (n, E)
+    array or of each array of a (k, n, E) stack."""
+    V = torch.matmul(Kst if uT.dim() == 2 else Kst[:, None], uT)
     return aT[0] * V[0] + aT[1] * V[1] + aT[2] * V[2]
+
+
+def _col(v, like: torch.Tensor) -> torch.Tensor:
+    """Per-RHS scalars (a float, a 0-dim or a (k,) tensor) as (k, 1, 1)."""
+    return torch.as_tensor(v, dtype=like.dtype,
+                           device=like.device).reshape(-1, 1, 1)
 
 
 # -- kernel 1: the operator apply ---------------------------------------------
 
 def affine_apply_dss_plain(uT, Kst, aT, plan: DSSPlan):
     """Plain version of :func:`affine_apply_dss` (``torch.matmul`` plus the
-    roll-class DSS)."""
+    roll-class DSS); also takes a (k, n, E) stack."""
     return roll_dss_T(_local_product(uT, Kst, aT), plan)
+
+
+def affine_apply_dss_batched_plain(uT, Kst, aT, plan: DSSPlan):
+    """Plain version of :func:`affine_apply_dss_batched`."""
+    u3 = uT.reshape(-1, Kst.shape[1], uT.shape[-1])
+    return affine_apply_dss_plain(u3, Kst, aT, plan).reshape(uT.shape)
+
+
+def _launch_apply(uT, Kst, aT, plan, k: int):
+    dev = _cuda_device(uT)
+    _check_plan(plan, dev)
+    n, E = Kst.shape[-1], uT.shape[-1]
+    _check_n(n)
+    f32 = (torch.float32,)
+    _require(uT, "uT", f32, (k * n, E), dev)
+    _require(Kst, "Kst", f32, (3, n, n), dev)
+    _require(aT, "aT", f32, (3, E), dev)
+    out = torch.empty_like(uT)
+    B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
+    lib = _lib(_APPLY)
+    rc = lib.sem_affine_apply_dss(
+        _ptr(uT), _ptr(Kst), _ptr(aT), _ptr(out), _ptr(B),
+        _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
+        n, E, plan.nb, k, _stream(dev))
+    _check(lib, rc, f"affine_apply_dss (n={n}, E={E}, k={k})")
+    return out
 
 
 def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
@@ -216,22 +283,10 @@ def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
     if uT.device.type == "cpu":
         _check_plan(plan, None)
         return affine_apply_dss_plain(uT, Kst, aT, plan)
-    dev = _cuda_device(uT)
-    _check_plan(plan, dev)
-    n, E = uT.shape
-    _check_n(n)
-    f32 = (torch.float32,)
-    _require(uT, "uT", f32, (n, E), dev)
-    _require(Kst, "Kst", f32, (3, n, n), dev)
-    _require(aT, "aT", f32, (3, E), dev)
-    out = torch.empty_like(uT)
-    B = torch.empty((max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    lib = _lib("affine_apply_dss")
-    rc = lib.sem_affine_apply_dss(
-        _ptr(uT), _ptr(Kst), _ptr(aT), _ptr(out), _ptr(B),
-        _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
-        n, E, plan.nb, _stream(dev))
-    _check(lib, rc, f"affine_apply_dss (n={n}, E={E})")
+    if uT.dim() != 2 or uT.shape[0] != Kst.shape[-1]:
+        raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
+                         f"({Kst.shape[-1]}, E)")
+    out = _launch_apply(uT, Kst, aT, plan, 1)
     affine_apply_dss.launches += 1
     return out
 
@@ -239,18 +294,105 @@ def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
 affine_apply_dss.launches = 0
 
 
+def affine_apply_dss_batched(uT: torch.Tensor, Kst: torch.Tensor,
+                             aT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
+    """:func:`affine_apply_dss` of each (n, E) block of a (k * n, E) stack:
+    the k right-hand sides share ``Kst``, ``aT`` and the class tables."""
+    k = _n_rhs(uT.shape[0], Kst.shape[-1])
+    if uT.device.type == "cpu":
+        _check_plan(plan, None)
+        return affine_apply_dss_batched_plain(uT, Kst, aT, plan)
+    out = _launch_apply(uT, Kst, aT, plan, k)
+    affine_apply_dss_batched.launches += 1
+    return out
+
+
+affine_apply_dss_batched.launches = 0
+
+
 # -- kernel A: direction update + apply + denominator partials ----------------
 
 def cg_kernel_a_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
                       plan: DSSPlan):
-    """Plain version of :func:`cg_kernel_a`; the denominator partials are
-    one per element."""
+    """Plain version of :func:`cg_kernel_a` (``x=None``: of
+    :func:`cg_kernel_a_deferred`, and ``x'`` is None); the denominator
+    partials are one per element.  Also takes (k, n, E) stacks with
+    (k, 1, 1) scalars, the partials then (k, E)."""
     p32 = p.to(r.dtype)
-    x_new = x + alpha_prev * p32
+    x_new = None if x is None else x + alpha_prev * p32
     p_st = (inv.to(r.dtype) * r + beta * p32).to(p.dtype)
     ps = p_st.to(r.dtype)
     S = _local_product(ps, Kst, aT)
-    return p_st, roll_dss_T(S, plan), x_new, (ps * S).sum(0)
+    return p_st, roll_dss_T(S, plan), x_new, (ps * S).sum(-2)
+
+
+def cg_kernel_a_batched_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
+                              plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_a_batched` (``x=None``: of
+    :func:`cg_kernel_a_batched_deferred`); the partials are (E, k)."""
+    k = _n_rhs(r.shape[0], Kst.shape[-1])
+    shp = (k, Kst.shape[-1], r.shape[-1])
+    p_st, Ap, x_new, d = cg_kernel_a_plain(
+        r.reshape(shp), p.reshape(shp), inv,
+        None if x is None else x.reshape(shp), _col(beta, r),
+        None if x is None else _col(alpha_prev, r), Kst, aT, plan)
+    return (p_st.reshape(r.shape), Ap.reshape(r.shape),
+            None if x is None else x_new.reshape(r.shape), d.T)
+
+
+def cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_a_deferred`."""
+    p_st, Ap, _, d = cg_kernel_a_plain(r, p, inv, None, beta, None, Kst, aT,
+                                       plan)
+    return p_st, Ap, d
+
+
+def cg_kernel_a_batched_deferred_plain(r, p, inv, beta, Kst, aT,
+                                       plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_a_batched_deferred`."""
+    p_st, Ap, _, d = cg_kernel_a_batched_plain(r, p, inv, None, beta, None,
+                                               Kst, aT, plan)
+    return p_st, Ap, d
+
+
+def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, what):
+    """Kernel A on CUDA tensors: (p', Ap', x' or None, (G, k) partials).
+    ``beta``/``alpha_prev`` are float32 device tensors of k elements."""
+    dev = _cuda_device(r)
+    _check_plan(plan, dev)
+    n, E = Kst.shape[-1], r.shape[-1]
+    _check_n(n)
+    f32 = (torch.float32,)
+    shape = (k * n, E)
+    _require(r, "r", f32, shape, dev)
+    _require(p, "p", (torch.float32, torch.bfloat16), shape, dev)
+    _require(inv, "inv", (p.dtype,), (n, E), dev)
+    _require(Kst, "Kst", f32, (3, n, n), dev)
+    _require(aT, "aT", f32, (3, E), dev)
+    p_out, ap = torch.empty_like(p), torch.empty_like(r)
+    B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
+    dparts = torch.empty((-(-E // THREADS), k), dtype=torch.float32,
+                         device=dev)
+    lib = _lib(_CG_A)
+    bf16 = p.dtype == torch.bfloat16
+    tables = (_ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks))
+    if x is None:
+        x_out = None
+        fn = (lib.sem_cg_kernel_a_defer_bf16 if bf16
+              else lib.sem_cg_kernel_a_defer_f32)
+        rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(Kst), _ptr(aT),
+                _ptr(beta), _ptr(p_out), _ptr(ap), _ptr(B), _ptr(dparts),
+                *tables, n, E, plan.nb, k, _stream(dev))
+    else:
+        _require(x, "x", f32, shape, dev)
+        x_out = torch.empty_like(x)
+        fn = lib.sem_cg_kernel_a_bf16 if bf16 else lib.sem_cg_kernel_a_f32
+        rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), _ptr(Kst), _ptr(aT),
+                _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out),
+                _ptr(ap), _ptr(B), _ptr(dparts), *tables, n, E, plan.nb, k,
+                _stream(dev))
+    _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
+    return p_out, ap, x_out, dparts
 
 
 def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan):
@@ -268,90 +410,200 @@ def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan):
         return cg_kernel_a_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
                                  plan)
     dev = _cuda_device(r)
-    _check_plan(plan, dev)
-    n, E = r.shape
-    _check_n(n)
-    f32 = (torch.float32,)
-    _require(r, "r", f32, (n, E), dev)
-    _require(x, "x", f32, (n, E), dev)
-    _require(p, "p", (torch.float32, torch.bfloat16), (n, E), dev)
-    _require(inv, "inv", (p.dtype,), (n, E), dev)
-    _require(Kst, "Kst", f32, (3, n, n), dev)
-    _require(aT, "aT", f32, (3, E), dev)
-    beta, alpha_prev = _scalar(beta, dev), _scalar(alpha_prev, dev)
-    p_out, x_out, ap = torch.empty_like(p), torch.empty_like(x), \
-        torch.empty_like(r)
-    B = torch.empty((max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    dparts = torch.empty(-(-E // THREADS), dtype=torch.float32, device=dev)
-    lib = _lib("cg_kernel_a")
-    fn = (lib.sem_cg_kernel_a_bf16 if p.dtype == torch.bfloat16
-          else lib.sem_cg_kernel_a_f32)
-    rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), _ptr(Kst), _ptr(aT),
-            _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out), _ptr(ap),
-            _ptr(B), _ptr(dparts), _ptr(plan.row_ptr), _ptr(plan.entries),
-            _ptr(plan.masks), n, E, plan.nb, _stream(dev))
-    _check(lib, rc, f"cg_kernel_a (n={n}, E={E}, p {p.dtype})")
+    p_out, ap, x_out, dparts = _launch_a(
+        r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), Kst, aT,
+        plan, 1, "cg_kernel_a")
     cg_kernel_a.launches += 1
-    return p_out, ap, x_out, dparts
+    return p_out, ap, x_out, dparts.view(-1)
 
 
 cg_kernel_a.launches = 0
 
 
+def cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan):
+    """``(p', Ap', dparts)``: :func:`cg_kernel_a` without the x update
+    (``defer_x``: the CG driver catches x up once per m iterations)."""
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan)
+    dev = _cuda_device(r)
+    p_out, ap, _, dparts = _launch_a(r, p, inv, None, _scalar(beta, dev),
+                                     None, Kst, aT, plan, 1,
+                                     "cg_kernel_a_deferred")
+    cg_kernel_a_deferred.launches += 1
+    return p_out, ap, dparts.view(-1)
+
+
+cg_kernel_a_deferred.launches = 0
+
+
+def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
+                        plan: DSSPlan):
+    """:func:`cg_kernel_a` for a (k * n, E) stack of k right-hand sides:
+    ``r``, ``p``, ``x`` are stacks, ``inv`` (n, E) is shared, ``beta`` and
+    ``alpha_prev`` are (k,) float32 device tensors, the partials (G, k)."""
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_a_batched_plain(r, p, inv, x, beta, alpha_prev,
+                                         Kst, aT, plan)
+    dev = _cuda_device(r)
+    k = _n_rhs(r.shape[0], Kst.shape[-1])
+    out = _launch_a(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
+                    _per_rhs(alpha_prev, k, "alpha_prev", dev), Kst, aT,
+                    plan, k, "cg_kernel_a_batched")
+    cg_kernel_a_batched.launches += 1
+    return out
+
+
+cg_kernel_a_batched.launches = 0
+
+
+def cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan):
+    """``(p', Ap', dparts)``: :func:`cg_kernel_a_batched` without x."""
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_a_batched_deferred_plain(r, p, inv, beta, Kst, aT,
+                                                  plan)
+    dev = _cuda_device(r)
+    k = _n_rhs(r.shape[0], Kst.shape[-1])
+    p_out, ap, _, dparts = _launch_a(
+        r, p, inv, None, _per_rhs(beta, k, "beta", dev), None, Kst, aT, plan,
+        k, "cg_kernel_a_batched_deferred")
+    cg_kernel_a_batched_deferred.launches += 1
+    return p_out, ap, dparts
+
+
+cg_kernel_a_batched_deferred.launches = 0
+
+
 # -- kernel B: residual update + the two weighted reductions ------------------
 
 def cg_kernel_b_plain(r, Ap, inv, w_free, alpha):
-    """Plain version of :func:`cg_kernel_b`; partials one per element."""
+    """Plain version of :func:`cg_kernel_b`; partials one per element
+    (also of a (k, n, E) stack with (k, 1, 1) ``alpha``: (k, E))."""
     r_new = r - alpha * Ap
     w = w_free.to(r.dtype)
     z = inv.to(r.dtype) * r_new
-    return r_new, (w * r_new * z).sum(0), (w * r_new * r_new).sum(0)
+    return r_new, (w * r_new * z).sum(-2), (w * r_new * r_new).sum(-2)
+
+
+def cg_kernel_b_batched_plain(r, Ap, inv, w_free, alpha):
+    """Plain version of :func:`cg_kernel_b_batched`; partials (E, k)."""
+    k = _n_rhs(r.shape[0], inv.shape[0])
+    shp = (k, *inv.shape)
+    r_new, rz, rn = cg_kernel_b_plain(r.reshape(shp), Ap.reshape(shp), inv,
+                                      w_free, _col(alpha, r))
+    return r_new.reshape(r.shape), rz.T, rn.T
+
+
+def _launch_b(r, Ap, inv, w_free, alpha, k, what):
+    dev = _cuda_device(r)
+    per = inv.numel()
+    f32 = (torch.float32,)
+    _require(r, "r", f32, (k * inv.shape[0], *inv.shape[1:]), dev)
+    _require(Ap, "Ap", f32, tuple(r.shape), dev)
+    _require(inv, "inv", (torch.float32, torch.bfloat16), tuple(inv.shape),
+             dev)
+    _require(w_free, "w_free", (inv.dtype,), tuple(inv.shape), dev)
+    lib = _lib(_CG_B)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, -(-BLOCKS_PER_SM_B * sms // k))
+    r_out = torch.empty_like(r)
+    parts = torch.empty((2, blocks, k), dtype=torch.float32, device=dev)
+    fn = (lib.sem_cg_kernel_b_bf16 if inv.dtype == torch.bfloat16
+          else lib.sem_cg_kernel_b_f32)
+    rc = fn(_ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free), _ptr(alpha),
+            _ptr(r_out), _ptr(parts), per, blocks, k, _stream(dev))
+    _check(lib, rc, f"{what} (shape={tuple(r.shape)}, k={k}, "
+                    f"inv {inv.dtype})")
+    return r_out, parts[0], parts[1]
 
 
 def cg_kernel_b(r, Ap, inv, w_free, alpha):
     """``(r', rz_parts, rn2_parts)``: ``r' = r - alpha Ap`` and partial sums
     of ``<w r', inv r'>`` and ``<w r', r'>``.  ``r`` and ``Ap`` are
-    float32; ``inv`` and ``w_free`` float32 or both bfloat16."""
+    float32; ``inv`` and ``w_free`` float32 or both bfloat16, of ``r``'s
+    shape."""
     if r.device.type == "cpu":
         return cg_kernel_b_plain(r, Ap, inv, w_free, alpha)
     dev = _cuda_device(r)
-    shape = tuple(r.shape)
-    f32 = (torch.float32,)
-    _require(r, "r", f32, shape, dev)
-    _require(Ap, "Ap", f32, shape, dev)
-    _require(inv, "inv", (torch.float32, torch.bfloat16), shape, dev)
-    _require(w_free, "w_free", (inv.dtype,), shape, dev)
-    alpha = _scalar(alpha, dev)
-    lib = _lib("cg_kernel_b")
-    blocks = BLOCKS_PER_SM_B * torch.cuda.get_device_properties(
-        dev).multi_processor_count
-    r_out = torch.empty_like(r)
-    parts = torch.empty((2, blocks), dtype=torch.float32, device=dev)
-    fn = (lib.sem_cg_kernel_b_bf16 if inv.dtype == torch.bfloat16
-          else lib.sem_cg_kernel_b_f32)
-    rc = fn(_ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free), _ptr(alpha),
-            _ptr(r_out), _ptr(parts), r.numel(), blocks, _stream(dev))
-    _check(lib, rc, f"cg_kernel_b (shape={shape}, inv {inv.dtype})")
+    if tuple(inv.shape) != tuple(r.shape):
+        raise ValueError(f"inv has shape {tuple(inv.shape)}, r "
+                         f"{tuple(r.shape)}")
+    r_out, rz, rn = _launch_b(r, Ap, inv, w_free, _scalar(alpha, dev), 1,
+                              "cg_kernel_b")
     cg_kernel_b.launches += 1
-    return r_out, parts[0], parts[1]
+    return r_out, rz.view(-1), rn.view(-1)
 
 
 cg_kernel_b.launches = 0
 
+
+def cg_kernel_b_batched(r, Ap, inv, w_free, alpha):
+    """:func:`cg_kernel_b` for a (k * n, E) stack: ``inv`` and ``w_free``
+    (n, E) are shared, ``alpha`` is a (k,) float32 device tensor, the
+    partials are (G, k)."""
+    k = _n_rhs(r.shape[0], inv.shape[0])
+    if r.device.type == "cpu":
+        return cg_kernel_b_batched_plain(r, Ap, inv, w_free, alpha)
+    dev = _cuda_device(r)
+    out = _launch_b(r, Ap, inv, w_free, _per_rhs(alpha, k, "alpha", dev), k,
+                    "cg_kernel_b_batched")
+    cg_kernel_b_batched.launches += 1
+    return out
+
+
+cg_kernel_b_batched.launches = 0
+
+
 def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
-                          plan: DSSPlan):
+                          plan: DSSPlan, *, defer_x: bool = False):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused`: kernel A bound to one
-    affine operator (``Kst``, ``aT``, ``plan``), and kernel B."""
+    affine operator (``Kst``, ``aT``, ``plan``), and kernel B.
 
-    def kA(r, p, inv, x, beta, alpha_prev):
-        return cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan)
-
+    ``defer_x=True``: ``kA(r, p, inv, beta) -> (p', Ap', dparts)`` without
+    the x update, for ``cg_fused(defer_x=m)``; otherwise
+    ``kA(r, p, inv, x, beta, alpha_prev) -> (p', Ap', x', dparts)``.
+    ``kA.defer_x`` records which."""
+    if defer_x:
+        def kA(r, p, inv, beta):
+            return cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan)
+    else:
+        def kA(r, p, inv, x, beta, alpha_prev):
+            return cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan)
+    kA.defer_x, kA.n_rhs = bool(defer_x), 1
     return kA, cg_kernel_b
 
 
+def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
+                                  plan: DSSPlan, n_rhs: int, *,
+                                  defer_x: bool = False):
+    """``(kA, kB)`` for :func:`..solver.cg.cg_fused_batched` on (k * n, E)
+    stacks of ``n_rhs`` right-hand sides (per-RHS scalars (k,), partials
+    (G, k)); ``defer_x`` as in :func:`make_fused_cg_kernels`."""
+    if n_rhs < 1:
+        raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
+    if defer_x:
+        def kA(r, p, inv, beta):
+            return cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT,
+                                                plan)
+    else:
+        def kA(r, p, inv, x, beta, alpha_prev):
+            return cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst,
+                                       aT, plan)
+    kA.defer_x, kA.n_rhs = bool(defer_x), int(n_rhs)
+    return kA, cg_kernel_b_batched
+
+
 #: the wrappers, by kernel name
-WRAPPERS = {"affine_apply_dss": affine_apply_dss, "cg_kernel_a": cg_kernel_a,
-            "cg_kernel_b": cg_kernel_b}
+WRAPPERS = {"affine_apply_dss": affine_apply_dss,
+            "affine_apply_dss_batched": affine_apply_dss_batched,
+            "cg_kernel_a": cg_kernel_a,
+            "cg_kernel_a_deferred": cg_kernel_a_deferred,
+            "cg_kernel_a_batched": cg_kernel_a_batched,
+            "cg_kernel_a_batched_deferred": cg_kernel_a_batched_deferred,
+            "cg_kernel_b": cg_kernel_b,
+            "cg_kernel_b_batched": cg_kernel_b_batched}
 
 
 def reset_launch_counts() -> None:

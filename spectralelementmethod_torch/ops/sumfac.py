@@ -6,13 +6,19 @@ main path runs.  On an affine cell the local weak Laplacian collapses to
 (:func:`make_affine_element_matrices`) and three scalars per element
 (:func:`affine_factorization`); the operator on an (n, E) L-vector is then
 ``DSS(sum_c a_c K_c u)``, which one hand-written CUDA kernel computes
-(:func:`.kernels.affine_apply_dss`).
+(:func:`.kernels.affine_apply_dss`, and :func:`.kernels.
+affine_apply_dss_batched` for the (k, n, E) stacks of
+:func:`make_multi_rhs_laplacian_T`).
 
 The host helpers are numpy copies of the reference's.  Curved meshes (the
 general, full-factor apply) are not ported yet: ROADMAP Queue 2 item 4.
+The reference's multi-RHS apply chunks its batch in pairs to fit TPU VMEM;
+here the whole stack is one launch.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -106,7 +112,12 @@ class AffineLaplacianT(torch.nn.Module):
 
     The apply itself is :func:`.kernels.affine_apply_dss` — the CUDA
     kernel on a CUDA tensor, its plain PyTorch version on the CPU.
+    :meth:`stacked` gives the same operator on (n_rhs, n, E) stacks, each
+    RHS on its own, through :func:`.kernels.affine_apply_dss_batched`.
     """
+
+    #: right-hand sides of a stacked operator (None: one (n, E) L-vector)
+    n_rhs = None
 
     def __init__(self, Kcat, a, plan: DSSPlan, free_local=None,
                  assume_masked_input: bool = False, dtype=torch.float32):
@@ -125,10 +136,26 @@ class AffineLaplacianT(torch.nn.Module):
         self.plan = plan
         self.assume_masked_input = bool(assume_masked_input)
 
+    def stacked(self, n_rhs: int) -> "AffineLaplacianT":
+        """This operator on (n_rhs, n, E) stacks (the buffers are
+        shared)."""
+        op = copy.copy(self)
+        op.n_rhs = int(n_rhs)
+        return op
+
     def forward(self, uT: torch.Tensor) -> torch.Tensor:
         if self.free is not None and not self.assume_masked_input:
             uT = torch.where(self.free, uT, 0.0)
-        vT = kernels.affine_apply_dss(uT, self.Kst, self.aT, self.plan)
+        if self.n_rhs is None:
+            vT = kernels.affine_apply_dss(uT, self.Kst, self.aT, self.plan)
+        else:
+            n, E = self.Kst.shape[-1], self.aT.shape[-1]
+            if tuple(uT.shape) != (self.n_rhs, n, E):
+                raise ValueError(f"expected ({self.n_rhs}, {n}, {E}) batched "
+                                 f"L-vectors, got {tuple(uT.shape)}")
+            vT = kernels.affine_apply_dss_batched(
+                uT.reshape(self.n_rhs * n, E), self.Kst, self.aT,
+                self.plan).reshape(uT.shape)
         if self.free is not None:
             vT = torch.where(self.free, vT, 0.0)
         return vT
@@ -161,10 +188,30 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
     if not exact:
         raise NotImplementedError(
             "curved (non-affine) meshes need the general apply, which is "
-            "not ported yet (ROADMAP Queue 2 item 4, "
-            "make_fused_general_laplacian_T)")
+            "not ported yet (ROADMAP Queue 1 item 7; its kernels, Queue 2 "
+            "items 4-5, make_fused_general_laplacian_T)")
     Kcat = make_affine_element_matrices(Dhat, Wgrid, order=exchange.hier)
     return AffineLaplacianT(Kcat, a, exchange.plan(resolve_device(device)),
                             free_local,
                             assume_masked_input=assume_masked_input,
                             dtype=torch_dtype(Gf.dtype))
+
+
+def make_multi_rhs_laplacian_T(exchange, Gf, Dhat, n_rhs: int,
+                               free_local=None,
+                               assume_masked_input: bool = False,
+                               device=None):
+    """Batched-RHS transposed weak Laplacian: (k, n, E) -> (k, n, E).
+
+    The ``n_rhs`` right-hand sides share one operator (``Kst``, the affine
+    scales, the class tables), applied by one launch of
+    :func:`.kernels.affine_apply_dss_batched` for the whole stack;
+    ``free_local`` masks each RHS.  Arguments as in
+    :func:`make_local_laplacian_operator`; a curved mesh raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 7).
+    """
+    if n_rhs < 1:
+        raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
+    return make_local_laplacian_operator(
+        exchange, Gf, Dhat, free_local, assume_masked_input,
+        device).stacked(n_rhs)

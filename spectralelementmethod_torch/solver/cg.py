@@ -7,14 +7,19 @@ Port of the main-path solvers of the JAX package's ``solver/cg.py``:
   per block.  Converged, budget-spent and diverged states freeze inside a
   block (alpha = 0), so results match an exactly-stopping loop;
 * :func:`cg_fused` — PCG whose iteration is the two fused kernels of
-  :mod:`..ops.kernels`, with x lagging one direction and the true-residual
-  restart;
+  :mod:`..ops.kernels`, with x lagging one direction (or, ``defer_x=m``,
+  caught up once per m iterations) and the true-residual restart;
+* :func:`cg_batched` (whole-batch mode) and :func:`cg_fused_batched` — the
+  same for a stack of k right-hand sides sharing one operator, with
+  per-RHS scalars and freezing and one host ladder;
+* :func:`auto_defer_x`, :func:`auto_defer_x_batched` and
+  :func:`hbm_residency_regime`, the reference's ``defer_x`` policies;
 * :func:`jacobi_preconditioner`.
 
 Each iteration is a Python loop over device tensors: the scalars (alpha,
 beta, the stopping state) stay on the device and are read back once per
-block.  ``defer_x``, the refined/certified solvers and the batched
-solvers are not ported yet (ROADMAP Queue 1 items 1, 2 and 5).
+block.  The refined/certified solvers and ``cg_batched``'s vmapped mode
+are not ported yet (ROADMAP Queue 1 items 2 and 5).
 """
 
 from __future__ import annotations
@@ -22,11 +27,12 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 #: first ladder block and its cap: one host synchronisation per block
 _BLOCK0, _BLOCK_MAX = 64, 4096
-#: true-residual restarts of cg_fused at most
+#: true-residual restarts of cg_fused and cg_fused_batched at most
 _MAX_RESTARTS = 2
 
 
@@ -154,6 +160,118 @@ def _identity(r):
     return r
 
 
+def _bc(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Broadcast (k,) per-RHS scalars against a (k, ...) stack."""
+    return s.reshape(s.shape + (1,) * (x.dim() - 1))
+
+
+def cg_batched(
+    A: Callable,
+    B: torch.Tensor,
+    *,
+    M: Callable | None = None,
+    tol: float = 1e-12,
+    max_iter: int = 1000,
+    dot_weight: torch.Tensor | None = None,
+    whole_batch: bool = False,
+) -> CGResult:
+    """Solve ``A x_j = b_j`` for a (k, ...) stack of right-hand sides from
+    ``x0 = 0``.
+
+    Whole-batch mode (``whole_batch=True``, the only one ported): ``A`` and
+    ``M`` act on the full stack each iteration (the multi-RHS operator of
+    :func:`..ops.sumfac.make_multi_rhs_laplacian_T`); ``dot_weight`` is
+    unbatched and broadcasts over k.  Each RHS carries its own alpha, beta
+    and stopping state and freezes independently (alpha = 0); one host
+    read of the three (k,) vectors per ladder block serves all k solves,
+    and the ladder runs until every RHS is converged, diverged or out of
+    budget.  The best block-boundary state is kept per RHS.  The fields of
+    the result are batched: ``x`` (k, ...), the rest (k,).
+    """
+    if not whole_batch:
+        raise NotImplementedError(
+            "cg_batched's vmapped mode (A and M on one unbatched vector "
+            "each) is not ported (ROADMAP Queue 1 item 5); pass "
+            "whole_batch=True with batched A and M")
+    if M is None:
+        M = _identity
+    w = dot_weight
+    dims = tuple(range(1, B.dim()))
+
+    def wsum(U, V):
+        prod = U * V if w is None else U * V * w
+        return prod.sum(dims)
+
+    def fold(V):
+        return V if w is None else w * V
+
+    dev, k = B.device, int(B.shape[0])
+    X0 = torch.zeros_like(B)
+    r0 = B - A(X0)
+    z0 = M(r0)
+    rn0 = wsum(r0, r0)
+    state = _State(X0, r0, z0, z0, wsum(r0, z0), rn0,
+                   torch.zeros(k, dtype=torch.int32, device=dev),
+                   tol * tol * wsum(B, B),
+                   torch.full((k,), max_iter, dtype=torch.int32, device=dev),
+                   rn0)
+    zero = torch.zeros((), dtype=B.dtype, device=dev)
+
+    def step(s: _State) -> _State:
+        done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
+        Ap = A(s.p)
+        denom = (s.p * fold(Ap)).sum(dims)
+        alpha = torch.where(done, zero, s.rz / _safe(denom))
+        x = s.x + _bc(alpha, s.p) * s.p
+        r = s.r - _bc(alpha, Ap) * Ap
+        z = M(r)
+        rz_n = (r * fold(z)).sum(dims)
+        rn2 = wsum(r, r)
+        beta = rz_n / _safe(s.rz)
+        p = z + _bc(beta, s.p) * s.p
+        it = s.k + (~done).to(s.k.dtype)
+        rn2_min = torch.where(done, s.rn2_min, torch.minimum(s.rn2_min, rn2))
+        return _State(x, r, z, p, rz_n, rn2, it, s.stop2, s.max_it, rn2_min)
+
+    issued, block = 0, _BLOCK0
+    best_state, best_rn2 = state, np.full(k, np.inf)
+    while issued < max_iter:
+        n = _ladder_size(max_iter, issued, block)
+        for _ in range(n):
+            state = step(state)
+        issued += n
+        # one transfer for the three (k,) convergence vectors
+        rn2, stop2, rn2m = torch.stack(
+            [state.rn2, state.stop2, state.rn2_min]).cpu().numpy()
+        best_state, best_rn2 = _keep_best(rn2, best_rn2, state, best_state,
+                                          _select_best)
+        if ((rn2 <= stop2) | (rn2 > 1e6 * rn2m) | ~np.isfinite(rn2)).all():
+            break
+        block = min(block * 2, _BLOCK_MAX)
+
+    s = best_state
+    return CGResult(s.x, s.k, torch.sqrt(s.rn2), s.rn2 <= s.stop2, issued)
+
+
+def _keep_best(rn2, best_rn2, state, best_state, select):
+    """Per-RHS best-state bookkeeping of a batched ladder block."""
+    improved = rn2 <= best_rn2
+    if improved.all():
+        return state, rn2
+    if improved.any():
+        mask = torch.as_tensor(improved, device=state.r.device)
+        return select(mask, state, best_state), np.where(improved, rn2,
+                                                         best_rn2)
+    return best_state, best_rn2
+
+
+def _select_best(improved: torch.Tensor, new: _State, old: _State) -> _State:
+    """Per-RHS merge of two :func:`cg_batched` states: every field is
+    batched along its leading axis."""
+    return type(new)(*(torch.where(_bc(improved, a), a, b)
+                       for a, b in zip(new, old)))
+
+
 class _FusedState(NamedTuple):
     x: torch.Tensor
     r: torch.Tensor
@@ -168,21 +286,157 @@ class _FusedState(NamedTuple):
     rn2_min: torch.Tensor
 
 
-def _fused_init(b, inv, w_free, tol, atol, max_iter, p_dtype):
+class _DeferredState(NamedTuple):
+    """Deferred-x state: ``P`` holds the last m directions, slot j written
+    at unroll position j of every super-iteration; x is caught up at each
+    super-iteration's end (no pending term, no alpha_prev)."""
+    x: torch.Tensor
+    r: torch.Tensor
+    P: tuple
+    rz: torch.Tensor
+    rz_prev: torch.Tensor
+    k: torch.Tensor
+    rn2: torch.Tensor
+    max_it: torch.Tensor
+    stop2: torch.Tensor
+    rn2_min: torch.Tensor
+
+
+def _fused_init(b, inv, w_free, tol, atol, max_iter, p_dtype, k=None, m=0):
+    """Initial fused-CG state from the residual ``b`` (x0 = 0): one RHS
+    (``k`` None, scalars 0-dim) or a (k n, E) stack (scalars (k,));
+    ``m > 0`` the deferred-x state with m direction slots."""
     r0 = b.to(torch.float32)
     dev = r0.device
     x0 = torch.zeros_like(r0)
+    r3 = r0 if k is None else r0.view(k, *inv.shape)
+    wf = w_free.to(torch.float32)
+    iv = inv.to(torch.float32)
+    if k is None:
+        rn0 = torch.sum(wf * r3 * r3)
+        rz0 = torch.sum(wf * r3 * (iv * r3))
+    else:
+        rn0 = (wf * r3 * r3).sum((1, 2))
+        rz0 = (wf * r3 * (iv * r3)).sum((1, 2))
+    stop2 = torch.maximum(tol * tol * rn0, atol * atol)
+    shape = () if k is None else (k,)
+    it0 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    max_it = torch.full(shape, max_iter, dtype=torch.int32, device=dev)
+    if m:
+        # all slots zero: at k = 0 slot m - 1 is read with beta = 0
+        P0 = tuple(torch.zeros_like(r0, dtype=p_dtype) for _ in range(m))
+        return _DeferredState(x0, r0, P0, rz0, rz0, it0, rn0, max_it, stop2,
+                              rn0)
     # beta = 0 at k = 0 makes p1 = z0
     p0 = torch.zeros_like(r0, dtype=p_dtype)
-    wf = w_free.to(torch.float32)
-    rn0 = torch.sum(wf * r0 * r0)
-    rz0 = torch.sum(wf * r0 * (inv.to(torch.float32) * r0))
-    stop2 = torch.maximum(tol * tol * rn0, atol * atol)
     return _FusedState(x0, r0, p0, rz0, rz0,
-                       torch.zeros((), dtype=torch.float32, device=dev),
-                       torch.zeros((), dtype=torch.int32, device=dev), rn0,
-                       torch.tensor(max_iter, dtype=torch.int32, device=dev),
-                       stop2, rn0)
+                       torch.zeros(shape, dtype=torch.float32, device=dev),
+                       it0, rn0, max_it, stop2, rn0)
+
+
+def _fused_step(kA, kB, inv, w_free, zero):
+    """One fused iteration (see :func:`cg_fused`); the partials are summed
+    over their leading axis, so scalars stay 0-dim or (k,)."""
+
+    def step(s: _FusedState) -> _FusedState:
+        done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
+        beta = torch.where((s.k == 0) | done, zero, s.rz / _safe(s.rz_prev))
+        p, Ap, x, dparts = kA(s.r, s.p, inv, s.x, beta, s.alpha_prev)
+        alpha = torch.where(done, zero, s.rz / _safe(dparts.sum(0)))
+        r, rzp, rn2p = kB(s.r, Ap, inv, w_free, alpha)
+        rz_new = rzp.sum(0)
+        rn2_new = rn2p.sum(0)
+        k = s.k + (~done).to(s.k.dtype)
+        rn2_min = torch.where(done, s.rn2_min,
+                              torch.minimum(s.rn2_min, rn2_new))
+        # frozen iterations recompute identical rz/rn2 from the unchanged
+        # r (and alpha_prev = 0 pins x), so the carried state stays exact
+        return _FusedState(x, r, p, rz_new, s.rz, alpha, k, rn2_new,
+                           s.max_it, s.stop2, rn2_min)
+
+    return step
+
+
+def _deferred_step(kA, kB, inv, w_free, zero, m: int):
+    """One deferred-x super-iteration: m fused iterations whose kernel A
+    skips x, then ``x += sum_j alpha_j P_j`` (per RHS of a stack)."""
+
+    def step(s: _DeferredState) -> _DeferredState:
+        r, P, rz, rz_prev, it, rn2, rn2_min = (s.r, list(s.P), s.rz,
+                                               s.rz_prev, s.k, s.rn2,
+                                               s.rn2_min)
+        alphas = []
+        for j in range(m):
+            done = _done(rn2, it, s.stop2, s.max_it, rn2_min)
+            beta = torch.where((it == 0) | done, zero, rz / _safe(rz_prev))
+            # the previous direction: written at the preceding unroll
+            # position (slot m - 1 of the previous super-iteration for j = 0)
+            p_new, Ap, dparts = kA(r, P[(j - 1) % m], inv, beta)
+            alpha = torch.where(done, zero, rz / _safe(dparts.sum(0)))
+            r, rzp, rn2p = kB(r, Ap, inv, w_free, alpha)
+            rn2_new = rn2p.sum(0)
+            it = it + (~done).to(it.dtype)
+            rn2_min = torch.where(done, rn2_min,
+                                  torch.minimum(rn2_min, rn2_new))
+            rz_prev, rz, rn2 = rz, rzp.sum(0), rn2_new
+            P[j] = p_new
+            alphas.append(alpha)
+        # frozen iterations ran with alpha = 0: their slots add exactly 0
+        return _DeferredState(_catch_up(s.x, alphas, P), r, tuple(P), rz,
+                              rz_prev, it, rn2, s.max_it, s.stop2, rn2_min)
+
+    return step
+
+
+def _catch_up(x: torch.Tensor, alphas, P) -> torch.Tensor:
+    """``x + sum_j alphas[j] P[j]`` in float32, in slot order: one RHS
+    (0-dim alphas) or per RHS of a (k n, E) stack ((k,) alphas).  The
+    first term makes a new tensor, so a saved state's x is never written."""
+    out = None
+    for a, p in zip(alphas, P):
+        if a.dim():
+            p = p.view(a.shape[0], -1, p.shape[-1])
+            a = _bc(a, p)
+        if out is None:
+            out = torch.addcmul(x.view(p.shape), a, p)
+        else:
+            out.addcmul_(a, p)
+    return out.view(x.shape)
+
+
+def _pending(s: _FusedState) -> torch.Tensor:
+    """x with its lagged direction applied (0 when frozen), per RHS."""
+    return _catch_up(s.x, [s.alpha_prev], [s.p])
+
+
+def _defer_slots(kA, defer_x, solver: str, factory: str) -> int:
+    """m from ``defer_x``, checked against how the kernels were built."""
+    built = bool(getattr(kA, "defer_x", False))
+    if defer_x:
+        if not built:
+            raise ValueError(f"defer_x > 0 requires kernels built with "
+                             f"{factory}(defer_x=True)")
+        if defer_x < 2 or 64 % defer_x:
+            raise ValueError(f"defer_x must divide 64, got {defer_x}")
+        return int(defer_x)
+    if built:
+        raise ValueError(f"kernels built with defer_x=True need "
+                         f"{solver}(..., defer_x=m)")
+    return 0
+
+
+def _check_p_dtype(p_dtype):
+    p_dtype = torch.float32 if p_dtype is None else p_dtype
+    if p_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"p_dtype must be None or bfloat16, got {p_dtype}")
+    return p_dtype
+
+
+def _issue(step, state, n: int, m: int):
+    """Run ``n`` iterations: n steps, or n / m deferred super-steps."""
+    for _ in range(n // m if m else n):
+        state = step(state)
+    return state
 
 
 def cg_fused(
@@ -195,6 +449,7 @@ def cg_fused(
     tol: float = 1e-6,
     max_iter: int = 1000,
     p_dtype=None,
+    defer_x: int = 0,
     A: Callable | None = None,
 ) -> CGResult:
     """PCG whose iteration is two fused kernels (float32).
@@ -216,41 +471,37 @@ def cg_fused(
     iterations run with alpha = beta = 0, which pins x, r, rz and rn2.
     ``p_dtype=torch.bfloat16`` stores the search direction in bf16.
 
+    ``defer_x=m`` (m >= 2, dividing 64) requires kernels built with
+    ``defer_x=True`` (``kA(r, p, inv, beta) -> (p', Ap', dparts)``): the
+    loop keeps the last m directions in m slots, slot j rewritten at
+    unroll position j of each m-iteration super-iteration (kernel A reads
+    slot j - 1), and catches x up once per super-iteration,
+    ``x += sum_j alpha_j P_j``.  Ladder blocks are whole super-iterations,
+    x is exact at every block boundary, and the r recurrence (hence the
+    iteration count) is the same as with ``defer_x=0``.
+
     ``A`` (optional), the masked float32 operator, enables the
     true-residual restart: a ladder block that shrinks ``rn2`` by less
     than 4x while above ``stop`` re-residualizes ``r = b - A x`` from the
     best state and restarts on the correction equation (at most twice),
     keeping the original stop threshold.
     """
-    p_dtype = torch.float32 if p_dtype is None else p_dtype
-    if p_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"p_dtype must be None or bfloat16, got {p_dtype}")
+    p_dtype = _check_p_dtype(p_dtype)
+    m = _defer_slots(kA, defer_x, "cg_fused", "make_fused_cg_kernels")
     dev = b.device
     f32 = torch.float32
     zero = torch.zeros((), dtype=f32, device=dev)
-    state = _fused_init(b, inv, w_free, torch.tensor(tol, device=dev),
-                        zero, max_iter, p_dtype)
+
+    def init(r, tol_t, atol_t, budget):
+        return _fused_init(r, inv, w_free, tol_t, atol_t, budget, p_dtype,
+                           None, m)
+
+    step = (_deferred_step(kA, kB, inv, w_free, zero, m) if m
+            else _fused_step(kA, kB, inv, w_free, zero))
+    # deferred: x caught up at every super-iteration boundary
+    x_of = (lambda s: s.x) if m else _pending
+    state = init(b, torch.tensor(tol, device=dev), zero, max_iter)
     stop2_v = state.stop2          # original target, fixed across restarts
-
-    def step(s: _FusedState) -> _FusedState:
-        done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
-        beta = torch.where((s.k == 0) | done, zero, s.rz / _safe(s.rz_prev))
-        p, Ap, x, dparts = kA(s.r, s.p, inv, s.x, beta, s.alpha_prev)
-        alpha = torch.where(done, zero, s.rz / _safe(torch.sum(dparts)))
-        r, rzp, rn2p = kB(s.r, Ap, inv, w_free, alpha)
-        rz_new = torch.sum(rzp)
-        rn2_new = torch.sum(rn2p)
-        k = s.k + (~done).to(s.k.dtype)
-        rn2_min = torch.where(done, s.rn2_min,
-                              torch.minimum(s.rn2_min, rn2_new))
-        # frozen iterations recompute identical rz/rn2 from the unchanged
-        # r (and alpha_prev = 0 pins x), so the carried state stays exact
-        return _FusedState(x, r, p, rz_new, s.rz, alpha, k, rn2_new,
-                           s.max_it, s.stop2, rn2_min)
-
-    def x_of(s: _FusedState) -> torch.Tensor:
-        # x lags one direction: apply the pending update (0 when frozen)
-        return s.x + s.alpha_prev * s.p.to(s.x.dtype)
 
     issued, block = 0, _BLOCK0
     iters_done = 0                  # device iterations from finished legs
@@ -260,8 +511,9 @@ def cg_fused(
     restarts = 0
     while issued < max_iter:
         n = _ladder_size(max_iter, issued, block)
-        for _ in range(n):
-            state = step(state)
+        if m:
+            n = -(-n // m) * m      # whole super-iterations
+        state = _issue(step, state, n, m)
         issued += n
         rn2_now, stop2_now, rn2_min_now = torch.stack(
             [state.rn2, stop2_v, state.rn2_min]).tolist()
@@ -280,9 +532,7 @@ def cg_fused(
             x_acc = x_leg if bx_off is None else bx_off + x_leg
             r_true = b.to(f32) - A(x_acc).to(f32)
             x_off, iters_done = x_acc, bits + int(bstate.k)
-            state = _fused_init(r_true, inv, w_free, zero,
-                                torch.sqrt(stop2_v), max_iter - issued,
-                                p_dtype)
+            state = init(r_true, zero, torch.sqrt(stop2_v), max_iter - issued)
             rn2_ckpt = float(state.rn2)
             if rn2_ckpt <= best[2]:
                 best = (x_off, state, rn2_ckpt, iters_done)
@@ -299,6 +549,155 @@ def cg_fused(
         k_dev = k_dev + bits
     return CGResult(x, k_dev, torch.sqrt(bstate.rn2),
                     bstate.rn2 <= stop2_v, issued)
+
+
+def cg_fused_batched(
+    kA: Callable,
+    kB: Callable,
+    B: torch.Tensor,
+    *,
+    inv: torch.Tensor,
+    w_free: torch.Tensor,
+    tol: float = 1e-6,
+    max_iter: int = 1000,
+    p_dtype=None,
+    defer_x: int = 0,
+    A: Callable | None = None,
+) -> CGResult:
+    """Batched-RHS twin of :func:`cg_fused`.
+
+    ``kA``/``kB`` come from :func:`..ops.kernels.
+    make_fused_cg_kernels_batched` built for k RHS; ``B`` stacks k initial
+    residuals as (k, n, E) or (k n, E).  The kernels read ``inv``,
+    ``w_free`` and the operator once per iteration for all k solves; each
+    RHS carries its own alpha, beta and stopping state and freezes
+    independently (alpha = 0).  One host ladder serves all k solves, with
+    the best block-boundary state kept per RHS.
+
+    ``defer_x=m`` as in :func:`cg_fused`, with a per-RHS catch-up.
+
+    ``A`` (optional): the masked float32 operator on flat (k n, E) stacks.
+    Unlike :func:`cg_fused`'s stall test, each finished leg's solution is
+    *verified* against the true residual ``b - A x``: when any RHS misses
+    the original stop, the solve restarts on the correction equation for
+    the whole stack (at most twice), since with bf16
+    directions the recurrence can claim a convergence that the solution
+    has not reached.  ``residual_norm`` and ``converged`` then refer to the
+    true residual of the last check.
+
+    Returns a batched :class:`CGResult` with ``x`` shaped (k, n, E).
+    """
+    k = int(getattr(kA, "n_rhs", 1))
+    p_dtype = _check_p_dtype(p_dtype)
+    n_loc = inv.shape[0]
+    if B.dim() == 3:
+        kk = B.shape[0]
+        B2 = B.reshape(kk * B.shape[1], B.shape[2])
+    else:
+        B2, kk = B, B.shape[0] // n_loc
+    if kk != k or B2.shape[0] != k * n_loc:
+        raise ValueError(f"B batch size {kk} != kernel n_rhs {k}")
+    m = _defer_slots(kA, defer_x, "cg_fused_batched",
+                     "make_fused_cg_kernels_batched")
+    f32 = torch.float32
+    dev = B2.device
+    zero = torch.zeros((), dtype=f32, device=dev)
+    step = (_deferred_step(kA, kB, inv, w_free, zero, m) if m
+            else _fused_step(kA, kB, inv, w_free, zero))
+
+    def select(mask, new, old):
+        return _select_best_fused(mask, new, old, n_loc)
+
+    def run_leg(b_leg, tol_leg, atol_leg, budget):
+        state = _fused_init(b_leg, inv, w_free, tol_leg, atol_leg, budget,
+                            p_dtype, k, m)
+        issued, blk = 0, _BLOCK0
+        best_state, best_rn2 = state, np.full(k, np.inf)
+        while issued < budget:
+            n = _ladder_size(budget, issued, blk)
+            if m:
+                n = -(-n // m) * m  # whole super-iterations
+            state = _issue(step, state, n, m)
+            issued += n
+            rn2, stop2, rn2m = torch.stack(
+                [state.rn2, state.stop2, state.rn2_min]).cpu().numpy()
+            best_state, best_rn2 = _keep_best(rn2, best_rn2, state,
+                                              best_state, select)
+            if ((rn2 <= stop2) | (rn2 > 1e6 * rn2m)
+                    | ~np.isfinite(rn2)).all():
+                break
+            blk = min(blk * 2, _BLOCK_MAX)
+        return best_state, issued
+
+    B2f = B2.to(f32)
+    wf = w_free.to(f32)
+    x_tot, stop2_v = None, None
+    issued_total = 0
+    iters_total = torch.zeros(k, dtype=torch.int32, device=dev)
+    b_leg = B2f
+    tol_leg, atol_leg = torch.tensor(tol, dtype=f32, device=dev), zero
+    for leg in range(_MAX_RESTARTS + 1):
+        best_state, issued = run_leg(b_leg, tol_leg, atol_leg,
+                                     max_iter - issued_total)
+        issued_total += issued
+        # deferred mode caught x up at the block boundary; otherwise x
+        # lags one direction per RHS
+        x = best_state.x if m else _pending(best_state)
+        if stop2_v is None:
+            stop2_v = best_state.stop2             # (k,) original target
+        x_tot = x if x_tot is None else x_tot + x
+        iters_total = iters_total + best_state.k
+        rn2_final = best_state.rn2
+        if A is None or leg == _MAX_RESTARTS or issued_total >= max_iter:
+            break
+        r_true = B2f - A(x_tot).to(f32)
+        r3 = r_true.view(k, n_loc, -1)
+        rn2_final = (wf * r3 * r3).sum((1, 2))
+        if bool(torch.all(rn2_final <= stop2_v)):
+            break
+        # the recurrence claimed more progress than the solution has:
+        # restart on the correction equation with the original stop
+        b_leg, tol_leg, atol_leg = r_true, zero, torch.sqrt(stop2_v)
+    return CGResult(x_tot.view(k, n_loc, -1), iters_total,
+                    torch.sqrt(rn2_final), rn2_final <= stop2_v,
+                    issued_total)
+
+
+def _select_best_fused(improved: torch.Tensor, new, old, n_loc: int):
+    """Per-RHS merge of two :func:`cg_fused_batched` states: the (k n, E)
+    stacks by their RHS's rows, the (k,) vectors elementwise, the deferred
+    direction slots each."""
+    rows = improved.repeat_interleave(n_loc)[:, None]
+
+    def sel(a, b):
+        if isinstance(a, tuple):
+            return tuple(sel(u, v) for u, v in zip(a, b))
+        return torch.where(rows if a.dim() == 2 else improved, a, b)
+
+    return type(new)(*(sel(a, b) for a, b in zip(new, old)))
+
+
+def hbm_residency_regime(E: int, n_loc: int, itemsize: int = 4) -> bool:
+    """True once an (n, E) iterate exceeds 100 MB: the reference's
+    threshold behind its ``defer_x`` and batched auto policies, kept so
+    that ``"auto"`` resolves as in the JAX package.  It was set for the
+    TPU's on-chip memory; re-deriving it for the H100 is ROADMAP work."""
+    return E * n_loc * itemsize > 100_000_000
+
+
+def auto_defer_x(E: int, n_loc: int, itemsize: int = 4) -> int:
+    """``defer_x="auto"`` of ``solve_local``: 8 above
+    :func:`hbm_residency_regime`'s threshold, else 0."""
+    return 8 if hbm_residency_regime(E, n_loc, itemsize) else 0
+
+
+def auto_defer_x_batched(E: int, n_loc: int, k: int,
+                         itemsize: int = 4) -> int:
+    """``defer_x="auto"`` of ``solve_local_batch``: 8 for every batch of
+    k >= 2 (or above the threshold), else 0 — the reference's policy."""
+    if k >= 2 or hbm_residency_regime(E, n_loc, itemsize):
+        return 8
+    return 0
 
 
 def jacobi_preconditioner(diag: torch.Tensor,
