@@ -9,26 +9,32 @@ Phases (any failure exits non-zero and prints no result line):
    ``nvcc`` per source, all started together) and print the build seconds;
 2. at the main path's full shapes — ``rectangle_mesh(316, 316, 8)``,
    E = 99,856 elements, n = 81 nodes each, float32, and stacks of K = 4
-   right-hand sides — hold each kernel (single-RHS, deferred-x and
+   right-hand sides — hold each affine kernel (single-RHS, deferred-x and
    batched variants) against its plain PyTorch version on the same inputs
    on the card, and time both (CUDA events), beside the least time the
-   card could take; time the deferred-x catch-up; then hold the kernels
-   against their plain versions at the other compiled orders (p = 2..7)
-   on a small mesh;
-3. run ``Poisson.solve_local`` on that mesh in the three main-path modes
-   (plain CG; fused CG; fused CG with bf16 directions) and with deferred x
-   (``defer_x=8``), and ``Poisson.solve_local_batch`` on K = 4 forcings in
-   five modes (plain; fused; fused with bf16 directions; each fused mode
-   with ``defer_x=8``), to two tolerances, with the launch counts set to
-   0 just before each solve and read just after; require convergence
-   (except the bf16 modes at the tight tolerance, whose stopping point is
-   recorded) and agreement on iterations, print each solve's (each RHS's)
-   true residual, the gap between the L-vector solution and its global
-   field, and ms per issued iteration per RHS; time every mode's steady
-   state (two fixed-length runs); then profile each single-RHS mode and
-   the batched bf16 deferred mode;
-4. solve a manufactured problem (u = 0.1 (x + y), Dirichlet + Neumann)
-   and require the reference's error bar;
+   card could take; the same for the curved-mesh kernels (the general
+   apply and kernel A, one RHS and K) on the polar half-annulus of the
+   same E; time the deferred-x catch-up; then hold every kernel against
+   its plain version at the other compiled orders (p = 2..7) on a small
+   rectangle and a small annulus;
+3. run ``Poisson.solve_local`` on the rectangle in the three main-path
+   modes (plain CG; fused CG; fused CG with bf16 directions), with
+   deferred x (``defer_x=8``) and with the general apply forced
+   (``structure="general"``), and ``Poisson.solve_local_batch`` on K = 4
+   forcings in five modes (plain; fused; fused with bf16 directions; each
+   fused mode with ``defer_x=8``); on the annulus the three modes, single
+   and batched; to two tolerances, with the launch counts set to 0 just
+   before each solve and read just after; require convergence (except
+   the bf16 modes at the tight tolerance, whose stopping point is
+   recorded) and agreement on iterations with plain CG of the same mesh,
+   print each solve's (each RHS's) true residual, the gap between the
+   L-vector solution and its global field, and ms per issued iteration
+   per RHS; time every mode's steady state (two fixed-length runs); then
+   profile each single-RHS mode, the batched bf16 deferred mode and the
+   curved bf16 mode;
+4. solve two manufactured problems (u = 0.1 (x + y) on a rectangle,
+   Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural) and
+   require the reference's error bar;
 5. print the card, one ``{"kernels": [...]}`` line and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -54,6 +60,12 @@ PEAK_F32 = 67e12
 
 NX = NY = 316          # E = 99,856: the reference bench's default 100k mesh
 ORDER = 8
+# the curved path: the reference's isoparametric half-annulus with every
+# node polar-exact, 632 x 158 = 99,856 elements (cell aspect 1.3-1.6)
+ANNULUS = dict(n_theta=632, n_r=158, r_inner=1.0, r_outer=2.0,
+               progression=1.0, node_placement="polar")
+SMALL_ANNULUS = dict(ANNULUS, n_theta=25, n_r=19)     # E = 475
+MMS_ANNULUS = dict(ANNULUS, n_theta=32, n_r=8)        # the ln r check
 MAX_ITER = 20000
 # TOL_ALL is the tolerance all three modes reach.  With bf16-stored
 # directions Jacobi PCG at this size stops converging near 1e-3 relative,
@@ -69,8 +81,9 @@ STEADY = (512, 1536)   # iterations of the two steady-state timing runs
 # 64+-iteration block shrinks the residual by < 4x) discard the Krylov
 # space, and bf16 directions perturb it.  On an H100 the spread was
 # 392 / 392 / 471 (plain / fused / fused-bf16p) at TOL_ALL and 5474 /
-# 6229 (plain / fused) at TOL_F32, at most 1.21x; the bar leaves room
-# above that and no more
+# 6229 (plain / fused) at TOL_F32 on the rectangle, 447 / 447 / 449 and
+# 2548 / 2971 on the annulus, at most 1.21x; the bar leaves room above
+# that and no more
 ITER_RATIO = 1.3
 
 
@@ -163,7 +176,8 @@ def main() -> int:
         from spectralelementmethod_torch.config import resolve_device
         from spectralelementmethod_torch.core.discretization import (
             Discretization)
-        from spectralelementmethod_torch.mesh import rectangle_mesh
+        from spectralelementmethod_torch.mesh import (annulus_mesh,
+                                                      rectangle_mesh)
         from spectralelementmethod_torch.models.poisson import Poisson
         from spectralelementmethod_torch.ops import kernels
         from spectralelementmethod_torch.ops.exchange import roll_dss_T
@@ -222,14 +236,26 @@ def main() -> int:
     small = aT.numel() * 4 + Kst.numel() * 4 + mask_bytes
     rows = []
 
-    def kernel_a_row(name, fn, plain, k, with_x, pdt, inv, sc):
+    def kernel_a_row(name, fn, plain, k, with_x, pdt, inv, sc,
+                     op=None):
         """Kernel A variant ``fn`` on a k-stack against its plain version:
         checks, times and the bound (k stacks of r, p, p', Ap' and, with
-        x, x and x'; inv once)."""
+        x, x and x'; inv once).  ``op``: (operator arguments, element-local
+        product, plan, bytes and flops per RHS of the product, operator
+        bytes) — the affine operator of the rectangle by default."""
+        op_args, local, pl, flops_loc, op_bytes = op or (
+            (Kst, aT), lambda u: kernels._local_product(u, Kst, aT),
+            plan, 6 * n * n * E, small)
+        ne = pl.E * n
+
+        def rnd(k_, dtype=torch.float32):
+            return torch.randn((k_ * n, pl.E), generator=g,
+                               device=dev).to(dtype)
+
         def args():
-            a_ = [randn(k), randn(k, pdt), inv]
-            a_ += [randn(k), *sc] if with_x else [sc[0]]
-            return (*a_, Kst, aT, plan)
+            a_ = [rnd(k), rnd(k, pdt), inv]
+            a_ += [rnd(k), *sc] if with_x else [sc[0]]
+            return (*a_, *op_args, pl)
 
         sets = [args() for _ in range(2)]
         got, ref = fn(*sets[0]), plain(*sets[0])
@@ -242,9 +268,9 @@ def main() -> int:
         if pdt == torch.bfloat16:
             check(bf16_ulp_ok(gp, rp), f"{name} p' within 1 bf16 ulp")
             # Ap' and the partials from the kernel's own stored p'
-            p3 = gp.float().view(k, n, E)
-            S = kernels._local_product(p3, Kst, aT)
-            rAp, rd = roll_dss_T(S, plan).view(gAp.shape), (p3 * S).sum(1).T
+            p3 = gp.float().view(k, n, pl.E)
+            S = local(p3)
+            rAp, rd = roll_dss_T(S, pl).view(gAp.shape), (p3 * S).sum(1).T
         else:
             _, rel_p = rel_err(gp, rp)
             check(rel_p <= 1e-5, f"{name} p' (1e-5)")
@@ -260,9 +286,9 @@ def main() -> int:
         # p in and p' out (p's dtype); inv once
         s_ = 2 if pdt == torch.bfloat16 else 4
         per_rhs = 8 + (8 if with_x else 0) + 2 * s_
-        b_ms, b_by = bound(k * per_rhs * nE + s_ * nE + small,
-                           k * (6 * n * n * E + (12 if with_x else 10) * nE
-                                + plan.n_entries * E))
+        b_ms, b_by = bound(k * per_rhs * ne + s_ * ne + op_bytes,
+                           k * (flops_loc + (12 if with_x else 10) * ne
+                                + pl.n_entries * pl.E))
         return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -332,6 +358,78 @@ def main() -> int:
             rows.append(dict(name=name, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None))
+
+    # the curved path at its full shapes: the polar half-annulus, same E
+    t0 = time.perf_counter()
+    adisc = Discretization(annulus_mesh(ORDER, **ANNULUS), gll_basis_2d(ORDER))
+    # forcing 1, u = 1 on the sphere and 0 on the shell, natural on the
+    # axis.  With u = 0 on both circles the residual b - A u_d is the
+    # forcing alone, far smaller than A's action on the solution, and an
+    # f32 solution's true residual cannot follow the recurrence's: at
+    # 158 x 40 both packages stop at 1.7e-3 by the recurrence with a true
+    # 3.8e-2, and at this size the true residual is ~1.7 (PERF.md)
+    aprob = Poisson(adisc, dtype=np.float32)
+    aprob.set_dirichlet("sphere", 1.0)
+    aprob.set_dirichlet("shell", 0.0)
+    actx = aprob._local_setup(dev)
+    gA = actx["A"]
+    check(gA.structure == "general" and adisc.E == E,
+          f"the annulus (E={adisc.E}) takes the general apply")
+    gop = (gA.gT, gA.Dh, gA.hier)
+    gplan = gA.plan
+    ginv32, _ = aprob._fused_cg_operands(actx["ex"], actx["free_np"], None,
+                                         dev)
+    ginv16, _ = aprob._fused_cg_operands(actx["ex"], actx["free_np"],
+                                         torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    m_ = int(round(n ** 0.5))
+    # 8 n M + 6 n flops per element (tensor-product derivatives and flux)
+    gflops = (8 * n * m_ + 6 * n) * E
+    gbytes = gA.gT.numel() * 4 + gplan.masks.numel() + gA.Dh.numel() * 4
+    log(f"  annulus setup (E={adisc.E}) in {time.perf_counter() - t0:.1f} s "
+        f"({gplan.n_entries} DSS entries in {gplan.masks.shape[0]} classes, "
+        f"nb={gplan.nb}) {at()}")
+    DhT = gA.Dh.T.contiguous()
+
+    def two_matmuls(u, flux):
+        """The local product's two derivative products as torch.matmul
+        calls (the library yardstick of the general apply)."""
+        return torch.matmul(gA.Dh, u), torch.matmul(DhT, flux)
+
+    for name, k, fn, plain in (
+            ("general_apply_dss", 1, kernels.general_apply_dss,
+             kernels.general_apply_dss_plain),
+            ("general_apply_dss_batched", K,
+             kernels.general_apply_dss_batched,
+             kernels.general_apply_dss_batched_plain)):
+        sets = [(randn(k), *gop, gplan) for _ in range(3 if k == 1 else 2)]
+        got = fn(*sets[0])
+        ref = plain(*sets[0])
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        log(f"  {name}: max abs err {err:.3e}, rel {rel:.3e}")
+        check(rel <= 1e-5, f"{name} matches its plain version (1e-5)")
+        ms = gpu_ms(fn, sets)
+        plain_ms = gpu_ms(plain, sets)
+        lib_ms = gpu_ms(two_matmuls, [
+            (s_[0].view(k, n, E) if k > 1 else s_[0],
+             torch.randn((k, 2 * n, E) if k > 1 else (2 * n, E),
+                         generator=g, device=dev)) for s_ in sets])
+        b_ms, b_by = bound(8 * k * nE + gbytes,
+                           k * (gflops + gplan.n_entries * E))
+        rows.append(dict(name=name, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+    gen_op = (gop, lambda u: kernels._general_local(u, *gop[:2]), gplan,
+              gflops, gbytes)
+    for base, k in (("cg_kernel_a_general", 1),
+                    ("cg_kernel_a_general_batched", K)):
+        fn, plain = kernels.WRAPPERS[base], getattr(kernels, base + "_plain")
+        for tag_, pdt, inv in (("f32", torch.float32, ginv32),
+                               ("bf16", torch.bfloat16, ginv16)):
+            rows.append(kernel_a_row(f"{base}[{tag_}]", fn, plain, k, True,
+                                     pdt, inv, scal[k], gen_op))
+
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
@@ -357,27 +455,38 @@ def main() -> int:
         sprob = Poisson(sdisc, dtype=np.float32)
         sA = sprob._local_setup(dev)["A"]
         sK, saT, splan = sA.Kst, sA.aT, sA.plan
+        # and the curved path on a small polar annulus (E = 475)
+        cdisc = Discretization(annulus_mesh(p, **SMALL_ANNULUS),
+                               gll_basis_2d(p))
+        cA = Poisson(cdisc, dtype=np.float32)._local_setup(dev)["A"]
+        cop = (cA.gT, cA.Dh, cA.hier, cA.plan)
         nl = (sdisc.n_loc, sdisc.E)
         rels = []
         for k, b_, sc in ((1, "", (beta, alpha_prev)),
                           (3, "_batched", (scal[K][0][:3], scal[K][1][:3]))):
             shp = (k * sdisc.n_loc, sdisc.E)
+            cshp = (k * sdisc.n_loc, cdisc.E)
 
             def rnd(shape=shp, dtype=torch.float32):
                 return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-            u = rnd()
-            cases = [("affine_apply_dss" + b_, (u, sK, saT, splan))]
+            u, cu = rnd(), rnd(cshp)
+            cases = [("affine_apply_dss" + b_, (u, sK, saT, splan)),
+                     ("general_apply_dss" + b_, (cu, *cop))]
             for pdt in (torch.float32, torch.bfloat16):
                 inv = torch.rand(nl, generator=g, device=dev).to(pdt)
                 w_ = torch.rand(nl, generator=g, device=dev).to(pdt)
+                cinv = torch.rand((sdisc.n_loc, cdisc.E), generator=g,
+                                  device=dev).to(pdt)
                 p_, x_ = rnd(dtype=pdt), rnd()
                 cases += [
                     ("cg_kernel_a" + b_,
                      (u, p_, inv, x_, *sc, sK, saT, splan)),
                     (f"cg_kernel_a{b_}_deferred",
                      (u, p_, inv, sc[0], sK, saT, splan)),
-                    ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1]))]
+                    ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1])),
+                    ("cg_kernel_a_general" + b_,
+                     (cu, rnd(cshp, pdt), cinv, rnd(cshp), *sc, *cop))]
             for name, args in cases:
                 got = kernels.WRAPPERS[name](*args)
                 ref = getattr(kernels, name + "_plain")(*args)
@@ -392,55 +501,103 @@ def main() -> int:
               f"({max(rels):.1e} <= 1e-5)")
 
     # -- 3. the main path: solve_local and solve_local_batch -----------------
-    log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}), f32, "
-        f"max_iter={MAX_ITER} {at()}")
-    free, to_local = ctx["free_local"], ctx["to_local"]
-    w = ctx["ex"].weights_T(torch.float32, dev)
-    bL = to_local(np.asarray(prob._b) + prob._neumann)
-    u_d = np.where(prob._dirichlet_mask, prob._dirichlet_vals, 0.0)
+    log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "
+        f"polar annulus, f32, max_iter={MAX_ITER} {at()}")
+    problems = {"rect": (prob, ctx), "annulus": (aprob, actx)}
 
-    def true_residual(u, b=bL):
-        """||b - A u|| on the free rows, weighted: one f32 apply."""
-        rt = torch.where(free, b - ctx["A_raw"](to_local(u)), 0.0)
-        return float(torch.sqrt(torch.sum(rt * rt * w)))
+    def forcings(pk):
+        """K forcings sharing one operator: the single-RHS forcing 1.0 and
+        K - 1 nodal fields from a seed."""
+        d_ = problems[pk][0].disc
+        return np.concatenate([np.ones((1, d_.n_nodes)),
+                               np.random.RandomState(7).standard_normal(
+                                   (K - 1, d_.n_nodes))])
 
-    r0 = true_residual(u_d)
-    u_dL = to_local(u_d)
+    def residual_fns(pk):
+        """(true_residual, copy_gap, the weak RHS of each forcing, the
+        initial residual of each) of one problem."""
+        prob_, ctx_ = problems[pk]
+        free_, to_local_ = ctx_["free_local"], ctx_["to_local"]
+        w_ = ctx_["ex"].weights_T(torch.float32, dev)
+        d_ = prob_.disc
+        u_d_ = np.where(prob_._dirichlet_mask, prob_._dirichlet_vals, 0.0)
+        u_dL_ = to_local_(u_d_)
 
-    def copy_gap(x, u):
-        """Largest difference between the L-vector solution (the lift plus
-        the solver's x) and its global field localized again (one copy of
-        each shared node), relative to the solution's max."""
-        xL = x.to(u_dL.dtype) + u_dL
-        return float((to_local(u) - xL).abs().max() / xL.abs().max())
-    # the three main-path modes (also driven by the profiles and phase 4),
-    # and deferred x; each mode's tag is the variant of kernels A and B it
-    # runs
+        def true_residual(u, b):
+            """||b - A u|| on the free rows, weighted: one f32 apply."""
+            rt = torch.where(free_, b - ctx_["A_raw"](to_local_(u)), 0.0)
+            return float(torch.sqrt(torch.sum(rt * rt * w_)))
+
+        def copy_gap(x, u):
+            """Largest difference between the L-vector solution (the lift
+            plus the solver's x) and its global field localized again (one
+            copy of each shared node), relative to the solution's max."""
+            xL = x.to(u_dL_.dtype) + u_dL_
+            return float((to_local_(u) - xL).abs().max() / xL.abs().max())
+
+        bLs = [to_local_(d_.scatter_add(d_.gather(f) * d_.detJxW)
+                         .astype(np.float32) + prob_._neumann)
+               for f in forcings(pk)]
+        r0s = np.array([true_residual(u_d_, b) for b in bLs])
+        return true_residual, copy_gap, bLs, r0s
+
+    checks_of = {pk: residual_fns(pk) for pk in problems}
+    F_of = {pk: forcings(pk) for pk in problems}
+    # mode -> (problem, right-hand sides, solve options).  The three
+    # main-path modes (also driven by the profiles and phase 4), deferred
+    # x, the batched modes, the rectangle with the general apply forced,
+    # and the curved modes; each mode's tag is the variant of kernels A and
+    # B it runs
     modes = {"plain": dict(cg_kernel="plain"),
              "fused": dict(cg_kernel="fused"),
              "fused-bf16p": dict(cg_kernel="auto", p_dtype=torch.bfloat16)}
-    single = dict(modes, **{
-        f"fused-m{DEFER}": dict(cg_kernel="fused", defer_x=DEFER),
-        f"fused-bf16p-m{DEFER}": dict(cg_kernel="fused",
-                                      p_dtype=torch.bfloat16,
-                                      defer_x=DEFER)})
-    batch = {f"batch-{m}": kw for m, kw in (
+    all_modes = {m: ("rect", 1, kw) for m, kw in modes.items()}
+    all_modes.update({
+        f"fused-m{DEFER}": ("rect", 1, dict(cg_kernel="fused",
+                                            defer_x=DEFER)),
+        f"fused-bf16p-m{DEFER}": ("rect", 1, dict(
+            cg_kernel="fused", p_dtype=torch.bfloat16, defer_x=DEFER)),
+        "general-plain": ("rect", 1, dict(cg_kernel="plain",
+                                          structure="general"))})
+    all_modes.update({f"batch-{m}": ("rect", K, kw) for m, kw in (
         ("plain", dict(cg_kernel="plain")),
         ("fused", dict(cg_kernel="fused")),
         ("fused-bf16p", dict(cg_kernel="fused", p_dtype=torch.bfloat16)),
         (f"fused-m{DEFER}", dict(cg_kernel="fused", defer_x=DEFER)),
         (f"fused-bf16p-m{DEFER}", dict(cg_kernel="auto",
                                        p_dtype=torch.bfloat16,
-                                       defer_x=DEFER)))}
+                                       defer_x=DEFER)))})
+    all_modes.update({f"curved-{m}": ("annulus", 1, kw)
+                      for m, kw in modes.items()})
+    all_modes.update({f"curved-batch-{m}": ("annulus", K, kw)
+                      for m, kw in modes.items()})
+
+    def solve(name, **opts):
+        pk, k_, kw = all_modes[name]
+        p_ = problems[pk][0]
+        if k_ > 1:
+            return p_.solve_local_batch(F_of[pk], **kw, **opts)
+        return p_.solve_local(**kw, **opts)
 
     def tag(kw):
         if kw["cg_kernel"] == "plain":
             return None
         return "bf16" if kw.get("p_dtype") is not None else "f32"
 
-    all_modes = dict(single, **batch)
-    runs = [(m, tol) for tol in (TOL_ALL, TOL_F32) for m in single
-            if (m, tol) != (f"fused-bf16p-m{DEFER}", TOL_F32)]
+    single_rect = [m for m, (pk, k_, _) in all_modes.items()
+                   if pk == "rect" and k_ == 1 and m != "general-plain"]
+    # the bf16 modes at TOL_F32 record where they stop (the batched one
+    # at the bench's configuration); they are not required to converge
+    unconverged = {("fused-bf16p", TOL_F32),
+                   (f"batch-fused-bf16p-m{DEFER}", TOL_F32)}
+    runs = ([(m, tol) for tol in (TOL_ALL, TOL_F32) for m in single_rect
+             if (m, tol) != (f"fused-bf16p-m{DEFER}", TOL_F32)]
+            + [("general-plain", TOL_ALL)]
+            + [(f"curved-{m}", TOL_ALL) for m in modes]
+            + [("curved-plain", TOL_F32), ("curved-fused", TOL_F32)]
+            + [(m, TOL_ALL) for m in all_modes if "batch-" in m]
+            + [(f"batch-fused-m{DEFER}", TOL_F32),
+               (f"batch-fused-bf16p-m{DEFER}", TOL_F32)])
     solves, launches = {}, {m: dict.fromkeys(kernels.WRAPPERS, 0)
                             for m in all_modes}
 
@@ -458,80 +615,53 @@ def main() -> int:
         return sol, dt
 
     for name, tol in runs:
-        sol, dt = drive(name, lambda: prob.solve_local(
-            tol=tol, max_iter=MAX_ITER, **single[name]))
-        its, issued = int(sol.cg.iterations), sol.cg.issued
-        res = float(sol.cg.residual_norm)
-        true_rel = true_residual(sol.u) / r0
-        gap = copy_gap(sol.cg.x, sol.u)
+        if name == "batch-plain":
+            log(f"[3b] solve_local_batch, K={K} right-hand sides {at()}")
+        pk, k_, _ = all_modes[name]
+        true_residual, copy_gap, bLs, r0s = checks_of[pk]
+        n_nodes = problems[pk][0].disc.n_nodes
+        sol, dt = drive(name, lambda: solve(name, tol=tol,
+                                            max_iter=MAX_ITER))
+        U = sol.u.reshape(k_, n_nodes)
+        X = sol.cg.x.reshape(k_, *sol.cg.x.shape[-2:])
+        its = np.atleast_1d(sol.cg.iterations.cpu().numpy()).tolist()
+        conv = np.atleast_1d(sol.cg.converged.cpu().numpy()).tolist()
+        res = np.atleast_1d(sol.cg.residual_norm.cpu().numpy()) / r0s[:k_]
+        true_rel = np.array([true_residual(U[j], bLs[j])
+                             for j in range(k_)]) / r0s[:k_]
+        gap = max(copy_gap(X[j], U[j]) for j in range(k_))
+        issued = sol.cg.issued
         key = f"{name}@{tol:g}"
         solves[key] = dict(iterations=its, issued=issued, seconds=dt,
-                           ms_per_issued=1e3 * dt / issued,
-                           recurrence_rel=res / r0, true_rel=true_rel,
-                           copy_gap=gap, converged=bool(sol.cg.converged))
-        log(f"  {key}: {its} its / {issued} issued, {dt:.3f} s, "
-            f"{1e3 * dt / issued:.4f} ms/iteration issued, residual "
-            f"{res / r0:.3e} relative (true {true_rel:.3e}), copy gap "
-            f"{gap:.1e}, converged {bool(sol.cg.converged)}")
-        check(bool(np.isfinite(sol.u).all()) and sol.u.shape
-              == (disc.n_nodes,), f"{key}: finite solution of the mesh's "
-              "shape")
-        if (name, tol) != ("fused-bf16p", TOL_F32):
-            check(bool(sol.cg.converged), f"{key} converged")
-    for tol, names in ((TOL_ALL, ("fused", "fused-bf16p", f"fused-m{DEFER}",
-                                  f"fused-bf16p-m{DEFER}")),
-                       (TOL_F32, ("fused", f"fused-m{DEFER}"))):
-        p_its = solves[f"plain@{tol:g}"]["iterations"]
-        for name in names:
-            its = solves[f"{name}@{tol:g}"]["iterations"]
-            check(p_its / ITER_RATIO <= its <= ITER_RATIO * p_its,
-                  f"{name}@{tol:g} iterations ({its}) within a factor "
-                  f"{ITER_RATIO} of plain ({p_its})")
-
-    # K forcings sharing the operator: the single-RHS forcing 1.0 and
-    # K - 1 nodal fields from a seed
-    log(f"[3b] solve_local_batch, K={K} right-hand sides {at()}")
-    F = np.concatenate([np.ones((1, disc.n_nodes)),
-                        np.random.RandomState(7).standard_normal(
-                            (K - 1, disc.n_nodes))])
-    bL_rows = [to_local(disc.scatter_add(disc.gather(f) * disc.detJxW)
-                        .astype(np.float32) + prob._neumann) for f in F]
-    r0_b = np.array([true_residual(u_d, b) for b in bL_rows])
-    # the bench's bf16 configuration at TOL_F32: its stopping point is
-    # recorded, not required to converge
-    tight_bf16 = (f"batch-fused-bf16p-m{DEFER}", TOL_F32)
-    bruns = [(m, TOL_ALL) for m in batch] + [(f"batch-fused-m{DEFER}",
-                                              TOL_F32), tight_bf16]
-    for name, tol in bruns:
-        sol, dt = drive(name, lambda: prob.solve_local_batch(
-            F, tol=tol, max_iter=MAX_ITER, **batch[name]))
-        its, issued = sol.cg.iterations.tolist(), sol.cg.issued
-        res = sol.cg.residual_norm.cpu().numpy() / r0_b
-        true_rel = np.array([true_residual(sol.u[j], bL_rows[j])
-                             for j in range(K)]) / r0_b
-        conv = [bool(c) for c in sol.cg.converged.tolist()]
-        gap = max(copy_gap(sol.cg.x[j], sol.u[j]) for j in range(K))
-        key = f"{name}@{tol:g}"
-        solves[key] = dict(iterations=its, issued=issued, seconds=dt,
-                           ms_per_issued_per_rhs=1e3 * dt / issued / K,
-                           residual_rel=res.tolist(),
+                           ms_per_issued_per_rhs=1e3 * dt / issued / k_,
+                           recurrence_rel=res.tolist(),
                            true_rel=true_rel.tolist(), copy_gap=gap,
                            converged=conv)
         log(f"  {key}: its {its} / {issued} issued, {dt:.3f} s, "
-            f"{1e3 * dt / issued / K:.4f} ms/iteration issued per RHS, "
+            f"{1e3 * dt / issued / k_:.4f} ms/iteration issued per RHS, "
             f"residual {np.array2string(res, precision=3)} relative (true "
             f"{np.array2string(true_rel, precision=3)}), copy gap "
             f"{gap:.1e}, converged {conv}")
-        check(bool(np.isfinite(sol.u).all()) and sol.u.shape
-              == (K, disc.n_nodes), f"{key}: finite solutions of shape "
-              f"({K}, {disc.n_nodes})")
-        if (name, tol) == tight_bf16:
-            continue
-        check(all(conv), f"{key}: every RHS converged")
-        p_its = solves[f"plain@{tol:g}"]["iterations"]
-        check(p_its / ITER_RATIO <= its[0] <= ITER_RATIO * p_its,
-              f"{key} RHS 0 iterations ({its[0]}) within a factor "
-              f"{ITER_RATIO} of the single-RHS plain solve ({p_its})")
+        check(bool(np.isfinite(sol.u).all()) and sol.u.size == k_ * n_nodes,
+              f"{key}: finite solutions of the mesh's shape")
+        if (name, tol) not in unconverged:
+            check(all(conv), f"{key}: every RHS converged")
+
+    def its_of(name, tol):
+        return solves[f"{name}@{tol:g}"]["iterations"][0]
+
+    # the fused modes against plain CG of their mesh at the same tolerance
+    # (a batch by its RHS 0, the single-RHS forcing), and the rectangle's
+    # general apply against its affine one
+    ratio_checks = [(m, tol, "curved-plain" if m.startswith("curved")
+                     else "plain") for m, tol in runs
+                    if m not in ("plain", "curved-plain")
+                    and (m, tol) not in unconverged]
+    for name, tol, ref in ratio_checks:
+        p_its, its = its_of(ref, tol), its_of(name, tol)
+        check(p_its / ITER_RATIO <= its <= ITER_RATIO * p_its,
+              f"{name}@{tol:g} iterations ({its}) within a factor "
+              f"{ITER_RATIO} of {ref} ({p_its})")
     log("  launches on the main path: " + str(
         {m: {k_: c for k_, c in d.items() if c} for m, d in launches.items()}))
 
@@ -542,18 +672,15 @@ def main() -> int:
     steady = {m: [] for m in all_modes}
     for order in (list(all_modes), list(all_modes)[::-1]):
         for name in order:
-            kw, k_ = all_modes[name], K if name in batch else 1
             ts = []
             for it in STEADY:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                sol = (prob.solve_local_batch(F, tol=0.0, max_iter=it, **kw)
-                       if k_ > 1 else prob.solve_local(tol=0.0, max_iter=it,
-                                                       **kw))
+                sol = solve(name, tol=0.0, max_iter=it)
                 torch.cuda.synchronize()
                 ts.append((time.perf_counter() - t0, sol.cg.issued))
             steady[name].append(1e3 * (ts[1][0] - ts[0][0])
-                                / (ts[1][1] - ts[0][1]) / k_)
+                                / (ts[1][1] - ts[0][1]) / all_modes[name][1])
     log(f"[3c] steady-state ms per issued iteration per RHS ({STEADY[1]} - "
         f"{STEADY[0]} iterations at tol 0; forward, reverse) {at()}: "
         + ", ".join(f"{m} {v[0]:.4f} {v[1]:.4f}" for m, v in steady.items()))
@@ -567,17 +694,13 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    profiled = [(name, lambda kw=kw: prob.solve_local(
-        tol=0.0, max_iter=PROFILE_ITERS, **kw)) for name, kw in modes.items()]
-    bname = f"batch-fused-bf16p-m{DEFER}"
-    profiled.append((bname, lambda: prob.solve_local_batch(
-        F, tol=0.0, max_iter=PROFILE_ITERS, **batch[bname])))
-    for name, run in profiled:
+    for name in (*modes, f"batch-fused-bf16p-m{DEFER}",
+                 "curved-fused-bf16p"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run()
+            solve(name, tol=0.0, max_iter=PROFILE_ITERS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = [e for e in prof.key_averages()
@@ -590,22 +713,35 @@ def main() -> int:
             log(f"    {e.self_device_time_total / 1e3 / PROFILE_ITERS:8.4f} "
                 f"ms/iter  x{e.count / PROFILE_ITERS:5.2f}  {e.key[:70]}")
 
-    # -- 4. manufactured solution ---------------------------------------------
+    # -- 4. manufactured solutions ---------------------------------------------
     # 32x32 p=8: the f32 recurrence reaches tol=1e-7 there, and the error
     # bar is the reference's f32 bar (tests/test_cg_fused.py: 1e-4)
     mdisc = Discretization(rectangle_mesh(32, 32, ORDER), gll_basis_2d(ORDER))
     mprob = Poisson(mdisc, forcing=0.0, dtype=np.float32)
     mprob.set_dirichlet("ebc", lambda x, y: 0.1 * (x + y))
     mprob.set_neumann("nbc", 0.1)
-    x, y = mprob.x_nodes
-    for name, kw in modes.items():
-        sol = mprob.solve_local(tol=1e-7, max_iter=MAX_ITER, **kw)
-        err_max = float(np.abs(sol.u - 0.1 * (x + y)).max())
-        err_l2 = mprob.l2_error(sol.u, lambda x, y: 0.1 * (x + y))
-        log(f"[4] manufactured 32x32 p=8 {name}: {int(sol.cg.iterations)} "
-            f"its, max err {err_max:.3e}, l2 err {err_l2:.3e} {at()}")
-        check(bool(sol.cg.converged) and err_l2 < 1e-4,
-              f"manufactured solution ({name}): l2 error below 1e-4")
+    # and a curved one: u = ln r is harmonic in the plane; Dirichlet on the
+    # two circles, natural on the symmetry axis (du/dn = 0 there)
+    cdisc = Discretization(annulus_mesh(ORDER, **MMS_ANNULUS),
+                           gll_basis_2d(ORDER))
+    cprob = Poisson(cdisc, forcing=0.0, dtype=np.float32)
+    for bnd in ("sphere", "shell"):
+        cprob.set_dirichlet(bnd, lambda x, y: 0.5 * np.log(x * x + y * y))
+    for label, mp, exact in (
+            ("32x32 p=8, u = 0.1 (x + y)", mprob, lambda x, y: 0.1 * (x + y)),
+            ("annulus 32x8 p=8, u = ln r", cprob,
+             lambda x, y: 0.5 * np.log(x * x + y * y))):
+        x, y = mp.x_nodes
+        for name, kw in modes.items():
+            sol = mp.solve_local(tol=1e-7, max_iter=MAX_ITER, **kw)
+            err_max = float(np.abs(sol.u - exact(x, y)).max())
+            err_l2 = mp.l2_error(sol.u, exact)
+            log(f"[4] manufactured {label} {name}: "
+                f"{int(sol.cg.iterations)} its, max err {err_max:.3e}, l2 "
+                f"err {err_l2:.3e} {at()}")
+            check(bool(sol.cg.converged) and err_l2 < 1e-4,
+                  f"manufactured solution ({label}, {name}): l2 error "
+                  "below 1e-4")
 
     # -- 5. report --------------------------------------------------------------
     # launches per row: over the phase-3 solves that run the row's variant
@@ -615,7 +751,7 @@ def main() -> int:
     for r in rows:
         base, _, t = r["name"].partition("[")
         row_launches[r["name"]] = sum(
-            launches[m][base] for m, kw in all_modes.items()
+            launches[m][base] for m, (_, _, kw) in all_modes.items()
             if not t or tag(kw) == t[:-1])
     out = []
     for r in rows:

@@ -4,16 +4,20 @@
 L-vector solve as plain numpy arrays — the assembled stiffness blocks, the
 affine scales, the roll classes with their masks, the local-to-global map,
 the dot weights, the operator diagonal and the free mask — and builds the
-port's operator, exchange plan and CG operands from them.  Fed the JAX
-package's arrays, both packages then compute the same function on the same
-data, independently of the port's own (copied) host setup; that is how the
-tests hold each kernel's plain version against its TPU counterpart.
-:meth:`InteropOperator.fused_kernels` builds the deferred and batched
-kernels from that state, and ``A.stacked(k)`` is the k-RHS apply.
+port's operator, exchange plan and CG operands from them;
+:func:`general_operator_from_numpy` does the same for a curved mesh from
+its full geometric-factor slabs, the stacked derivative and the local node
+order.  Fed the JAX package's arrays, both packages then compute the same
+function on the same data, independently of the port's own (copied) host
+setup; that is how the tests hold each kernel's plain version against its
+TPU counterpart.  :meth:`InteropOperator.fused_kernels` builds the
+deferred and batched kernels from that state, and ``A.stacked(k)`` is the
+k-RHS apply.
 
-Arrays padded with inert elements (zero affine scales, false masks, zero
-weights, as the reference pads for its TPU lane tiling) are accepted as
-they are.
+Arrays padded with inert elements (zero factors or affine scales, false
+masks, zero weights, as the reference pads for its TPU lane tiling) are
+accepted as they are; general factors of the real elements only are
+zero-padded to the tables' element count.
 """
 
 from __future__ import annotations
@@ -25,16 +29,15 @@ import torch
 
 from .config import resolve_device, torch_dtype
 from .models.poisson import fused_cg_operands
-from .ops import kernels
 from .ops.exchange import DSSPlan
-from .ops.sumfac import AffineLaplacianT
+from .ops.sumfac import AffineLaplacianT, GeneralLaplacianT, LaplacianT
 from .solver.cg import jacobi_preconditioner
 
 
 class InteropOperator(NamedTuple):
     plan: DSSPlan               # roll-class tables on the device
-    A: AffineLaplacianT         # masked operator (assumes masked input)
-    A_raw: AffineLaplacianT     # unmasked operator (residual seeds)
+    A: LaplacianT               # masked operator (assumes masked input)
+    A_raw: LaplacianT           # unmasked operator (residual seeds)
     M: Callable                 # Jacobi preconditioner
     w: torch.Tensor             # (n, E) dot weights
     free: torch.Tensor          # (n, E) bool free mask
@@ -50,21 +53,42 @@ class InteropOperator(NamedTuple):
         return torch.sum(prod * self.w.to(prod.dtype))
 
     def fused_kernels(self, n_rhs: int = 1, defer_x: bool = False):
-        """``(kA, kB)`` bound to this operator: single-RHS
-        (:func:`.ops.kernels.make_fused_cg_kernels`) for ``n_rhs == 1``,
-        else for (n_rhs n, E) stacks; ``defer_x`` drops kernel A's x."""
-        if n_rhs == 1:
-            return kernels.make_fused_cg_kernels(
-                self.A.Kst, self.A.aT, self.plan, defer_x=defer_x)
-        return kernels.make_fused_cg_kernels_batched(
-            self.A.Kst, self.A.aT, self.plan, n_rhs, defer_x=defer_x)
+        """``(kA, kB)`` bound to this operator: single-RHS for
+        ``n_rhs == 1``, else for (n_rhs n, E) stacks; ``defer_x`` drops
+        kernel A's x (affine operators only)."""
+        return self.A.fused_cg_kernels(None if n_rhs == 1 else n_rhs,
+                                       defer_x=defer_x)
+
+
+def _interop(A_raw: LaplacianT, gather_hier, weights, diag, free,
+             E_real: int, p_dtype, dt) -> InteropOperator:
+    """The CG operands around the unmasked operator ``A_raw``."""
+    plan, dev = A_raw.plan, A_raw.plan.device
+    freeT = np.ascontiguousarray(np.asarray(free, bool)[gather_hier].T)
+    free_t = torch.as_tensor(freeT, device=dev)
+    A = A_raw.masked(free_t, assume_masked_input=True)
+    gih = torch.as_tensor(gather_hier, device=dev)
+
+    def to_local(u_global):
+        u = torch.as_tensor(np.asarray(u_global), device=dev).to(dt)
+        return u[gih].T.contiguous()
+
+    diag = np.asarray(diag)
+    M = jacobi_preconditioner(to_local(diag), free_t)
+    wT = np.ascontiguousarray(np.asarray(weights).T)
+    inv, w_free = fused_cg_operands(diag[gather_hier].T, freeT, wT, p_dtype,
+                                    dev)
+    kA, kB = A.fused_cg_kernels()
+    return InteropOperator(plan, A, A_raw, M, torch.as_tensor(wT, device=dev)
+                           .to(dt), free_t, inv, w_free, kA, kB, to_local,
+                           int(E_real))
 
 
 def operator_from_numpy(Kcat, a, edge_classes, vert_classes, gather_hier,
                         weights, diag, free, E_real: int, *,
                         device=None, dtype=np.float32, p_dtype=None,
                         edge_len=None) -> InteropOperator:
-    """The port's operator state from numpy arrays.
+    """The port's operator state from numpy arrays (affine mesh).
 
     ``Kcat`` (n, 3n): [K0 | K1 | K2] in the L-vector node order; ``a``
     (E, 3): affine scales; ``edge_classes`` / ``vert_classes``: roll-class
@@ -85,23 +109,32 @@ def operator_from_numpy(Kcat, a, edge_classes, vert_classes, gather_hier,
     E, n = gather_hier.shape
     plan = DSSPlan.from_classes(n, E, edge_classes, vert_classes, dev,
                                 edge_len=edge_len)
-    freeT = np.ascontiguousarray(np.asarray(free, bool)[gather_hier].T)
-    free_t = torch.as_tensor(freeT, device=dev)
-    A = AffineLaplacianT(Kcat, a, plan, free_t, assume_masked_input=True,
-                         dtype=dt)
-    A_raw = AffineLaplacianT(Kcat, a, plan, None, dtype=dt)
-    gih = torch.as_tensor(gather_hier, device=dev)
+    return _interop(AffineLaplacianT(Kcat, a, plan, None, dtype=dt),
+                    gather_hier, weights, diag, free, E_real, p_dtype, dt)
 
-    def to_local(u_global):
-        u = torch.as_tensor(np.asarray(u_global), device=dev).to(dt)
-        return u[gih].T.contiguous()
 
-    diag = np.asarray(diag)
-    M = jacobi_preconditioner(to_local(diag), free_t)
-    wT = np.ascontiguousarray(np.asarray(weights).T)
-    inv, w_free = fused_cg_operands(diag[gather_hier].T, freeT, wT, p_dtype,
-                                    dev)
-    kA, kB = kernels.make_fused_cg_kernels(A.Kst, A.aT, plan)
-    return InteropOperator(plan, A, A_raw, M, torch.as_tensor(wT, device=dev)
-                           .to(dt), free_t, inv, w_free, kA, kB, to_local,
-                           int(E_real))
+def general_operator_from_numpy(Gf, Dhat, hier, edge_classes, vert_classes,
+                                gather_hier, weights, diag, free,
+                                E_real: int, *, device=None,
+                                dtype=np.float32, p_dtype=None,
+                                edge_len=None) -> InteropOperator:
+    """The port's operator state from numpy arrays (curved mesh).
+
+    ``Gf`` (E, 3, n): the lex-ordered geometric factors (the JAX package's
+    padded array as it is, or E_real rows, zero-padded here); ``Dhat``
+    (2n, n): the stacked derivative in lex order; ``hier`` (n,): the local
+    node order (L-vector row -> lex node); the rest as in
+    :func:`operator_from_numpy`.
+    """
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    gather_hier = np.asarray(gather_hier)
+    E, n = gather_hier.shape
+    Gf = np.asarray(Gf)
+    if Gf.shape[0] < E:
+        Gf = np.concatenate([Gf, np.zeros((E - Gf.shape[0],) + Gf.shape[1:],
+                                          Gf.dtype)])
+    plan = DSSPlan.from_classes(n, E, edge_classes, vert_classes, dev,
+                                edge_len=edge_len)
+    return _interop(GeneralLaplacianT(Gf, Dhat, hier, plan, None, dtype=dt),
+                    gather_hier, weights, diag, free, E_real, p_dtype, dt)

@@ -11,11 +11,12 @@ The model and its boundary data are host numpy (as in the reference);
 solve_local_batch` (k forcings, one operator) run Jacobi-preconditioned CG
 on transposed (n, E) L-vectors on a device: the CUDA card by default, or
 the CPU with ``device="cpu"``, where every kernel runs its plain PyTorch
-version.  Ported: affine 2D meshes, the Jacobi preconditioner,
-``cg_kernel`` in {``auto``, ``plain``, ``fused``}, ``p_dtype`` in {None,
-``torch.bfloat16``}, ``defer_x``, the transposed (n, E) layout.  Not yet:
-curved meshes, 3D, fdm/pmg preconditioners, ``certify``, the ``en``
-layout (ROADMAP queues).
+version.  Ported: affine and curved (or variable-coefficient) 2D meshes
+with ``structure`` in {``auto``, ``general``, ``affine``}, the Jacobi
+preconditioner, ``cg_kernel`` in {``auto``, ``plain``, ``fused``},
+``p_dtype`` in {None, ``torch.bfloat16``}, ``defer_x`` (affine meshes), the
+transposed (n, E) layout.  Not yet: 3D, fdm/pmg preconditioners,
+``certify``, the ``en`` layout (ROADMAP queues).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from ..config import resolve_device, torch_dtype
 from ..core.discretization import Discretization
-from ..ops import kernels, sumfac
+from ..ops import sumfac
 from ..solver.cg import (CGResult, auto_defer_x, auto_defer_x_batched, cg,
                          cg_batched, cg_fused, cg_fused_batched,
                          hbm_residency_regime, jacobi_preconditioner)
@@ -118,7 +119,8 @@ class Poisson(BoundaryConditionMixin):
     coefficient : callable(x, y) or None
         Variable diffusivity c(x, y) for -div(c grad u); None = 1.  A
         coefficient that varies inside an element makes the factors
-        non-affine, which the port does not solve yet.
+        non-affine, and the solves take the general (full-factor) apply,
+        as on a curved mesh.
     dtype : dtype of the device solve: float64 (CPU, reference-matching
         accuracy) or float32 (the CUDA kernels take float32 only).
     """
@@ -175,14 +177,36 @@ class Poisson(BoundaryConditionMixin):
 
     # -- solve -----------------------------------------------------------------
 
-    def _local_setup(self, device):
+    def _structure(self, structure: str) -> str:
+        """``structure`` resolved against the mesh: ``"auto"`` becomes
+        ``"affine"`` or ``"general"`` by :func:`..ops.sumfac.
+        affine_factorization` (cached); ``"affine"`` on a curved mesh
+        raises, as in the reference."""
+        if structure not in sumfac.STRUCTURES:
+            raise ValueError(f"unknown structure {structure!r}")
+        affine = getattr(self, "_affine", None)
+        if affine is None:
+            W = self.disc.basis.weight_grid().reshape(-1)
+            _, affine = sumfac.affine_factorization(
+                self._G_host.reshape(self.disc.E, 3, -1), W)
+            self._affine = affine
+        if structure == "auto":
+            return "affine" if affine else "general"
+        if structure == "affine" and not affine:
+            raise ValueError("mesh is not affine but structure='affine'")
+        return structure
+
+    def _local_setup(self, device, structure: str = "auto"):
         """Operators and preconditioner of the L-vector solve on
-        ``device``, cached in ``_op_cache`` (cleared by set_dirichlet)."""
+        ``device``, cached in ``_op_cache`` (cleared by set_dirichlet) under
+        the resolved structure: an affine and a general operator of one
+        mesh never share an entry."""
         from ..ops.exchange import make_exchange
 
         if self._exchange is None:
             self._exchange = make_exchange(self.disc)
-        key = ("ctx", str(device))
+        structure = self._structure(structure)
+        key = ("ctx", structure, str(device))
         ctx = self._op_cache.get(key)
         if ctx is not None:
             return ctx
@@ -199,13 +223,11 @@ class Poisson(BoundaryConditionMixin):
         free_np = np.ascontiguousarray(
             (~self._dirichlet_mask)[ex.gather_hier].T)
         free_local = torch.as_tensor(free_np, device=device)
+        A_raw = sumfac.make_local_laplacian_operator(
+            ex, Gf, Dhat, None, device=device, structure=structure)
         # CG iterates are masked by induction (M masks its output, x0 = 0):
-        # skip the apply's input-mask pass
-        A = sumfac.make_local_laplacian_operator(
-            ex, Gf, Dhat, free_local, assume_masked_input=True,
-            device=device)
-        A_raw = sumfac.make_local_laplacian_operator(ex, Gf, Dhat, None,
-                                                     device=device)
+        # skip the apply's input-mask pass (the factor slabs are shared)
+        A = A_raw.masked(free_local, assume_masked_input=True)
         M = jacobi_preconditioner(to_local(self.operator_diagonal()),
                                   free_local)
         ctx = dict(ex=ex, to_local=to_local, A=A, A_raw=A_raw, M=M,
@@ -214,6 +236,7 @@ class Poisson(BoundaryConditionMixin):
         return ctx
 
     def solve_local(self, tol: float = 1e-12, max_iter: int | None = None,
+                    structure: str = "auto",
                     cg_kernel: str = "auto",
                     p_dtype=None,
                     defer_x: int | str = 0,
@@ -223,13 +246,21 @@ class Poisson(BoundaryConditionMixin):
         ``device``: where the solve runs — ``None`` is the CUDA card (and
         raises when there is none), ``"cpu"`` runs the plain PyTorch
         versions of the kernels.
-        ``cg_kernel``: ``"plain"`` — one :func:`..ops.kernels.
-        affine_apply_dss` per iteration plus PyTorch vector ops;
-        ``"fused"`` — each iteration is the kernel pair
-        :func:`..ops.kernels.cg_kernel_a` / :func:`..ops.kernels.
-        cg_kernel_b` (float32 models only); ``"auto"`` — fused when
-        ``p_dtype`` asks for bf16 direction storage on the card, as the
-        reference engages its fused kernels only in that mode.
+        ``structure``: the apply of plain CG, of the lift and of the
+        true-residual checks — ``"auto"`` detects affine meshes (the
+        assembled-K apply, :func:`..ops.kernels.affine_apply_dss`) and
+        takes the full-factor apply otherwise
+        (:func:`..ops.kernels.general_apply_dss`), ``"general"`` forces
+        the latter, ``"affine"`` requires an affine mesh.
+        ``cg_kernel``: ``"plain"`` — one apply per iteration plus PyTorch
+        vector ops; ``"fused"`` — each iteration is a kernel pair, kernel
+        A (:func:`..ops.kernels.cg_kernel_a`, or on a curved mesh
+        :func:`..ops.kernels.cg_kernel_a_general`) and kernel B
+        (:func:`..ops.kernels.cg_kernel_b`), float32 models only; as in
+        the reference, the pair follows the mesh whatever ``structure``
+        says.  ``"auto"`` — fused when ``p_dtype`` asks for bf16
+        direction storage on the card, as the reference engages its fused
+        kernels only in that mode.
         ``p_dtype``: ``torch.bfloat16`` stores the fused-CG search
         direction in bf16 (Ap is computed from the stored direction, so
         the r recurrence stays exact).
@@ -237,8 +268,10 @@ class Poisson(BoundaryConditionMixin):
         update — kernel A skips x and the loop applies
         ``x += sum alpha_j p_j`` once per m iterations
         (:func:`..solver.cg.cg_fused`); only meaningful with a fused
-        ``cg_kernel``.  ``"auto"`` resolves as the reference does
-        (:func:`..solver.cg.auto_defer_x`).
+        ``cg_kernel`` on an affine mesh (the general kernels have no
+        deferred mode: an explicit fused request raises, ``"auto"`` takes
+        plain CG, as in the reference).  ``"auto"`` resolves as the
+        reference does (:func:`..solver.cg.auto_defer_x`).
         Iterates are mathematically those of the reference's
         ``solve_local``; the stopping rule is ``||r|| <= tol ||b||`` in the
         multiplicity-weighted norm.
@@ -253,7 +286,7 @@ class Poisson(BoundaryConditionMixin):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
 
-        ctx = self._local_setup(dev)
+        ctx = self._local_setup(dev, structure)
         ex, to_local = ctx["ex"], ctx["to_local"]
         A, A_raw, M = ctx["A"], ctx["A_raw"], ctx["M"]
         free_local = ctx["free_local"]
@@ -276,13 +309,18 @@ class Poisson(BoundaryConditionMixin):
             and dev.type == "cuda")
         if cg_kernel == "fused" and not f32:
             raise ValueError("cg_kernel='fused' requires a float32 model")
+        # the fused pair follows the mesh, not ``structure`` (the
+        # reference's _build_fused_cg)
+        fop = self._local_setup(dev)["A"]
+        if (want_fused and cg_kernel == "auto" and defer_x
+                and fop.structure == "general"):
+            want_fused = False
         if want_fused and f32:
             key = ("cg_fused", str(p_dtype), bool(defer_x), str(dev))
             fused = self._op_cache.get(key)
             if fused is None:
                 fused = self._op_cache[key] = (
-                    *kernels.make_fused_cg_kernels(A.Kst, A.aT, A.plan,
-                                                   defer_x=bool(defer_x)),
+                    *fop.fused_cg_kernels(defer_x=bool(defer_x)),
                     *self._fused_cg_operands(ex, ctx["free_np"], p_dtype,
                                              dev))
             kA, kB, inv, w_free = fused
@@ -301,6 +339,7 @@ class Poisson(BoundaryConditionMixin):
     def solve_local_batch(self, forcings, tol: float = 1e-12,
                           max_iter: int | None = None,
                           precond: str = "jacobi",
+                          structure: str = "auto",
                           vector_layout: str = "auto",
                           cg_kernel: str = "auto",
                           p_dtype=None,
@@ -316,18 +355,20 @@ class Poisson(BoundaryConditionMixin):
 
         ``forcings``: a sequence of k forcing fields (callables ``f(x, y)``
         or scalars), or a (k, n_nodes) array of nodal forcing values (the
-        weak RHS is formed here in either case).  ``device`` as in
-        :meth:`solve_local`.
+        weak RHS is formed here in either case).  ``device`` and
+        ``structure`` as in :meth:`solve_local`.
         ``cg_kernel``: ``"plain"`` — :func:`..solver.cg.cg_batched` over the
-        k-stack apply (:func:`..ops.kernels.affine_apply_dss_batched`);
-        ``"fused"`` — :func:`..solver.cg.cg_fused_batched` over the batched
-        kernel pair (float32 models; ``p_dtype=torch.bfloat16`` stores the
+        k-stack apply (:func:`..ops.kernels.affine_apply_dss_batched` or
+        :func:`..ops.kernels.general_apply_dss_batched`); ``"fused"`` —
+        :func:`..solver.cg.cg_fused_batched` over the batched kernel pair
+        of the mesh (float32 models; ``p_dtype=torch.bfloat16`` stores the
         k directions in bf16); ``"auto"`` — fused when ``p_dtype`` asks for
-        bf16 on the card and k >= 2 (or the iterate is past
-        :func:`..solver.cg.hbm_residency_regime`), as the reference decides
-        for affine meshes.  ``defer_x``: m >= 2 dividing 64 defers every
-        RHS's solution update (fused only); ``"auto"`` resolves by
-        :func:`..solver.cg.auto_defer_x_batched`.
+        bf16 on the card and the mesh is curved, or k >= 2, or the iterate
+        is past :func:`..solver.cg.hbm_residency_regime`, as the reference
+        decides.  ``defer_x``: m >= 2 dividing 64 defers every RHS's
+        solution update (fused, affine meshes: on a curved mesh an
+        explicit m raises and ``"auto"`` drops it, as in the reference);
+        ``"auto"`` resolves by :func:`..solver.cg.auto_defer_x_batched`.
 
         Returns a :class:`PoissonSolution` whose ``u`` is (k, n_nodes) and
         whose ``cg`` fields are batched (k leading axis).
@@ -350,7 +391,7 @@ class Poisson(BoundaryConditionMixin):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
 
-        ctx = self._local_setup(dev)
+        ctx = self._local_setup(dev, structure)
         ex, to_local = ctx["ex"], ctx["to_local"]
         free_local = ctx["free_local"]
 
@@ -376,35 +417,38 @@ class Poisson(BoundaryConditionMixin):
         if max_iter is None:
             max_iter = max(200, 20 * int(np.sqrt(disc.ndof)))
 
-        if defer_x == "auto":
+        defer_auto = defer_x == "auto"
+        if defer_auto:
             defer_x = auto_defer_x_batched(ex.E, disc.n_loc, k)
         f32 = np.dtype(self.dtype) == np.float32
+        # the fused pair follows the mesh, not ``structure`` (the
+        # reference's routing)
+        fop = self._local_setup(dev)["A"]
+        curved = fop.structure == "general"
         if cg_kernel == "auto":
             cg_kernel = ("fused" if p_dtype is not None and f32
                          and dev.type == "cuda"
-                         and (k >= 2 or hbm_residency_regime(ex.E,
-                                                             disc.n_loc))
+                         and (curved or k >= 2
+                              or hbm_residency_regime(ex.E, disc.n_loc))
                          else "plain")
         if cg_kernel == "fused" and not f32:
             raise ValueError("cg_kernel='fused' requires a float32 model")
-
-        bkey = ("A_batch", k, str(dev))
-        A_wb = self._op_cache.get(bkey)
-        if A_wb is None:
-            A_wb = self._op_cache[bkey] = sumfac.make_multi_rhs_laplacian_T(
-                ex, self._G_host.reshape(disc.E, 3, -1),
-                ctx["Dhat"], k, free_local=free_local,
-                assume_masked_input=True, device=dev)
+        # the masked operator on the k-stack (buffers shared with ctx)
+        A_wb = ctx["A"].stacked(k)
 
         if cg_kernel == "fused":
+            if curved and defer_x:
+                if not defer_auto:
+                    raise ValueError(
+                        "defer_x requires an affine mesh (the general "
+                        "batched CG kernels carry no deferred-x mode)")
+                defer_x = 0
             fkey = ("cg_fused_batch", k, str(p_dtype), bool(defer_x),
                     str(dev))
             fused = self._op_cache.get(fkey)
             if fused is None:
                 fused = self._op_cache[fkey] = (
-                    *kernels.make_fused_cg_kernels_batched(
-                        A_wb.Kst, A_wb.aT, A_wb.plan, k,
-                        defer_x=bool(defer_x)),
+                    *fop.fused_cg_kernels(k, defer_x=bool(defer_x)),
                     *self._fused_cg_operands(ex, ctx["free_np"], p_dtype,
                                              dev))
             kA, kB, inv, w_free = fused

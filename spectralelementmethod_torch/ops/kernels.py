@@ -1,20 +1,27 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Three CUDA sources (``../csrc``, one shared library each) replace the TPU
-Pallas kernels that the 2D affine ``solve_local`` and ``solve_local_batch``
-run.  Each takes one right-hand side or a ``(k * n, E)`` stack of k that
-share the operator (the RHS is a grid dimension of every launch), and each
-wrapper below launches one variant:
+Five CUDA sources (``../csrc``, one shared library each) replace the TPU
+Pallas kernels that the 2D ``solve_local`` and ``solve_local_batch`` run on
+affine and on curved meshes.  Each takes one right-hand side or a
+``(k * n, E)`` stack of k that share the operator (the RHS is a grid
+dimension of every launch), and each wrapper below launches one variant:
 
 * :func:`affine_apply_dss` / :func:`affine_apply_dss_batched` —
-  ``DSS(sum_c a_c K_c u)``, the operator apply
+  ``DSS(sum_c a_c K_c u)``, the operator apply on affine meshes
   (``make_fused_affine_laplacian_T``, ``n_rhs = 1`` / k);
+* :func:`general_apply_dss` / :func:`general_apply_dss_batched` — the
+  apply on curved meshes, ``DSS(Dhat^T [g0 ur + g1 us; g1 ur + g2 us])``
+  with ``[ur; us] = Dhat u`` and full (3, n, E) factor slabs
+  (``make_fused_general_laplacian_T``);
 * :func:`cg_kernel_a` / :func:`cg_kernel_a_deferred` — the direction half
   of a fused PCG iteration, with and without the lagged x update (kernel A
   of ``make_fused_cg_kernels``, ``defer_x`` False / True);
   :func:`cg_kernel_a_batched` / :func:`cg_kernel_a_batched_deferred` — the
   same for k RHS (``make_fused_cg_kernels_batched``);
+  :func:`cg_kernel_a_general` / :func:`cg_kernel_a_general_batched` — the
+  direction half on curved meshes (kernel A of
+  ``make_fused_cg_kernels_general``);
 * :func:`cg_kernel_b` / :func:`cg_kernel_b_batched` — the residual half
   (``_build_cg_kernel_b``, ``_build_cg_kernel_b_batched``).
 
@@ -48,10 +55,11 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("sem_kernels.cuh",)
+_HEADERS = ("sem_kernels.cuh", "sem_general.cuh")
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
+_GEN_APPLY, _GEN_CG_A = "general_apply_dss.cu", "cg_kernel_a_general.cu"
 
 #: kernel name -> (source in csrc/, the TPU kernel it replaces)
 KERNELS = {
@@ -63,11 +71,19 @@ KERNELS = {
     "cg_kernel_a_batched_deferred": (_CG_A, f"{_REPLACED}:2128"),
     "cg_kernel_b": (_CG_B, f"{_REPLACED}:1548"),
     "cg_kernel_b_batched": (_CG_B, f"{_REPLACED}:2189"),
+    "general_apply_dss": (_GEN_APPLY, f"{_REPLACED}:1179"),
+    "general_apply_dss_batched": (_GEN_APPLY, f"{_REPLACED}:1179"),
+    "cg_kernel_a_general": (_GEN_CG_A, f"{_REPLACED}:1824"),
+    "cg_kernel_a_general_batched": (_GEN_CG_A, f"{_REPLACED}:1824"),
 }
 #: the sources, one shared library each
-SOURCES = (_APPLY, _CG_A, _CG_B)
-#: elements per block of the product kernels (one denominator partial each)
+SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A)
+#: elements per block of the affine product kernels (one denominator
+#: partial each)
 THREADS = 256
+#: elements per block of the general kernels (``kGenTile`` in
+#: csrc/sem_general.cuh; one denominator partial each)
+GENERAL_TILE = 32
 #: nodes per element with a compiled instantiation: (p + 1)^2 for p = 2..8
 #: (``SEM_FOR_EACH_N`` in csrc/sem_kernels.cuh)
 SUPPORTED_N = (9, 16, 25, 36, 49, 64, 81)
@@ -82,6 +98,9 @@ _SIGNATURES = {
     "sem_cg_kernel_a_defer_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
     "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
+    "sem_general_apply_dss": [_P] * 9 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_general_f32": [_P] * 17 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_general_bf16": [_P] * 17 + [_I] * 4 + [_P],
 }
 #: kernel B's grid: blocks per SM of the card, over all RHS
 BLOCKS_PER_SM_B = 4
@@ -232,6 +251,21 @@ def _local_product(uT, Kst, aT):
     return aT[0] * V[0] + aT[1] * V[1] + aT[2] * V[2]
 
 
+def _general_local(uT, gT, Dh):
+    """S = Dh^T [g0 ur + g1 us; g1 ur + g2 us] with [ur; us] = Dh u: the
+    element-local product of a curved mesh on an (n, E) array or each
+    array of a (k, n, E) stack.  ``gT`` (3, n, E): the factor slabs in lex
+    node order; ``Dh`` (2n, n): the stacked derivative with its columns in
+    the L-vector (hier) order, so the gradients come out in lex order and
+    S in hier order."""
+    n = Dh.shape[1]
+    grads = torch.matmul(Dh, uT)
+    ur, us = grads[..., :n, :], grads[..., n:, :]
+    flux = torch.cat([gT[0] * ur + gT[1] * us, gT[1] * ur + gT[2] * us],
+                     dim=-2)
+    return torch.matmul(Dh.T, flux)
+
+
 def _col(v, like: torch.Tensor) -> torch.Tensor:
     """Per-RHS scalars (a float, a 0-dim or a (k,) tensor) as (k, 1, 1)."""
     return torch.as_tensor(v, dtype=like.dtype,
@@ -312,32 +346,49 @@ affine_apply_dss_batched.launches = 0
 
 # -- kernel A: direction update + apply + denominator partials ----------------
 
+def _cg_a_plain(r, p, inv, x, beta, alpha_prev, local, plan: DSSPlan):
+    """Kernel A's arithmetic with the element-local product ``local``:
+    ``(p', DSS(S), x' or None, per-element partials of p' . S)`` on an
+    (n, E) array or a (k, n, E) stack with (k, 1, 1) scalars."""
+    p32 = p.to(r.dtype)
+    x_new = None if x is None else x + alpha_prev * p32
+    p_st = (inv.to(r.dtype) * r + beta * p32).to(p.dtype)
+    ps = p_st.to(r.dtype)
+    S = local(ps)
+    return p_st, roll_dss_T(S, plan), x_new, (ps * S).sum(-2)
+
+
+def _cg_a_batched_plain(r, p, inv, x, beta, alpha_prev, n, local,
+                        plan: DSSPlan):
+    """:func:`_cg_a_plain` on a (k * n, E) stack with (k,) scalars; the
+    partials are (E, k)."""
+    k = _n_rhs(r.shape[0], n)
+    shp = (k, n, r.shape[-1])
+    p_st, Ap, x_new, d = _cg_a_plain(
+        r.reshape(shp), p.reshape(shp), inv,
+        None if x is None else x.reshape(shp), _col(beta, r),
+        None if x is None else _col(alpha_prev, r), local, plan)
+    return (p_st.reshape(r.shape), Ap.reshape(r.shape),
+            None if x is None else x_new.reshape(r.shape), d.T)
+
+
 def cg_kernel_a_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
                       plan: DSSPlan):
     """Plain version of :func:`cg_kernel_a` (``x=None``: of
     :func:`cg_kernel_a_deferred`, and ``x'`` is None); the denominator
     partials are one per element.  Also takes (k, n, E) stacks with
     (k, 1, 1) scalars, the partials then (k, E)."""
-    p32 = p.to(r.dtype)
-    x_new = None if x is None else x + alpha_prev * p32
-    p_st = (inv.to(r.dtype) * r + beta * p32).to(p.dtype)
-    ps = p_st.to(r.dtype)
-    S = _local_product(ps, Kst, aT)
-    return p_st, roll_dss_T(S, plan), x_new, (ps * S).sum(-2)
+    return _cg_a_plain(r, p, inv, x, beta, alpha_prev,
+                       lambda u: _local_product(u, Kst, aT), plan)
 
 
 def cg_kernel_a_batched_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
                               plan: DSSPlan):
     """Plain version of :func:`cg_kernel_a_batched` (``x=None``: of
     :func:`cg_kernel_a_batched_deferred`); the partials are (E, k)."""
-    k = _n_rhs(r.shape[0], Kst.shape[-1])
-    shp = (k, Kst.shape[-1], r.shape[-1])
-    p_st, Ap, x_new, d = cg_kernel_a_plain(
-        r.reshape(shp), p.reshape(shp), inv,
-        None if x is None else x.reshape(shp), _col(beta, r),
-        None if x is None else _col(alpha_prev, r), Kst, aT, plan)
-    return (p_st.reshape(r.shape), Ap.reshape(r.shape),
-            None if x is None else x_new.reshape(r.shape), d.T)
+    return _cg_a_batched_plain(r, p, inv, x, beta, alpha_prev,
+                               Kst.shape[-1],
+                               lambda u: _local_product(u, Kst, aT), plan)
 
 
 def cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan: DSSPlan):
@@ -595,6 +646,205 @@ def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
     return kA, cg_kernel_b_batched
 
 
+# -- curved meshes: the general apply and its kernel A ------------------------
+
+def general_apply_dss_plain(uT, gT, Dh, hier, plan: DSSPlan):
+    """Plain version of :func:`general_apply_dss` (``torch.matmul`` with the
+    dense stacked derivative, the flux, the roll-class DSS; ``hier`` is
+    already folded into ``Dh``); also takes a (k, n, E) stack."""
+    return roll_dss_T(_general_local(uT, gT, Dh), plan)
+
+
+def general_apply_dss_batched_plain(uT, gT, Dh, hier, plan: DSSPlan):
+    """Plain version of :func:`general_apply_dss_batched`."""
+    u3 = uT.reshape(-1, Dh.shape[1], uT.shape[-1])
+    return general_apply_dss_plain(u3, gT, Dh, hier, plan).reshape(uT.shape)
+
+
+def _require_general(gT, Dh, hier, n, E, dev) -> None:
+    _require(gT, "gT", (torch.float32,), (3, n, E), dev)
+    _require(Dh, "Dh", (torch.float32,), (2 * n, n), dev)
+    _require(hier, "hier", (torch.int32,), (n,), dev)
+
+
+def _launch_general_apply(uT, gT, Dh, hier, plan, k: int):
+    dev = _cuda_device(uT)
+    _check_plan(plan, dev)
+    n, E = Dh.shape[1], uT.shape[-1]
+    _check_n(n)
+    _require(uT, "uT", (torch.float32,), (k * n, E), dev)
+    _require_general(gT, Dh, hier, n, E, dev)
+    out = torch.empty_like(uT)
+    B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
+    lib = _lib(_GEN_APPLY)
+    rc = lib.sem_general_apply_dss(
+        _ptr(uT), _ptr(gT), _ptr(Dh), _ptr(hier), _ptr(out), _ptr(B),
+        _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
+        n, E, plan.nb, k, _stream(dev))
+    _check(lib, rc, f"general_apply_dss (n={n}, E={E}, k={k})")
+    return out
+
+
+def general_apply_dss(uT: torch.Tensor, gT: torch.Tensor, Dh: torch.Tensor,
+                      hier: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
+    """``out = DSS(Dh^T [g0 ur + g1 us; g1 ur + g2 us])``, ``[ur; us] =
+    Dh u``, on an (n, E) L-vector of a curved mesh.
+
+    ``gT`` (3, n, E): the geometric-factor slabs in lex node order; ``Dh``
+    (2n, n): the stacked derivative ``[D0 (x) I; I (x) D1]`` with its
+    columns in the L-vector order ``hier`` ((n,) int32, L-vector row ->
+    lex node), which the kernel reads for its tensor-product form;
+    ``plan``: the exchange's :class:`.DSSPlan` on the tensors' device.
+    CUDA tensors must be float32.
+    """
+    if uT.device.type == "cpu":
+        _check_plan(plan, None)
+        return general_apply_dss_plain(uT, gT, Dh, hier, plan)
+    if uT.dim() != 2 or uT.shape[0] != Dh.shape[1]:
+        raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
+                         f"({Dh.shape[1]}, E)")
+    out = _launch_general_apply(uT, gT, Dh, hier, plan, 1)
+    general_apply_dss.launches += 1
+    return out
+
+
+general_apply_dss.launches = 0
+
+
+def general_apply_dss_batched(uT: torch.Tensor, gT: torch.Tensor,
+                              Dh: torch.Tensor, hier: torch.Tensor,
+                              plan: DSSPlan) -> torch.Tensor:
+    """:func:`general_apply_dss` of each (n, E) block of a (k * n, E)
+    stack: the k right-hand sides share the slabs, ``Dh`` and the class
+    tables."""
+    k = _n_rhs(uT.shape[0], Dh.shape[1])
+    if uT.device.type == "cpu":
+        _check_plan(plan, None)
+        return general_apply_dss_batched_plain(uT, gT, Dh, hier, plan)
+    out = _launch_general_apply(uT, gT, Dh, hier, plan, k)
+    general_apply_dss_batched.launches += 1
+    return out
+
+
+general_apply_dss_batched.launches = 0
+
+
+def cg_kernel_a_general_plain(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
+                              plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_a_general`; the denominator
+    partials are one per element."""
+    return _cg_a_plain(r, p, inv, x, beta, alpha_prev,
+                       lambda u: _general_local(u, gT, Dh), plan)
+
+
+def cg_kernel_a_general_batched_plain(r, p, inv, x, beta, alpha_prev, gT,
+                                      Dh, hier, plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_a_general_batched`; the partials
+    are (E, k)."""
+    return _cg_a_batched_plain(r, p, inv, x, beta, alpha_prev, Dh.shape[1],
+                               lambda u: _general_local(u, gT, Dh), plan)
+
+
+def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan, k,
+                      what):
+    """General kernel A on CUDA tensors: (p', Ap', x', (G, k) partials)."""
+    dev = _cuda_device(r)
+    _check_plan(plan, dev)
+    n, E = Dh.shape[1], r.shape[-1]
+    _check_n(n)
+    f32 = (torch.float32,)
+    shape = (k * n, E)
+    _require(r, "r", f32, shape, dev)
+    _require(p, "p", (torch.float32, torch.bfloat16), shape, dev)
+    _require(inv, "inv", (p.dtype,), (n, E), dev)
+    _require(x, "x", f32, shape, dev)
+    _require_general(gT, Dh, hier, n, E, dev)
+    p_out, ap, x_out = torch.empty_like(p), torch.empty_like(r), \
+        torch.empty_like(x)
+    B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
+    dparts = torch.empty((-(-E // GENERAL_TILE), k), dtype=torch.float32,
+                         device=dev)
+    lib = _lib(_GEN_CG_A)
+    fn = (lib.sem_cg_kernel_a_general_bf16 if p.dtype == torch.bfloat16
+          else lib.sem_cg_kernel_a_general_f32)
+    rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), _ptr(gT), _ptr(Dh),
+            _ptr(hier), _ptr(beta), _ptr(alpha_prev), _ptr(p_out),
+            _ptr(x_out), _ptr(ap), _ptr(B), _ptr(dparts), _ptr(plan.row_ptr),
+            _ptr(plan.entries), _ptr(plan.masks), n, E, plan.nb, k,
+            _stream(dev))
+    _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
+    return p_out, ap, x_out, dparts
+
+
+def cg_kernel_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
+                        plan: DSSPlan):
+    """``(p', Ap', x', dparts)`` of one fused PCG iteration on a curved
+    mesh: :func:`cg_kernel_a` with the apply of :func:`general_apply_dss`
+    (``gT``, ``Dh``, ``hier`` as there).  There is no deferred-x variant,
+    as in the reference."""
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_a_general_plain(r, p, inv, x, beta, alpha_prev, gT,
+                                         Dh, hier, plan)
+    dev = _cuda_device(r)
+    p_out, ap, x_out, dparts = _launch_a_general(
+        r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), gT, Dh,
+        hier, plan, 1, "cg_kernel_a_general")
+    cg_kernel_a_general.launches += 1
+    return p_out, ap, x_out, dparts.view(-1)
+
+
+cg_kernel_a_general.launches = 0
+
+
+def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
+                                plan: DSSPlan):
+    """:func:`cg_kernel_a_general` for a (k * n, E) stack of k right-hand
+    sides (``inv`` (n, E) shared, ``beta`` and ``alpha_prev`` (k,) float32
+    device tensors, the partials (G, k))."""
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_a_general_batched_plain(r, p, inv, x, beta,
+                                                 alpha_prev, gT, Dh, hier,
+                                                 plan)
+    dev = _cuda_device(r)
+    k = _n_rhs(r.shape[0], Dh.shape[1])
+    out = _launch_a_general(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
+                            _per_rhs(alpha_prev, k, "alpha_prev", dev), gT,
+                            Dh, hier, plan, k, "cg_kernel_a_general_batched")
+    cg_kernel_a_general_batched.launches += 1
+    return out
+
+
+cg_kernel_a_general_batched.launches = 0
+
+
+def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
+                                  hier: torch.Tensor, plan: DSSPlan,
+                                  n_rhs: int | None = None):
+    """``(kA, kB)`` on a curved mesh: the general kernel A bound to one
+    operator (``gT``, ``Dh``, ``hier``, ``plan``) and the shared kernel B,
+    for :func:`..solver.cg.cg_fused` (``n_rhs=None``) or, for a stack of
+    ``n_rhs`` right-hand sides (1 included), for
+    :func:`..solver.cg.cg_fused_batched`.
+
+    ``kA(r, p, inv, x, beta, alpha_prev) -> (p', Ap', x', dparts)``.  The
+    general kernels have no deferred-x mode: ``kA.defer_x`` is False and
+    ``kA.offers_defer_x`` makes :func:`..solver.cg.cg_fused` and
+    ``cg_fused_batched`` refuse ``defer_x``."""
+    if n_rhs is not None and n_rhs < 1:
+        raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
+    fn = (cg_kernel_a_general if n_rhs is None
+          else cg_kernel_a_general_batched)
+
+    def kA(r, p, inv, x, beta, alpha_prev):
+        return fn(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan)
+
+    kA.defer_x, kA.offers_defer_x = False, False
+    kA.n_rhs = 1 if n_rhs is None else int(n_rhs)
+    return kA, cg_kernel_b if n_rhs is None else cg_kernel_b_batched
+
+
 #: the wrappers, by kernel name
 WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "affine_apply_dss_batched": affine_apply_dss_batched,
@@ -603,7 +853,11 @@ WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "cg_kernel_a_batched": cg_kernel_a_batched,
             "cg_kernel_a_batched_deferred": cg_kernel_a_batched_deferred,
             "cg_kernel_b": cg_kernel_b,
-            "cg_kernel_b_batched": cg_kernel_b_batched}
+            "cg_kernel_b_batched": cg_kernel_b_batched,
+            "general_apply_dss": general_apply_dss,
+            "general_apply_dss_batched": general_apply_dss_batched,
+            "cg_kernel_a_general": cg_kernel_a_general,
+            "cg_kernel_a_general_batched": cg_kernel_a_general_batched}
 
 
 def reset_launch_counts() -> None:

@@ -413,6 +413,9 @@ def _defer_slots(kA, defer_x, solver: str, factory: str) -> int:
     """m from ``defer_x``, checked against how the kernels were built."""
     built = bool(getattr(kA, "defer_x", False))
     if defer_x:
+        if not getattr(kA, "offers_defer_x", True):
+            raise ValueError("defer_x is not offered on the general fused "
+                             "CG: its kernels carry no deferred-x mode")
         if not built:
             raise ValueError(f"defer_x > 0 requires kernels built with "
                              f"{factory}(defer_x=True)")
