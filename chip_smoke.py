@@ -14,13 +14,16 @@ Phases (any failure exits non-zero and prints no result line):
    on the card, and time both (CUDA events), beside the least time the
    card could take; the same for the curved-mesh kernels (the general
    apply and kernel A, one RHS and K) on the polar half-annulus of the
-   same E; time the deferred-x catch-up; then hold every kernel against
-   its plain version at the other compiled orders (p = 2..7) on a small
-   rectangle and a small annulus;
+   same E; the single-kernel iteration (f32 and bf16, with x and
+   deferred), bit for bit on r', p', Ap' and x'; time the deferred-x
+   catch-up; then hold every kernel against its plain version at the other
+   compiled orders (p = 2..7) on a small rectangle and a small annulus;
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
-   deferred x (``defer_x=8``) and with the general apply forced
-   (``structure="general"``), and ``Poisson.solve_local_batch`` on K = 4
+   deferred x (``defer_x=8``), with the general apply forced
+   (``structure="general"``) and with one kernel per iteration
+   (``cg_kernel="fused1"``: f32 and bf16, with and without ``defer_x=8``),
+   and ``Poisson.solve_local_batch`` on K = 4
    forcings in five modes (plain; fused; fused with bf16 directions; each
    fused mode with ``defer_x=8``); on the annulus the three modes, single
    and batched; to two tolerances, with the launch counts set to 0 just
@@ -30,13 +33,14 @@ Phases (any failure exits non-zero and prints no result line):
    print each solve's (each RHS's) true residual, the gap between the
    L-vector solution and its global field, and ms per issued iteration
    per RHS; time every mode's steady state (two fixed-length runs); then
-   profile each single-RHS mode, the batched bf16 deferred mode and the
-   curved bf16 mode;
+   profile each single-RHS mode, ``fused1`` with bf16 directions, the
+   batched bf16 deferred mode and the curved bf16 mode (device time and
+   launches per iteration, busy share);
 4. solve two manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural) and
    require the reference's error bar;
-5. print the card, one ``{"kernels": [...]}`` line and, last, the
-   ``{"ok": true, ...}`` line.
+5. print the total seconds, the card, one ``{"kernels": [...]}`` line and,
+   last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX.  Exits 2 without a CUDA device or without the
 package beside it.
@@ -82,8 +86,8 @@ STEADY = (512, 1536)   # iterations of the two steady-state timing runs
 # space, and bf16 directions perturb it.  On an H100 the spread was
 # 392 / 392 / 471 (plain / fused / fused-bf16p) at TOL_ALL and 5474 /
 # 6229 (plain / fused) at TOL_F32 on the rectangle, 447 / 447 / 449 and
-# 2548 / 2971 on the annulus, at most 1.21x; the bar leaves room above
-# that and no more
+# 2548 / 2971 on the annulus, at most 1.21x (one kernel per iteration:
+# 393 / 472 and 6222); the bar leaves room above that and no more
 ITER_RATIO = 1.3
 
 
@@ -359,6 +363,45 @@ def main() -> int:
                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None))
 
+    # the single-kernel iteration, f32 and bf16 p, inv and w, with x and
+    # deferred; r, Ap and p consistent (the DSS of random data), as the CG
+    # loop's are.  r', p', x' and Ap' must equal the plain version's bit for
+    # bit; the partials sum in another order
+    def consistent(dtype=torch.float32):
+        return roll_dss_T(randn(), plan).to(dtype)
+
+    for base, with_x in (("cg_kernel_single", True),
+                         ("cg_kernel_single_deferred", False)):
+        fn, plain = kernels.WRAPPERS[base], getattr(kernels, base + "_plain")
+        for tag, pdt, inv, w in (("f32", torch.float32, inv32, w32),
+                                 ("bf16", torch.bfloat16, inv16, w16)):
+            name = f"{base}[{tag}]"
+            sets = [(consistent(), consistent(), consistent(pdt),
+                     *((randn(),) if with_x else ()), inv, w, alpha_prev,
+                     beta, Kst, aT, plan) for _ in range(2)]
+            got, ref = fn(*sets[0]), plain(*sets[0])
+            torch.cuda.synchronize()
+            errs = {what: (a.float() - b.float()).abs().max().item()
+                    for what, a, b in zip(("r'", "p'", "Ap'", "x'"),
+                                          got[:-1], ref[:-1])}
+            d_rel = rhs_rel(got[-1], ref[-1], len(kernels.SINGLE_PARTS))
+            log(f"  {name}: max abs err {errs}, partials {d_rel:.2e}")
+            check(max(errs.values()) == 0,
+                  f"{name} {', '.join(errs)} bit for bit")
+            check(d_rel <= 1e-6, f"{name} partials ({d_rel:.2e} <= 1e-6)")
+            ms = gpu_ms(fn, sets)
+            plain_ms = gpu_ms(plain, sets)
+            s_ = 2 if pdt == torch.bfloat16 else 4
+            # r and Ap in, r' and Ap' out (f32); x in and x' out (f32, with
+            # x); p, inv and w in and p' out (p's type)
+            b_ms, b_by = bound(
+                (16 + (8 if with_x else 0) + 4 * s_) * nE + small,
+                6 * n * n * E + (22 if with_x else 20) * nE
+                + plan.n_entries * E)
+            rows.append(dict(name=name, max_abs_err=max(errs.values()),
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
+
     # the curved path at its full shapes: the polar half-annulus, same E
     t0 = time.perf_counter()
     adisc = Discretization(annulus_mesh(ORDER, **ANNULUS), gll_basis_2d(ORDER))
@@ -461,7 +504,9 @@ def main() -> int:
         cA = Poisson(cdisc, dtype=np.float32)._local_setup(dev)["A"]
         cop = (cA.gT, cA.Dh, cA.hier, cA.plan)
         nl = (sdisc.n_loc, sdisc.E)
-        rels = []
+        # the single kernel: r', p', x' (pointwise) against the plain
+        # version, and Ap' against the hand-written apply of its own p'
+        rels, single_err, single_ap, single_rel = [], 0.0, 0.0, 0.0
         for k, b_, sc in ((1, "", (beta, alpha_prev)),
                           (3, "_batched", (scal[K][0][:3], scal[K][1][:3]))):
             shp = (k * sdisc.n_loc, sdisc.E)
@@ -487,6 +532,27 @@ def main() -> int:
                     ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1])),
                     ("cg_kernel_a_general" + b_,
                      (cu, rnd(cshp, pdt), cinv, rnd(cshp), *sc, *cop))]
+                if k == 1:
+                    single = (u, x_, p_, rnd(), inv, w_, *sc[::-1], sK, saT,
+                              splan)
+                    for name, args in (("cg_kernel_single", single),
+                                       ("cg_kernel_single_deferred",
+                                        single[:3] + single[4:])):
+                        got = kernels.WRAPPERS[name](*args)
+                        ref = getattr(kernels, name + "_plain")(*args)
+                        single_err = max(single_err, *(
+                            (a.float() - b.float()).abs().max().item()
+                            for i, (a, b) in enumerate(zip(got[:-1],
+                                                           ref[:-1]))
+                            if i != 2))
+                        ap_k = kernels.affine_apply_dss(
+                            got[1].float().contiguous(), sK, saT, splan)
+                        single_ap = max(single_ap,
+                                        (got[2] - ap_k).abs().max().item())
+                        single_rel = max(single_rel,
+                                         rel_err(got[2], ref[2])[1])
+                        rels += [single_rel, rhs_rel(
+                            got[-1], ref[-1], len(kernels.SINGLE_PARTS))]
             for name, args in cases:
                 got = kernels.WRAPPERS[name](*args)
                 ref = getattr(kernels, name + "_plain")(*args)
@@ -499,6 +565,11 @@ def main() -> int:
         check(max(rels) <= 1e-5, f"p={p} (n={sdisc.n_loc}, E={sdisc.E}): "
               f"every kernel, one RHS and three, matches its plain version "
               f"({max(rels):.1e} <= 1e-5)")
+        check(single_err == 0 and single_ap == 0,
+              f"p={p}: the single kernel's r', p', x' bit for bit against "
+              f"its plain version ({single_err}), Ap' against the apply of "
+              f"its p' ({single_ap}; the plain version's {single_rel:.1e} "
+              "of max)")
 
     # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "
@@ -558,7 +629,14 @@ def main() -> int:
         f"fused-bf16p-m{DEFER}": ("rect", 1, dict(
             cg_kernel="fused", p_dtype=torch.bfloat16, defer_x=DEFER)),
         "general-plain": ("rect", 1, dict(cg_kernel="plain",
-                                          structure="general"))})
+                                          structure="general")),
+        "fused1": ("rect", 1, dict(cg_kernel="fused1")),
+        "fused1-bf16p": ("rect", 1, dict(cg_kernel="fused1",
+                                         p_dtype=torch.bfloat16)),
+        f"fused1-m{DEFER}": ("rect", 1, dict(cg_kernel="fused1",
+                                             defer_x=DEFER)),
+        f"fused1-bf16p-m{DEFER}": ("rect", 1, dict(
+            cg_kernel="fused1", p_dtype=torch.bfloat16, defer_x=DEFER))})
     all_modes.update({f"batch-{m}": ("rect", K, kw) for m, kw in (
         ("plain", dict(cg_kernel="plain")),
         ("fused", dict(cg_kernel="fused")),
@@ -588,10 +666,13 @@ def main() -> int:
                    if pk == "rect" and k_ == 1 and m != "general-plain"]
     # the bf16 modes at TOL_F32 record where they stop (the batched one
     # at the bench's configuration); they are not required to converge
-    unconverged = {("fused-bf16p", TOL_F32),
+    unconverged = {("fused-bf16p", TOL_F32), ("fused1-bf16p", TOL_F32),
                    (f"batch-fused-bf16p-m{DEFER}", TOL_F32)}
+    # the deferred-x modes run at TOL_ALL only: deferring x leaves the r
+    # recurrence, hence the iterations, as they are (fused-m8 took
+    # fused's 6,229 to TOL_F32 on an H100)
     runs = ([(m, tol) for tol in (TOL_ALL, TOL_F32) for m in single_rect
-             if (m, tol) != (f"fused-bf16p-m{DEFER}", TOL_F32)]
+             if tol == TOL_ALL or not m.endswith(f"-m{DEFER}")]
             + [("general-plain", TOL_ALL)]
             + [(f"curved-{m}", TOL_ALL) for m in modes]
             + [("curved-plain", TOL_F32), ("curved-fused", TOL_F32)]
@@ -646,6 +727,17 @@ def main() -> int:
               f"{key}: finite solutions of the mesh's shape")
         if (name, tol) not in unconverged:
             check(all(conv), f"{key}: every RHS converged")
+        if name.startswith("fused1"):
+            # one kernel per iteration: the single kernel of the mode's
+            # variant and no kernel of the pair
+            c_ = kernels.launch_counts()
+            single_k = ("cg_kernel_single_deferred" if f"-m{DEFER}" in name
+                        else "cg_kernel_single")
+            pair = sum(v for k2, v in c_.items() if k2.startswith(
+                ("cg_kernel_a", "cg_kernel_b")))
+            check(c_[single_k] >= its[0] and pair == 0,
+                  f"{key}: {c_[single_k]} launches of {single_k}, none of "
+                  "kernels A and B")
 
     def its_of(name, tol):
         return solves[f"{name}@{tol:g}"]["iterations"][0]
@@ -694,7 +786,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name in (*modes, f"batch-fused-bf16p-m{DEFER}",
+    for name in (*modes, "fused1-bf16p", f"batch-fused-bf16p-m{DEFER}",
                  "curved-fused-bf16p"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -706,9 +798,12 @@ def main() -> int:
         ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ev) / 1e6
+        per_it = 1e3 * busy / PROFILE_ITERS
+        n_launch = sum(e.count for e in ev) / PROFILE_ITERS
         log(f"  profile {name}: {PROFILE_ITERS} iterations in {wall:.3f} s "
             f"wall (profiled), device busy {busy:.3f} s "
-            f"({busy / wall:.0%})")
+            f"({busy / wall:.0%}); per iteration {per_it:.4f} ms of device "
+            f"time, {n_launch:.1f} launches")
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"    {e.self_device_time_total / 1e3 / PROFILE_ITERS:8.4f} "
                 f"ms/iter  x{e.count / PROFILE_ITERS:5.2f}  {e.key[:70]}")

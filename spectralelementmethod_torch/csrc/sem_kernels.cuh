@@ -114,11 +114,28 @@ __device__ __forceinline__ float affine_row(const float* Ks, int i,
   return a0 * s0 + a1 * s1 + a2 * s2;
 }
 
-// out[d, e] = B[d, e] + sum over the entries t of row d (row_ptr[d] ..
-// row_ptr[d + 1]) of mask[t.z, e] * B[t.x, e + t.y], for d < nb, for the RHS
-// blockIdx.y: B is its (nb, E) scratch block of a (k, nb, E) stack and out
-// its (n, E) block of a (k * n, E) stack.  Entries are int4 (src_row, delta,
+// Row d < nb of the DSS at element e: B[d, e] + the sum over the entries t
+// of row d (row_ptr[d] .. row_ptr[d + 1]) of mask[t.z, e] * B[t.x, e + t.y],
+// B an (nb, E) scratch block.  Entries are int4 (src_row, delta,
 // mask_index, dst_row).
+__device__ __forceinline__ float dss_gather_row(
+    const float* __restrict__ B, const int* __restrict__ row_ptr,
+    const int4* __restrict__ ent, const bool* __restrict__ masks, int E,
+    int d, int e) {
+  float acc = B[(size_t)d * E + e];
+  const int t1 = row_ptr[d + 1];
+  for (int t = row_ptr[d]; t < t1; ++t) {
+    const int4 q = ent[t];
+    const int s = e + q.y;
+    if (masks[(size_t)q.z * E + e] && s >= 0 && s < E)
+      acc += B[(size_t)q.x * E + s];
+  }
+  return acc;
+}
+
+// out[d, e] = dss_gather_row(d, e) for d < nb, for the RHS blockIdx.y: B is
+// its (nb, E) scratch block of a (k, nb, E) stack and out its (n, E) block
+// of a (k * n, E) stack.
 __global__ void __launch_bounds__(kThreads)
     dss_gather_kernel(const float* __restrict__ B, float* __restrict__ out,
                       const int* __restrict__ row_ptr,
@@ -128,17 +145,8 @@ __global__ void __launch_bounds__(kThreads)
   if (e >= E) return;
   B += (size_t)blockIdx.y * nb * E;
   out += (size_t)blockIdx.y * n * E;
-  for (int d = 0; d < nb; ++d) {
-    float acc = B[(size_t)d * E + e];
-    const int t1 = row_ptr[d + 1];
-    for (int t = row_ptr[d]; t < t1; ++t) {
-      const int4 q = ent[t];
-      const int s = e + q.y;
-      if (masks[(size_t)q.z * E + e] && s >= 0 && s < E)
-        acc += B[(size_t)q.x * E + s];
-    }
-    out[(size_t)d * E + e] = acc;
-  }
+  for (int d = 0; d < nb; ++d)
+    out[(size_t)d * E + e] = dss_gather_row(B, row_ptr, ent, masks, E, d, e);
 }
 
 inline cudaError_t launch_dss_gather(const float* B, float* out,

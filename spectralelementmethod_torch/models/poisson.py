@@ -13,7 +13,8 @@ on transposed (n, E) L-vectors on a device: the CUDA card by default, or
 the CPU with ``device="cpu"``, where every kernel runs its plain PyTorch
 version.  Ported: affine and curved (or variable-coefficient) 2D meshes
 with ``structure`` in {``auto``, ``general``, ``affine``}, the Jacobi
-preconditioner, ``cg_kernel`` in {``auto``, ``plain``, ``fused``},
+preconditioner, ``cg_kernel`` in {``auto``, ``plain``, ``fused``,
+``fused1``},
 ``p_dtype`` in {None, ``torch.bfloat16``}, ``defer_x`` (affine meshes), the
 transposed (n, E) layout.  Not yet: 3D, fdm/pmg preconditioners,
 ``certify``, the ``en`` layout (ROADMAP queues).
@@ -258,9 +259,14 @@ class Poisson(BoundaryConditionMixin):
         :func:`..ops.kernels.cg_kernel_a_general`) and kernel B
         (:func:`..ops.kernels.cg_kernel_b`), float32 models only; as in
         the reference, the pair follows the mesh whatever ``structure``
-        says.  ``"auto"`` — fused when ``p_dtype`` asks for bf16
-        direction storage on the card, as the reference engages its fused
-        kernels only in that mode.
+        says.  ``"fused1"`` — one kernel per iteration
+        (:func:`..ops.kernels.cg_kernel_single`: the residual update is
+        deferred into the next iteration's kernel, which also computes
+        every dot product), float32 models on affine meshes only (a curved
+        mesh raises, as in the reference).  ``"auto"`` — fused (the pair)
+        when ``p_dtype`` asks for bf16 direction storage on the card, as
+        the reference engages its fused kernels only in that mode; it
+        never picks ``"fused1"``.
         ``p_dtype``: ``torch.bfloat16`` stores the fused-CG search
         direction in bf16 (Ap is computed from the stored direction, so
         the r recurrence stays exact).
@@ -282,7 +288,7 @@ class Poisson(BoundaryConditionMixin):
             raise NotImplementedError(
                 "3D solve_local is not ported yet (ROADMAP Queue 1, the 3D "
                 "path)")
-        if cg_kernel not in ("auto", "plain", "fused"):
+        if cg_kernel not in ("auto", "plain", "fused", "fused1"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
 
@@ -304,11 +310,13 @@ class Poisson(BoundaryConditionMixin):
         if defer_x == "auto":
             defer_x = auto_defer_x(ex.E, disc.n_loc)
         f32 = np.dtype(self.dtype) == np.float32
-        want_fused = cg_kernel == "fused" or (
+        single = cg_kernel == "fused1"
+        want_fused = cg_kernel in ("fused", "fused1") or (
             cg_kernel == "auto" and p_dtype is not None
             and dev.type == "cuda")
-        if cg_kernel == "fused" and not f32:
-            raise ValueError("cg_kernel='fused' requires a float32 model")
+        if cg_kernel in ("fused", "fused1") and not f32:
+            raise ValueError(f"cg_kernel={cg_kernel!r} requires a float32 "
+                             "model")
         # the fused pair follows the mesh, not ``structure`` (the
         # reference's _build_fused_cg)
         fop = self._local_setup(dev)["A"]
@@ -316,11 +324,15 @@ class Poisson(BoundaryConditionMixin):
                 and fop.structure == "general"):
             want_fused = False
         if want_fused and f32:
-            key = ("cg_fused", str(p_dtype), bool(defer_x), str(dev))
+            key = ("cg_fused1" if single else "cg_fused", str(p_dtype),
+                   bool(defer_x), str(dev))
             fused = self._op_cache.get(key)
             if fused is None:
+                kernels_ = ((fop.fused_cg_kernel_single(bool(defer_x)), None)
+                            if single
+                            else fop.fused_cg_kernels(defer_x=bool(defer_x)))
                 fused = self._op_cache[key] = (
-                    *fop.fused_cg_kernels(defer_x=bool(defer_x)),
+                    *kernels_,
                     *self._fused_cg_operands(ex, ctx["free_np"], p_dtype,
                                              dev))
             kA, kB, inv, w_free = fused

@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Five CUDA sources (``../csrc``, one shared library each) replace the TPU
+Six CUDA sources (``../csrc``, one shared library each) replace the TPU
 Pallas kernels that the 2D ``solve_local`` and ``solve_local_batch`` run on
-affine and on curved meshes.  Each takes one right-hand side or a
-``(k * n, E)`` stack of k that share the operator (the RHS is a grid
-dimension of every launch), and each wrapper below launches one variant:
+affine and on curved meshes.  Each but the single-kernel iteration takes
+one right-hand side or a ``(k * n, E)`` stack of k that share the operator
+(the RHS is a grid dimension of every launch), and each wrapper below
+launches one variant:
 
 * :func:`affine_apply_dss` / :func:`affine_apply_dss_batched` —
   ``DSS(sum_c a_c K_c u)``, the operator apply on affine meshes
@@ -23,7 +24,11 @@ dimension of every launch), and each wrapper below launches one variant:
   direction half on curved meshes (kernel A of
   ``make_fused_cg_kernels_general``);
 * :func:`cg_kernel_b` / :func:`cg_kernel_b_batched` — the residual half
-  (``_build_cg_kernel_b``, ``_build_cg_kernel_b_batched``).
+  (``_build_cg_kernel_b``, ``_build_cg_kernel_b_batched``);
+* :func:`cg_kernel_single` / :func:`cg_kernel_single_deferred` — one whole
+  PCG iteration with the residual update deferred into the next kernel,
+  with and without the lagged x update (``make_fused_cg_kernel_single``,
+  one RHS, affine meshes).
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and for CUDA tensors launches the kernel or raises: there is no
@@ -60,6 +65,7 @@ _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
 _GEN_APPLY, _GEN_CG_A = "general_apply_dss.cu", "cg_kernel_a_general.cu"
+_SINGLE = "cg_kernel_single.cu"
 
 #: kernel name -> (source in csrc/, the TPU kernel it replaces)
 KERNELS = {
@@ -75,9 +81,11 @@ KERNELS = {
     "general_apply_dss_batched": (_GEN_APPLY, f"{_REPLACED}:1179"),
     "cg_kernel_a_general": (_GEN_CG_A, f"{_REPLACED}:1824"),
     "cg_kernel_a_general_batched": (_GEN_CG_A, f"{_REPLACED}:1824"),
+    "cg_kernel_single": (_SINGLE, f"{_REPLACED}:1807"),
+    "cg_kernel_single_deferred": (_SINGLE, f"{_REPLACED}:1765"),
 }
 #: the sources, one shared library each
-SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A)
+SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A, _SINGLE)
 #: elements per block of the affine product kernels (one denominator
 #: partial each)
 THREADS = 256
@@ -101,7 +109,13 @@ _SIGNATURES = {
     "sem_general_apply_dss": [_P] * 9 + [_I] * 4 + [_P],
     "sem_cg_kernel_a_general_f32": [_P] * 17 + [_I] * 4 + [_P],
     "sem_cg_kernel_a_general_bf16": [_P] * 17 + [_I] * 4 + [_P],
+    "sem_cg_kernel_single_f32": [_P] * 19 + [_I] * 3 + [_P],
+    "sem_cg_kernel_single_bf16": [_P] * 19 + [_I] * 3 + [_P],
+    "sem_cg_kernel_single_defer_f32": [_P] * 17 + [_I] * 3 + [_P],
+    "sem_cg_kernel_single_defer_bf16": [_P] * 17 + [_I] * 3 + [_P],
 }
+#: the partial sums of the single-kernel iteration, their columns in order
+SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
 #: kernel B's grid: blocks per SM of the card, over all RHS
 BLOCKS_PER_SM_B = 4
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -845,6 +859,153 @@ def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
     return kA, cg_kernel_b if n_rhs is None else cg_kernel_b_batched
 
 
+# -- the single-kernel iteration: residual update + kernel A + all dots ------
+
+def cg_kernel_single_plain(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst,
+                           aT, plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_single` (``x=None``: of
+    :func:`cg_kernel_single_deferred`, and ``x'`` is None): kernel A's
+    arithmetic on ``r' = r - alpha_prev Ap``, then the partials of
+    :data:`SINGLE_PARTS`, one row per element, (E, 5)."""
+    r_new = r - alpha_prev * Ap
+    p_st, Ap_new, x_new, denom = _cg_a_plain(
+        r_new, p, inv, x, beta, alpha_prev,
+        lambda u: _local_product(u, Kst, aT), plan)
+    w = w_free.to(r.dtype)
+    iv = inv.to(r.dtype)
+    inv_ap = iv * Ap_new
+    parts = torch.stack([denom, (w * r_new * inv_ap).sum(-2),
+                         (w * Ap_new * inv_ap).sum(-2),
+                         (w * r_new * (iv * r_new)).sum(-2),
+                         (w * r_new * r_new).sum(-2)], dim=-1)
+    return r_new, p_st, Ap_new, x_new, parts
+
+
+def cg_kernel_single_deferred_plain(r, Ap, p, inv, w_free, alpha_prev, beta,
+                                    Kst, aT, plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_single_deferred`."""
+    r_new, p_st, Ap_new, _, parts = cg_kernel_single_plain(
+        r, Ap, p, None, inv, w_free, alpha_prev, beta, Kst, aT, plan)
+    return r_new, p_st, Ap_new, parts
+
+
+def _launch_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
+                   plan, what):
+    """The single kernel on CUDA tensors: (r', p', Ap', x' or None, parts
+    (2G, 5), or (G, 5) when the plan exchanges nothing)."""
+    dev = _cuda_device(r)
+    _check_plan(plan, dev)
+    n, E = Kst.shape[-1], r.shape[-1]
+    _check_n(n)
+    f32 = (torch.float32,)
+    shape = (n, E)
+    _require(r, "r", f32, shape, dev)
+    _require(Ap, "Ap", f32, shape, dev)
+    _require(p, "p", (torch.float32, torch.bfloat16), shape, dev)
+    _require(inv, "inv", (p.dtype,), shape, dev)
+    _require(w_free, "w_free", (p.dtype,), shape, dev)
+    _require(Kst, "Kst", f32, (3, n, n), dev)
+    _require(aT, "aT", f32, (3, E), dev)
+    r_out, p_out, ap = (torch.empty_like(r), torch.empty_like(p),
+                        torch.empty_like(r))
+    B = torch.empty((max(plan.nb, 1), E), dtype=torch.float32, device=dev)
+    G = -(-E // THREADS)
+    parts = torch.empty(((2 if plan.nb else 1) * G, len(SINGLE_PARTS)),
+                        dtype=torch.float32, device=dev)
+    lib = _lib(_SINGLE)
+    bf16 = p.dtype == torch.bfloat16
+    head = (_ptr(r), _ptr(Ap), _ptr(p))
+    ops = (_ptr(inv), _ptr(w_free), _ptr(Kst), _ptr(aT), _ptr(alpha_prev),
+           _ptr(beta))
+    tail = (_ptr(B), _ptr(parts), _ptr(plan.row_ptr), _ptr(plan.entries),
+            _ptr(plan.masks), n, E, plan.nb, _stream(dev))
+    if x is None:
+        x_out = None
+        fn = (lib.sem_cg_kernel_single_defer_bf16 if bf16
+              else lib.sem_cg_kernel_single_defer_f32)
+        rc = fn(*head, *ops, _ptr(r_out), _ptr(p_out), _ptr(ap), *tail)
+    else:
+        _require(x, "x", f32, shape, dev)
+        x_out = torch.empty_like(x)
+        fn = (lib.sem_cg_kernel_single_bf16 if bf16
+              else lib.sem_cg_kernel_single_f32)
+        rc = fn(*head, _ptr(x), *ops, _ptr(r_out), _ptr(p_out), _ptr(ap),
+                _ptr(x_out), *tail)
+    _check(lib, rc, f"{what} (n={n}, E={E}, p {p.dtype})")
+    return r_out, p_out, ap, x_out, parts
+
+
+def cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
+                     plan: DSSPlan):
+    """``(r', p', Ap', x', parts)``: one whole PCG iteration (affine mesh).
+
+    ``r' = r - alpha_prev Ap`` (the previous iteration's residual update,
+    ``Ap`` its ``Ap'``); ``p' = inv r' + beta p`` stored in ``p``'s dtype;
+    ``Ap' = DSS(sum_c a_c K_c p')`` from the stored ``p'``;
+    ``x' = x + alpha_prev p``; ``parts`` (rows, 5): partial sums, over
+    their rows, of ``[<p', A p'>`` (before the DSS), ``<r', inv Ap'>_w``,
+    ``<Ap', inv Ap'>_w``, ``<r', inv r'>_w``, ``<r', r'>_w]``
+    (:data:`SINGLE_PARTS`).  ``r``, ``Ap`` and ``x`` are float32; ``p``,
+    ``inv`` and ``w_free`` float32 or all bfloat16; ``alpha_prev`` and
+    ``beta`` floats or float32 scalars on the device.
+    """
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_single_plain(r, Ap, p, x, inv, w_free, alpha_prev,
+                                      beta, Kst, aT, plan)
+    dev = _cuda_device(r)
+    out = _launch_single(r, Ap, p, x, inv, w_free, _scalar(alpha_prev, dev),
+                         _scalar(beta, dev), Kst, aT, plan,
+                         "cg_kernel_single")
+    cg_kernel_single.launches += 1
+    return out
+
+
+cg_kernel_single.launches = 0
+
+
+def cg_kernel_single_deferred(r, Ap, p, inv, w_free, alpha_prev, beta, Kst,
+                              aT, plan: DSSPlan):
+    """``(r', p', Ap', parts)``: :func:`cg_kernel_single` without the x
+    update (``defer_x``: the CG driver catches x up once per m
+    iterations)."""
+    if r.device.type == "cpu":
+        _check_plan(plan, None)
+        return cg_kernel_single_deferred_plain(r, Ap, p, inv, w_free,
+                                               alpha_prev, beta, Kst, aT,
+                                               plan)
+    dev = _cuda_device(r)
+    r_out, p_out, ap, _, parts = _launch_single(
+        r, Ap, p, None, inv, w_free, _scalar(alpha_prev, dev),
+        _scalar(beta, dev), Kst, aT, plan, "cg_kernel_single_deferred")
+    cg_kernel_single_deferred.launches += 1
+    return r_out, p_out, ap, parts
+
+
+cg_kernel_single_deferred.launches = 0
+
+
+def make_fused_cg_kernel_single(Kst: torch.Tensor, aT: torch.Tensor,
+                                plan: DSSPlan, *, defer_x: bool = False):
+    """``kAB`` for :func:`..solver.cg.cg_fused` with ``kB=None``: the single
+    kernel bound to one affine operator (``Kst``, ``aT``, ``plan``).
+
+    ``kAB(r, Ap, p, x, inv, w_free, alpha_prev, beta) -> (r', p', Ap', x',
+    parts)``; with ``defer_x=True``, ``kAB(r, Ap, p, inv, w_free,
+    alpha_prev, beta) -> (r', p', Ap', parts)`` for ``cg_fused(defer_x=m)``.
+    ``kAB.single`` is True and ``kAB.defer_x`` records which."""
+    if defer_x:
+        def kAB(r, Ap, p, inv, w_free, alpha_prev, beta):
+            return cg_kernel_single_deferred(r, Ap, p, inv, w_free,
+                                             alpha_prev, beta, Kst, aT, plan)
+    else:
+        def kAB(r, Ap, p, x, inv, w_free, alpha_prev, beta):
+            return cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev,
+                                    beta, Kst, aT, plan)
+    kAB.single, kAB.defer_x = True, bool(defer_x)
+    return kAB
+
+
 #: the wrappers, by kernel name
 WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "affine_apply_dss_batched": affine_apply_dss_batched,
@@ -857,7 +1018,9 @@ WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "general_apply_dss": general_apply_dss,
             "general_apply_dss_batched": general_apply_dss_batched,
             "cg_kernel_a_general": cg_kernel_a_general,
-            "cg_kernel_a_general_batched": cg_kernel_a_general_batched}
+            "cg_kernel_a_general_batched": cg_kernel_a_general_batched,
+            "cg_kernel_single": cg_kernel_single,
+            "cg_kernel_single_deferred": cg_kernel_single_deferred}
 
 
 def reset_launch_counts() -> None:

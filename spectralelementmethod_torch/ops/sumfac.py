@@ -215,6 +215,13 @@ class AffineLaplacianT(LaplacianT):
         return kernels.make_fused_cg_kernels_batched(
             self.Kst, self.aT, self.plan, n_rhs, defer_x=defer_x)
 
+    def fused_cg_kernel_single(self, defer_x: bool = False):
+        """``kAB`` of the single-kernel CG iteration on this operator
+        (:func:`.kernels.make_fused_cg_kernel_single`; ``cg_fused`` with
+        ``kB=None``)."""
+        return kernels.make_fused_cg_kernel_single(self.Kst, self.aT,
+                                                   self.plan, defer_x=defer_x)
+
 
 class GeneralLaplacianT(LaplacianT):
     """Weak Laplacian on a curved (non-affine) mesh, with full factor slabs:
@@ -267,6 +274,12 @@ class GeneralLaplacianT(LaplacianT):
                              "deferred-x mode")
         return kernels.make_fused_cg_kernels_general(
             self.gT, self.Dh, self.hier, self.plan, n_rhs)
+
+    def fused_cg_kernel_single(self, defer_x: bool = False):
+        """Raises: the single-kernel iteration exists for affine meshes
+        only, as in the reference."""
+        raise ValueError("cg_kernel='fused1' requires an affine mesh (the "
+                         "general fused CG uses the kernel pair)")
 
 
 STRUCTURES = ("auto", "general", "affine")

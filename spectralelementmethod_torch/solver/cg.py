@@ -8,7 +8,9 @@ Port of the main-path solvers of the JAX package's ``solver/cg.py``:
   block (alpha = 0), so results match an exactly-stopping loop;
 * :func:`cg_fused` — PCG whose iteration is the two fused kernels of
   :mod:`..ops.kernels`, with x lagging one direction (or, ``defer_x=m``,
-  caught up once per m iterations) and the true-residual restart;
+  caught up once per m iterations) and the true-residual restart; or one
+  kernel per iteration (``kB=None``), the residual update deferred into
+  the next kernel;
 * :func:`cg_batched` (whole-batch mode) and :func:`cg_fused_batched` — the
   same for a stack of k right-hand sides sharing one operator, with
   per-RHS scalars and freezing and one host ladder;
@@ -404,6 +406,100 @@ def _catch_up(x: torch.Tensor, alphas, P) -> torch.Tensor:
     return out.view(x.shape)
 
 
+class _SingleState(NamedTuple):
+    """State of the single-kernel iteration: r and x belong to the residual
+    the last kernel formed (rn2 and rz_exact are its direct dots); its
+    ``alpha_prev * Ap`` (and ``alpha_prev * p``) are applied by the next
+    kernel.  ``p``: the direction, or under ``defer_x=m`` a tuple of the
+    last m directions (slot j written at unroll position j)."""
+    x: torch.Tensor
+    r: torch.Tensor
+    p: object
+    Ap: torch.Tensor
+    rz_pred: torch.Tensor
+    rz_exact: torch.Tensor
+    alpha_prev: torch.Tensor
+    k: torch.Tensor
+    rn2: torch.Tensor
+    max_it: torch.Tensor
+    stop2: torch.Tensor
+    rn2_min: torch.Tensor
+
+
+def _single_init(b, inv, w_free, tol, atol, max_iter, p_dtype, m=0):
+    """Initial single-kernel state from the residual ``b`` (x0 = 0, Ap0 =
+    0, alpha_prev = 0); ``m > 0``: m zero direction slots."""
+    s = _fused_init(b, inv, w_free, tol, atol, max_iter, p_dtype)
+    p0 = tuple(torch.zeros_like(s.p) for _ in range(m)) if m else s.p
+    return _SingleState(s.x, s.r, p0, torch.zeros_like(s.r), s.rz, s.rz,
+                        s.alpha_prev, s.k, s.rn2, s.max_it, s.stop2,
+                        s.rn2_min)
+
+
+def _single_scalars(s: _SingleState, done, parts, zero):
+    """alpha, the next beta's ``rz_pred`` and the stopping fields from the
+    kernel's partials ``[denom, c1, c2, e1, e2]`` (summed over their
+    rows)."""
+    d = parts.sum(0)
+    alpha = torch.where(done, zero, d[3] / _safe(d[0]))
+    # one-step prediction of the next <r, z>, used for the next beta only
+    rz_pred = d[3] - 2.0 * alpha * d[1] + alpha * alpha * d[2]
+    k = s.k + (~done).to(s.k.dtype)
+    # frozen iterations: alpha_prev = 0 pins r, so the kernel's direct dots
+    # recompute identical e1 / e2 and rn2 stays exact
+    rn2_min = torch.where(done, s.rn2_min, torch.minimum(s.rn2_min, d[4]))
+    return alpha, rz_pred, d[3], k, d[4], rn2_min
+
+
+def _single_beta(s: _SingleState, done, zero):
+    return torch.where((s.k == 0) | done, zero,
+                       s.rz_pred / _safe(s.rz_exact))
+
+
+def _single_step(kAB, inv, w_free, zero):
+    """One single-kernel iteration (see :func:`cg_fused`)."""
+
+    def step(s: _SingleState) -> _SingleState:
+        done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
+        r, p, Ap, x, parts = kAB(s.r, s.Ap, s.p, s.x, inv, w_free,
+                                 s.alpha_prev, _single_beta(s, done, zero))
+        alpha, rz_pred, rz, k, rn2, rn2_min = _single_scalars(s, done, parts,
+                                                              zero)
+        return _SingleState(x, r, p, Ap, rz_pred, rz, alpha, k, rn2,
+                            s.max_it, s.stop2, rn2_min)
+
+    return step
+
+
+def _single_deferred_step(kAB, inv, w_free, zero, m: int):
+    """One deferred-x single-kernel super-iteration: m kernels without x,
+    then x catches up through slot m - 2.  Slot m - 1's alpha stays
+    pending (carried as ``alpha_prev``, since the next kernel still owes
+    its residual update) and joins the next super-iteration's catch-up,
+    so the carried x always matches the carried r and rn2."""
+
+    def step(s: _SingleState) -> _SingleState:
+        P = list(s.p)
+        pending = (s.alpha_prev, P[m - 1])
+        alphas = []
+        for j in range(m):
+            done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
+            r, p_new, Ap, parts = kAB(s.r, s.Ap, P[(j - 1) % m], inv, w_free,
+                                      s.alpha_prev,
+                                      _single_beta(s, done, zero))
+            alpha, rz_pred, rz, k, rn2, rn2_min = _single_scalars(
+                s, done, parts, zero)
+            P[j] = p_new
+            alphas.append(alpha)
+            s = s._replace(r=r, Ap=Ap, rz_pred=rz_pred, rz_exact=rz,
+                           alpha_prev=alpha, k=k, rn2=rn2, rn2_min=rn2_min)
+        x = _catch_up(s.x, [pending[0], *alphas[:m - 1]],
+                      [pending[1], *P[:m - 1]])
+        return s._replace(x=x, p=tuple(P))
+
+    return step
+
+
 def _pending(s: _FusedState) -> torch.Tensor:
     """x with its lagged direction applied (0 when frozen), per RHS."""
     return _catch_up(s.x, [s.alpha_prev], [s.p])
@@ -455,7 +551,7 @@ def cg_fused(
     defer_x: int = 0,
     A: Callable | None = None,
 ) -> CGResult:
-    """PCG whose iteration is two fused kernels (float32).
+    """PCG whose iteration is two fused kernels, or one (float32).
 
     ``kA(r, p, inv, x, beta, alpha_prev) -> (p', Ap', x', dparts)`` and
     ``kB(r, Ap, inv, w_free, alpha) -> (r', rz_parts, rn2_parts)`` come from
@@ -483,6 +579,25 @@ def cg_fused(
     x is exact at every block boundary, and the r recurrence (hence the
     iteration count) is the same as with ``defer_x=0``.
 
+    **Single-kernel mode**: ``kA`` from :func:`..ops.kernels.
+    make_fused_cg_kernel_single` (``kA.single``) and ``kB=None``; one
+    kernel per iteration, ``kAB(r, Ap, p, x, inv, w_free, alpha_prev,
+    beta) -> (r', p', Ap', x', parts)``, with the residual update deferred
+    into the next kernel (r lags one alpha, as x does).  From the summed
+    partials ``[denom, c1, c2, e1, e2]``::
+
+        alpha   = e1 / denom            (both direct dots)
+        rz_pred = e1 - 2 alpha c1 + alpha^2 c2   (the next <r, z>,
+                                                  for the next beta only)
+        beta'   = rz_pred / e1
+
+    and the stopping test reads e2, the direct ``||r'||_w^2`` of the
+    residual just formed (one iteration later than the pair sees it).
+    The carried x matches that residual; the pending ``alpha * p`` is
+    dropped at exit.  ``defer_x=m`` drops x from the kernel: x catches up
+    through slot m - 2 at each super-iteration's end and slot m - 1's
+    alpha, still pending, at the start of the next one's catch-up.
+
     ``A`` (optional), the masked float32 operator, enables the
     true-residual restart: a ladder block that shrinks ``rn2`` by less
     than 4x while above ``stop`` re-residualizes ``r = b - A x`` from the
@@ -490,19 +605,32 @@ def cg_fused(
     keeping the original stop threshold.
     """
     p_dtype = _check_p_dtype(p_dtype)
-    m = _defer_slots(kA, defer_x, "cg_fused", "make_fused_cg_kernels")
+    single = bool(getattr(kA, "single", False))
+    if single and kB is not None:
+        raise ValueError("single-kernel CG (make_fused_cg_kernel_single) "
+                         "takes kB=None")
+    m = _defer_slots(kA, defer_x, "cg_fused",
+                     "make_fused_cg_kernel_single" if single
+                     else "make_fused_cg_kernels")
     dev = b.device
     f32 = torch.float32
     zero = torch.zeros((), dtype=f32, device=dev)
 
     def init(r, tol_t, atol_t, budget):
+        if single:
+            return _single_init(r, inv, w_free, tol_t, atol_t, budget,
+                                p_dtype, m)
         return _fused_init(r, inv, w_free, tol_t, atol_t, budget, p_dtype,
                            None, m)
 
-    step = (_deferred_step(kA, kB, inv, w_free, zero, m) if m
-            else _fused_step(kA, kB, inv, w_free, zero))
-    # deferred: x caught up at every super-iteration boundary
-    x_of = (lambda s: s.x) if m else _pending
+    if single:
+        step = (_single_deferred_step(kA, inv, w_free, zero, m) if m
+                else _single_step(kA, inv, w_free, zero))
+    else:
+        step = (_deferred_step(kA, kB, inv, w_free, zero, m) if m
+                else _fused_step(kA, kB, inv, w_free, zero))
+    # deferred and single modes: the carried x matches the carried rn2
+    x_of = (lambda s: s.x) if m or single else _pending
     state = init(b, torch.tensor(tol, device=dev), zero, max_iter)
     stop2_v = state.stop2          # original target, fixed across restarts
 
@@ -590,6 +718,9 @@ def cg_fused_batched(
 
     Returns a batched :class:`CGResult` with ``x`` shaped (k, n, E).
     """
+    if getattr(kA, "single", False):
+        raise ValueError("the single-kernel CG iteration has one RHS: use "
+                         "cg_fused")
     k = int(getattr(kA, "n_rhs", 1))
     p_dtype = _check_p_dtype(p_dtype)
     n_loc = inv.shape[0]
