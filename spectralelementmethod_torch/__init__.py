@@ -8,8 +8,14 @@ Hopper card through hand-written CUDA kernels (:mod:`.ops.kernels`, sources
 in ``csrc/``); every kernel has a plain PyTorch version beside it, which
 the wrappers use for tensors on the CPU.
 
-Ported so far: the 2D Poisson ``solve_local`` main path on affine meshes
-with Jacobi PCG, plain and fused-iteration (:mod:`.models.poisson`).
+Ported so far (2D, Jacobi PCG): the Poisson ``solve_local`` and batched
+``solve_local_batch`` on affine and curved (or variable-coefficient)
+meshes, plain CG, the fused kernel pair with f32 or bf16 directions and
+deferred x, and the single-kernel iteration ``cg_kernel="fused1"``
+(:mod:`.models.poisson`); the variable-coefficient Helmholtz model's
+global-vector ``solve`` and its L-vector ``solve_local`` and
+``solve_local_batch`` in both layouts, with the element-local kernel on
+the row-major one (:mod:`.models.helmholtz`).
 """
 
 import importlib

@@ -27,6 +27,12 @@
 // global load and store is one 128-byte row segment of a (rows, E) array.
 // The tile's values and its flux sit in shared memory (3 N x 32 floats,
 // 31 KB at p = 8); the tensor factors D0 and D1 are read as broadcasts.
+// The row pitch P of those arrays is 32 floats for the kernels above; a
+// kernel that stages its tile element by element (laplacian_local.cu) pads
+// it to 33, so that a warp's stores to one column fall in distinct banks.
+// gen_flux_by reads the factors through an accessor g(c, q) (factor c of lex
+// node q of this lane's element), so a kernel may keep them in global
+// memory (SlabFactors, the (3, N, E) slabs) or stage them.
 #pragma once
 
 #include "sem_kernels.cuh"
@@ -43,22 +49,22 @@ __host__ __device__ constexpr int grid_side(int n) {
   return m;
 }
 
-template <int N>
+template <int N, int P = kGenTile>
 struct GenSmem {
   static constexpr int M = grid_side(N);
-  float u[N][kGenTile];        // the tile's input, lex order
-  float f[2 * N][kGenTile];    // the flux [fr; fs], lex order
+  float u[N][P];               // the tile's input, lex order
+  float f[2 * N][P];           // the flux [fr; fs], lex order
   float D0[M][M], D1[M][M];
   int hier[N];                 // L-vector row -> lex node
   int hinv[N];                 // lex node -> L-vector row
 };
 
 // hier and the tensor factors into shared memory (ends with a barrier).
-template <int N>
-__device__ __forceinline__ void gen_load_tables(GenSmem<N>& s,
+template <int N, int P>
+__device__ __forceinline__ void gen_load_tables(GenSmem<N, P>& s,
                                                 const float* __restrict__ Dh,
                                                 const int* __restrict__ hier) {
-  constexpr int M = GenSmem<N>::M;
+  constexpr int M = GenSmem<N, P>::M;
   for (int j = threadIdx.x; j < N; j += blockDim.x) {
     const int q = hier[j];
     s.hier[j] = q;
@@ -74,13 +80,25 @@ __device__ __forceinline__ void gen_load_tables(GenSmem<N>& s,
   __syncthreads();
 }
 
-// Gradients and flux of the tile in s.u, into s.f.  gT: (3, N, E) slabs; e
-// is this lane's element (valid when e < E; the others get a zero flux).
+// The factors of element e as (3, N, E) slabs in global memory.
 template <int N>
-__device__ __forceinline__ void gen_flux(GenSmem<N>& s,
-                                         const float* __restrict__ gT, int E,
-                                         int e, bool valid) {
-  constexpr int M = GenSmem<N>::M;
+struct SlabFactors {
+  const float* __restrict__ gT;
+  int E, e;
+  __device__ __forceinline__ float operator()(int c, int q) const {
+    return gT[(size_t)(c * N + q) * E + e];
+  }
+};
+
+// Gradients and flux of the tile in s.u, into s.f.  g(c, q): factor c of
+// lex node q of this lane's element, read only when valid (the other lanes
+// get a zero flux).  Each thread reads g(., q) for its own (q, lane) before
+// it writes s.f[q][lane] and s.f[N + q][lane], so an accessor may read
+// factors staged in those very slots.
+template <int N, int P, class G>
+__device__ __forceinline__ void gen_flux_by(GenSmem<N, P>& s, const G& g,
+                                            bool valid) {
+  constexpr int M = GenSmem<N, P>::M;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int q = w; q < N; q += kGenWarps) {
     const int a = q / M, b = q % M;
@@ -91,20 +109,29 @@ __device__ __forceinline__ void gen_flux(GenSmem<N>& s,
     for (int c = 0; c < M; ++c) us = fmaf(s.D1[b][c], s.u[a * M + c][lane], us);
     float g0 = 0.f, g1 = 0.f, g2 = 0.f;
     if (valid) {
-      g0 = gT[(size_t)q * E + e];
-      g1 = gT[(size_t)(N + q) * E + e];
-      g2 = gT[(size_t)(2 * N + q) * E + e];
+      g0 = g(0, q);
+      g1 = g(1, q);
+      g2 = g(2, q);
     }
     s.f[q][lane] = fmaf(g0, ur, g1 * us);
     s.f[N + q][lane] = fmaf(g1, ur, g2 * us);
   }
 }
 
-// Row j (hier order) of S = Dhat^T flux for this lane's element.
+// gen_flux_by with the factors read from the (3, N, E) slabs gT; e is this
+// lane's element (valid when e < E).
 template <int N>
-__device__ __forceinline__ float gen_row(const GenSmem<N>& s, int j,
+__device__ __forceinline__ void gen_flux(GenSmem<N>& s,
+                                         const float* __restrict__ gT, int E,
+                                         int e, bool valid) {
+  gen_flux_by(s, SlabFactors<N>{gT, E, e}, valid);
+}
+
+// Row j (hier order) of S = Dhat^T flux for this lane's element.
+template <int N, int P>
+__device__ __forceinline__ float gen_row(const GenSmem<N, P>& s, int j,
                                          int lane) {
-  constexpr int M = GenSmem<N>::M;
+  constexpr int M = GenSmem<N, P>::M;
   const int q = s.hier[j];
   const int m = q / M, c = q % M;
   float acc = 0.f;

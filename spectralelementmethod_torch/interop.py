@@ -7,7 +7,10 @@ the dot weights, the operator diagonal and the free mask — and builds the
 port's operator, exchange plan and CG operands from them;
 :func:`general_operator_from_numpy` does the same for a curved mesh from
 its full geometric-factor slabs, the stacked derivative and the local node
-order.  Fed the JAX package's arrays, both packages then compute the same
+order; :func:`helmholtz_operator_from_numpy` builds the L-vector Helmholtz
+operator (either layout, either exchange form) from the factors, the
+mass-weighted reaction and the exchange tables.  Fed the JAX package's
+arrays, both packages then compute the same
 function on the same data, independently of the port's own (copied) host
 setup; that is how the tests hold each kernel's plain version against its
 TPU counterpart.  :meth:`InteropOperator.fused_kernels` builds the
@@ -28,9 +31,11 @@ import numpy as np
 import torch
 
 from .config import resolve_device, torch_dtype
+from .models.helmholtz import LocalHelmholtzOperator
 from .models.poisson import fused_cg_operands
-from .ops.exchange import DSSPlan
-from .ops.sumfac import AffineLaplacianT, GeneralLaplacianT, LaplacianT
+from .ops.exchange import DSSPlan, gather_dss, roll_dss_T
+from .ops.sumfac import (AffineLaplacianT, GeneralLaplacianT, LaplacianEN,
+                         LaplacianT)
 from .solver.cg import jacobi_preconditioner
 
 
@@ -138,3 +143,93 @@ def general_operator_from_numpy(Gf, Dhat, hier, edge_classes, vert_classes,
                                 edge_len=edge_len)
     return _interop(GeneralLaplacianT(Gf, Dhat, hier, plan, None, dtype=dt),
                     gather_hier, weights, diag, free, E_real, p_dtype, dt)
+
+
+class HelmholtzInterop(NamedTuple):
+    A: LocalHelmholtzOperator   # masked operator; A._raw unmasked
+    M: Callable                 # Jacobi preconditioner
+    w: torch.Tensor             # dot weights in the layout
+    free: torch.Tensor          # free mask in the layout
+    dss: Callable               # the exchange's DSS in the layout
+    to_local: Callable          # (n_nodes,) numpy -> L-vector tensor
+
+
+def helmholtz_operator_from_numpy(Gf, Dhat, hier, kM, gather_hier, weights,
+                                  diag, free, *, vector_layout: str = "en",
+                                  backend: str = "xla", edge_classes=None,
+                                  vert_classes=None, edge_recv_flat=None,
+                                  edge_recv_mask=None, vert_gid=None,
+                                  edge_len=None, device=None,
+                                  dtype=np.float64) -> HelmholtzInterop:
+    """The port's L-vector Helmholtz operator from numpy arrays:
+    ``A u = mask(lap(u) + dss(kM u))`` with the general (full-factor)
+    Laplacian.
+
+    ``Gf`` (E_real or E, 3, n): lex-ordered geometric factors (with the
+    diffusivity folded in; zero-padded to E here); ``Dhat`` (2n, n): the
+    stacked derivative in lex order; ``hier`` (n,): the local node order;
+    ``kM`` (E, n): the mass-weighted reaction in the L-vector order;
+    ``gather_hier``, ``weights``, ``diag``, ``free`` as in
+    :func:`operator_from_numpy`.  The exchange is either the roll classes
+    (``edge_classes``, ``vert_classes``, with ``edge_len`` for a
+    non-square grid) or the generic gather tables (``edge_recv_flat``
+    (E * neb,), ``edge_recv_mask`` (E, neb) and ``vert_gid`` (E * 4,),
+    the edges-first layout).  ``vector_layout``: ``"en"`` (row-major
+    (E, n), :class:`.ops.sumfac.LaplacianEN` with ``backend`` ``"xla"`` or
+    ``"pallas"``) or ``"ne"`` (transposed, the
+    :class:`.ops.sumfac.GeneralLaplacianT`; roll classes only).
+    """
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    gather_hier = np.asarray(gather_hier)
+    E, n = gather_hier.shape
+    Gf = np.asarray(Gf, dtype=dtype)
+    if Gf.shape[0] < E:
+        Gf = np.concatenate([Gf, np.zeros((E - Gf.shape[0],) + Gf.shape[1:],
+                                          Gf.dtype)])
+    transposed = vector_layout == "ne"
+    if vector_layout not in ("en", "ne"):
+        raise ValueError(f"unknown vector_layout {vector_layout!r}")
+    if edge_classes is not None:
+        plan = DSSPlan.from_classes(n, E, edge_classes, vert_classes, dev,
+                                    edge_len=edge_len)
+
+        def dss_en(vL):
+            return roll_dss_T(vL.transpose(-1, -2), plan).transpose(-1, -2)
+    else:
+        plan = None
+        tabs = [torch.as_tensor(np.array(a), device=dev)
+                for a in (edge_recv_flat, edge_recv_mask, vert_gid)]
+        neb = tabs[1].shape[1]
+        n_vertices = int(tabs[2].max()) + 1
+
+        def dss_en(vL):
+            return gather_dss(vL, *tabs, n_vertices, 0, neb)
+
+    def layout(a):
+        a = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        return a.T.contiguous() if transposed else a
+
+    if transposed:
+        if plan is None:
+            raise NotImplementedError("the 'ne' operator takes roll classes")
+        lap = GeneralLaplacianT(Gf, Dhat, hier, plan, None, dtype=dt)
+
+        def dss(vT):
+            return roll_dss_T(vT, plan)
+    else:
+        lap = LaplacianEN(Gf, Dhat, hier, dss_en, backend=backend, dtype=dt,
+                          device=dev)
+        dss = dss_en
+    free_L = layout(np.asarray(free, bool)[gather_hier])
+    A = LocalHelmholtzOperator(lap, dss, layout(np.asarray(kM)).to(dt),
+                               free_L)
+    gih = torch.as_tensor(gather_hier, device=dev)
+
+    def to_local(u_global):
+        u = torch.as_tensor(np.array(u_global), device=dev).to(dt)[gih]
+        return (u.T if transposed else u).contiguous()
+
+    M = jacobi_preconditioner(to_local(np.asarray(diag)), free_L)
+    return HelmholtzInterop(A, M, layout(np.asarray(weights)).to(dt), free_L,
+                            dss, to_local)

@@ -107,6 +107,45 @@ class BoundaryConditionMixin:
             gidx = disc._face_nodes_of(fg)
             np.add.at(self._neumann, gidx.ravel(), contrib.ravel())
 
+    def boundary_flux(self, u: np.ndarray, boundary_name: str) -> float:
+        """Outward boundary flux ∮_Γ (c ∇u)·n dS of a nodal field (host
+        numpy post-processing).
+
+        The element gradient comes from the spectral differentiation
+        matrices and the inverse Jacobians, restricted to the boundary faces
+        and integrated with the face quadrature; a model's ``_coeff_vals``
+        ((E, *shape) diffusivity at the GLL nodes, or None for c = 1)
+        weights it.
+        """
+        disc = self.disc
+        ndim = disc.mesh.ndim
+        from ..basis.tensor import apply_matrices
+        from ..mesh.geometry import subface_slice
+
+        ue = np.asarray(disc.gather(np.asarray(u, dtype=np.float64)))
+        # parametric derivatives du/dxi_a: (E, *shape) each
+        Ds = [np.asarray(disc.basis.subbases[d].D1) for d in range(ndim)]
+        dpar = [apply_matrices(
+            [Ds[a] if d == a else None for d in range(ndim)], ue, ndim)
+            for a in range(ndim)]
+        # physical gradient: grad_i = sum_a invJ[a, i] * du/dxi_a
+        grad = np.zeros((disc.E, ndim) + disc.shape)
+        for i in range(ndim):
+            for a in range(ndim):
+                grad[:, i] += disc.invJ[:, a, i] * dpar[a]
+        if getattr(self, "_coeff_vals", None) is not None:
+            grad *= self._coeff_vals[:, None]
+
+        total = 0.0
+        for fg in disc.face_geometry_groups(boundary_name):
+            m = fg.local_ind.shape[1]
+            gf = np.zeros((fg.cells.size, ndim, m))
+            for j, (c, f) in enumerate(zip(fg.cells, fg.faces)):
+                gf[j] = subface_slice(
+                    int(f), grad[c], ndim).reshape(ndim, m)
+            total += float(np.sum(gf * fg.n_dSxW))
+        return total
+
 
 class Poisson(BoundaryConditionMixin):
     """Poisson problem on a discretized 2D mesh.
@@ -397,8 +436,10 @@ class Poisson(BoundaryConditionMixin):
                 "pmg item 3, fdm item 8)")
         if vector_layout not in ("auto", "ne"):
             raise NotImplementedError(
-                f"vector_layout={vector_layout!r}: only the transposed "
-                "(n, E) 'ne' layout is ported (ROADMAP Queue 2 item 8)")
+                f"vector_layout={vector_layout!r}: the Poisson model takes "
+                "the transposed (n, E) 'ne' layout only; the row-major one "
+                "is ported for the Helmholtz model (ROADMAP Queue 1 item "
+                "10)")
         if cg_kernel not in ("auto", "plain", "fused"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)

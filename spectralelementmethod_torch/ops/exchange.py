@@ -4,15 +4,20 @@ Port of the JAX package's ``ops/exchange.py``.  Fields live element-local
 with duplicated shared DOFs ("L-vectors") in hierarchical node order, and
 direct stiffness summation (DSS) is a structured neighbour exchange instead
 of a global scatter.  The port keeps only the transposed ``(n_loc, E)``
-storage on the device, the layout of the main path.
+storage on the device in both of the reference's layouts: transposed
+``(n_loc, E)`` (the main path's) and row-major ``(E, n_loc)``.
 
 The host tables (edge pairing, vertex numbering, roll classes, multiplicity
 weights) are numpy copies of the reference's.  The device half is:
 
-* :meth:`LocalExchange.dss_T` / :meth:`RollExchange.dss_T` — the plain
-  PyTorch DSS (generic gather, or ``torch.roll`` + masks per class);
-* :meth:`LocalExchange.dot_T` / :meth:`LocalExchange.weights_T` — the
-  multiplicity-weighted inner product and its weights;
+* :meth:`LocalExchange.dss` / :meth:`RollExchange.dss` on ``(..., E, n_loc)``
+  tensors and :meth:`LocalExchange.dss_T` / :meth:`RollExchange.dss_T` on
+  ``(..., n_loc, E)`` — the plain PyTorch DSS (generic gather,
+  :func:`gather_dss`, or ``torch.roll`` + masks per class along the element
+  axis, :func:`roll_dss_T`);
+* :meth:`LocalExchange.dot` / :meth:`LocalExchange.dot_T` and
+  :meth:`LocalExchange._weights_as` — the multiplicity-weighted inner
+  product and its weights;
 * :class:`DSSPlan` — the class tables on one device, as the hand-written
   CUDA kernels of :mod:`.kernels` and their plain versions read them.
 """
@@ -73,8 +78,8 @@ class LocalExchange:
         #: the local node order (lex index -> L-vector column)
         self.hier = order
         #: (E, n_loc) global node ids in the local order
-        self.gather_hier = np.asarray(disc.gather_nodes[:, order],
-                                      dtype=np.int64)
+        self.gather_hier = np.ascontiguousarray(disc.gather_nodes[:, order],
+                                                dtype=np.int64)
 
         # ---- edge pairing -------------------------------------------------
         nb_lin = np.arange(E * 4, dtype=np.int32)  # default: self
@@ -216,28 +221,36 @@ class LocalExchange:
             cache[key] = torch.as_tensor(getattr(self, name), device=device)
         return cache[key]
 
-    def dss_T(self, vT: torch.Tensor) -> torch.Tensor:
-        """Direct stiffness summation on a transposed (n_loc, E) L-vector.
+    def dss(self, vL: torch.Tensor) -> torch.Tensor:
+        """Direct stiffness summation on (E, n_loc) L-vectors, or on a
+        (..., E, n_loc) stack of them, each on its own: every copy of a
+        shared DOF gets the sum of the copies.
 
-        Generic form: a node-level partner gather for edge interiors and a
-        scatter-add over the vertex copies (the JAX ``LocalExchange.dss``
-        on the transposed array).  :class:`RollExchange` overrides it.
+        Generic form (:func:`gather_dss`): a node-level partner gather for
+        the edge interiors and a scatter-add over the vertex copies.
+        :class:`RollExchange` overrides it.
         """
-        E, neb = self.E, self.n_edge_block
-        oe, ov = self.off_edge, self.off_vert
-        dev = vT.device
-        vL = vT.T.contiguous()                        # (E, n)
-        out = vL.clone()
-        if neb > 0:
-            recv = vL.reshape(-1)[self._on("_edge_recv_flat", dev)]
-            out[:, oe:oe + neb] += torch.where(
-                self._on("_edge_recv_mask", dev), recv.reshape(E, neb), 0.0)
-        gid = self._on("vert_gid", dev)
-        summed = torch.zeros(self.n_vertices, dtype=vT.dtype,
-                             device=dev).index_add_(
-            0, gid, vL[:, ov:ov + 4].reshape(-1))
-        out[:, ov:ov + 4] = summed[gid].reshape(E, 4)
-        return out.T.contiguous()
+        dev = vL.device
+        return gather_dss(vL, self._on("_edge_recv_flat", dev),
+                          self._on("_edge_recv_mask", dev),
+                          self._on("vert_gid", dev), self.n_vertices,
+                          self.off_edge, self.off_vert)
+
+    def dss_T(self, vT: torch.Tensor) -> torch.Tensor:
+        """DSS on a transposed (n_loc, E) L-vector (or a stack): the
+        row-major :meth:`dss` of its transpose, as in the reference.
+        :class:`RollExchange` overrides it with a native transposed
+        exchange."""
+        return self.dss(vT.transpose(-1, -2)).transpose(-1, -2).contiguous()
+
+    def dot(self, uL: torch.Tensor, vL: torch.Tensor) -> torch.Tensor:
+        """Global inner product from consistent (E, n_loc) L-vectors
+        (1/multiplicity weights); a stack sums over all of it."""
+        prod = uL * vL
+        return torch.sum(prod * self._weights_as(prod.dtype, prod.device))
+
+    def norm(self, uL: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(self.dot(uL, uL))
 
     def dot_T(self, uT: torch.Tensor, vT: torch.Tensor) -> torch.Tensor:
         """Global inner product from consistent transposed L-vectors."""
@@ -249,17 +262,23 @@ class LocalExchange:
         """(E, n_loc) inverse-multiplicity dot weights (float64, host)."""
         return self._weights_np
 
-    def weights_T(self, dtype, device) -> torch.Tensor:
-        """(n_loc, E) dot weights on ``device``, cached per dtype and
-        device: a fresh cast per dot would cost a full pass inside every
-        CG iteration."""
+    def _weights_as(self, dtype, device,
+                    transposed: bool = False) -> torch.Tensor:
+        """The dot weights on ``device`` as (E, n_loc), or (n_loc, E) when
+        ``transposed``, cached per dtype, device and layout: a fresh cast
+        per dot would cost a full pass inside every CG iteration."""
         dt = torch_dtype(dtype)
         cache = self.__dict__.setdefault("_w_cache", {})
-        key = (dt, str(device))
+        key = (dt, str(device), bool(transposed))
         if key not in cache:
-            w = np.ascontiguousarray(self._weights_np.T)
-            cache[key] = torch.as_tensor(w, device=device).to(dt)
+            w = self._weights_np.T if transposed else self._weights_np
+            cache[key] = torch.as_tensor(np.ascontiguousarray(w),
+                                         device=device).to(dt)
         return cache[key]
+
+    def weights_T(self, dtype, device) -> torch.Tensor:
+        """(n_loc, E) dot weights on ``device`` (cached)."""
+        return self._weights_as(dtype, device, transposed=True)
 
 
 class RollExchange(LocalExchange):
@@ -410,31 +429,47 @@ class RollExchange(LocalExchange):
             cache[key] = DSSPlan.from_exchange(self, device)
         return cache[key]
 
+    def dss(self, vL: torch.Tensor) -> torch.Tensor:
+        """Roll-class DSS on (E, n_loc) L-vectors (or a (..., E, n_loc)
+        stack): one ``torch.roll`` along the element axis + mask + add per
+        class (:func:`roll_dss_T` on the transposed view), plus the
+        residual gather of pairs outside every class (the "tail")."""
+        out = roll_dss_T(vL.transpose(-1, -2), self.plan(vL.device))
+        out = out.transpose(-1, -2)
+        if self.n_edge_tail or self.n_vert_tail:
+            out = out + self._tails(vL)
+        return out.contiguous()
+
     def dss_T(self, vT: torch.Tensor) -> torch.Tensor:
-        """Roll-class DSS on a transposed (n_loc, E) L-vector: one roll +
-        mask + add per class (:func:`roll_dss_T`), plus the residual
-        gather of pairs outside every class (the "tail")."""
+        """Roll-class DSS on a transposed (n_loc, E) L-vector (or a
+        (..., n_loc, E) stack): :func:`roll_dss_T`, plus the tails."""
         out = roll_dss_T(vT, self.plan(vT.device))
-        E, dev = self.E, vT.device
+        if self.n_edge_tail or self.n_vert_tail:
+            out += self._tails(vT.transpose(-1, -2)).transpose(-1, -2)
+        return out
+
+    def _tails(self, vL: torch.Tensor) -> torch.Tensor:
+        """What the pairs outside every class add to (..., E, n_loc)
+        L-vectors (zero elsewhere)."""
+        E, dev = self.E, vL.device
         oe, ov, neb = self.off_edge, self.off_vert, self.n_edge_block
+        lead = vL.shape[:-2]
+        add = torch.zeros_like(vL)
         if self.n_edge_tail:
             # residual pairs through the (E*4, ne) row form
             ne = self.ne
-            Ff = vT[oe:oe + neb].reshape(4, ne, E).permute(2, 0, 1).reshape(
-                E * 4, ne)
-            tr = Ff[self._on("edge_tail_src", dev)]
-            tr = torch.where(self._on("edge_tail_flip", dev), tr.flip(1), tr)
-            add = torch.zeros_like(Ff).index_add_(
-                0, self._on("edge_tail_dst", dev), tr)
-            out[oe:oe + neb] += add.reshape(E, 4, ne).permute(
-                1, 2, 0).reshape(neb, E)
+            Ff = vL[..., oe:oe + neb].reshape(*lead, E * 4, ne)
+            tr = Ff[..., self._on("edge_tail_src", dev), :]
+            tr = torch.where(self._on("edge_tail_flip", dev), tr.flip(-1), tr)
+            add[..., oe:oe + neb] = torch.zeros_like(Ff).index_add_(
+                -2, self._on("edge_tail_dst", dev), tr).reshape(
+                *lead, E, neb)
         if self.n_vert_tail:
-            Vf = vT[ov:ov + 4].T.reshape(E * 4)
-            add = torch.zeros(E * 4, dtype=vT.dtype, device=dev).index_add_(
-                0, self._on("vert_tail_dst", dev),
-                Vf[self._on("vert_tail_src", dev)])
-            out[ov:ov + 4] += add.reshape(E, 4).T
-        return out
+            Vf = vL[..., ov:ov + 4].reshape(*lead, E * 4)
+            add[..., ov:ov + 4] = torch.zeros_like(Vf).index_add_(
+                -1, self._on("vert_tail_dst", dev),
+                Vf[..., self._on("vert_tail_src", dev)]).reshape(*lead, E, 4)
+        return add
 
 
 class DSSPlan:
@@ -554,6 +589,34 @@ def roll_dss_T(vT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
     for d, s, delta, k in plan.vert_rows:
         out[..., d, :] += torch.where(
             masks[k], torch.roll(vT[..., s, :], -delta, dims=-1), 0.0)
+    return out
+
+
+def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
+               recv_mask: torch.Tensor, vert_gid: torch.Tensor,
+               n_vertices: int, off_edge: int, off_vert: int) -> torch.Tensor:
+    """Generic DSS of (E, n) L-vectors, or of a (..., E, n) stack, each on
+    its own (the reference's ``LocalExchange._dss_2d``).
+
+    ``recv_flat`` ((E * neb,) int64): for each edge-interior entry, the
+    flat (element, column) position of its partner copy, orientation flips
+    folded in; ``recv_mask`` ((E, neb) bool): the entry has a partner;
+    ``vert_gid`` ((E * 4,) int64): the global vertex of each vertex copy;
+    the edge block starts at column ``off_edge``, the four vertices at
+    ``off_vert``.
+    """
+    E, n = vL.shape[-2:]
+    neb = recv_mask.shape[-1]
+    lead = vL.shape[:-2]
+    out = vL.clone()
+    if neb > 0:
+        recv = vL.reshape(*lead, E * n)[..., recv_flat].reshape(*lead, E, neb)
+        out[..., off_edge:off_edge + neb] += torch.where(recv_mask, recv, 0.0)
+    verts = vL[..., off_vert:off_vert + 4].reshape(*lead, E * 4)
+    summed = torch.zeros((*lead, n_vertices), dtype=vL.dtype,
+                         device=vL.device).index_add_(-1, vert_gid, verts)
+    out[..., off_vert:off_vert + 4] = summed[..., vert_gid].reshape(
+        *lead, E, 4)
     return out
 
 

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Six CUDA sources (``../csrc``, one shared library each) replace the TPU
-Pallas kernels that the 2D ``solve_local`` and ``solve_local_batch`` run on
-affine and on curved meshes.  Each but the single-kernel iteration takes
+Seven CUDA sources (``../csrc``, one shared library each) replace the TPU
+Pallas kernels that the 2D ``solve_local`` and ``solve_local_batch`` of the
+Poisson and Helmholtz models run on affine and on curved meshes.  Each
+apply and CG kernel but the single-kernel iteration takes
 one right-hand side or a ``(k * n, E)`` stack of k that share the operator
 (the RHS is a grid dimension of every launch), and each wrapper below
 launches one variant:
@@ -28,7 +29,13 @@ launches one variant:
 * :func:`cg_kernel_single` / :func:`cg_kernel_single_deferred` — one whole
   PCG iteration with the residual update deferred into the next kernel,
   with and without the lagged x update (``make_fused_cg_kernel_single``,
-  one RHS, affine meshes).
+  one RHS, affine meshes);
+* :func:`laplacian_local`, :func:`laplacian_local_batched` and
+  :func:`vector_laplacian_local` — the element-local weak Laplacian on
+  row-major (E, n) L-vectors without DSS, on one array, a (k, E, n) stack
+  and k components packed as (E, k n) (``fused_laplacian_local`` and
+  ``fused_vector_laplacian_local``): one kernel that takes the element and
+  component strides.
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and for CUDA tensors launches the kernel or raises: there is no
@@ -51,6 +58,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .exchange import DSSPlan, roll_dss_T
@@ -66,6 +74,7 @@ _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
 _GEN_APPLY, _GEN_CG_A = "general_apply_dss.cu", "cg_kernel_a_general.cu"
 _SINGLE = "cg_kernel_single.cu"
+_LOCAL = "laplacian_local.cu"
 
 #: kernel name -> (source in csrc/, the TPU kernel it replaces)
 KERNELS = {
@@ -83,9 +92,12 @@ KERNELS = {
     "cg_kernel_a_general_batched": (_GEN_CG_A, f"{_REPLACED}:1824"),
     "cg_kernel_single": (_SINGLE, f"{_REPLACED}:1807"),
     "cg_kernel_single_deferred": (_SINGLE, f"{_REPLACED}:1765"),
+    "laplacian_local": (_LOCAL, f"{_REPLACED}:76"),
+    "laplacian_local_batched": (_LOCAL, f"{_REPLACED}:76"),
+    "vector_laplacian_local": (_LOCAL, f"{_REPLACED}:149"),
 }
 #: the sources, one shared library each
-SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A, _SINGLE)
+SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A, _SINGLE, _LOCAL)
 #: elements per block of the affine product kernels (one denominator
 #: partial each)
 THREADS = 256
@@ -113,6 +125,8 @@ _SIGNATURES = {
     "sem_cg_kernel_single_bf16": [_P] * 19 + [_I] * 3 + [_P],
     "sem_cg_kernel_single_defer_f32": [_P] * 17 + [_I] * 3 + [_P],
     "sem_cg_kernel_single_defer_bf16": [_P] * 17 + [_I] * 3 + [_P],
+    "sem_laplacian_local": [_P] * 5 + [_I] * 3 + [ctypes.c_longlong] * 2
+    + [_P],
 }
 #: the partial sums of the single-kernel iteration, their columns in order
 SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
@@ -1006,6 +1020,157 @@ def make_fused_cg_kernel_single(Kst: torch.Tensor, aT: torch.Tensor,
     return kAB
 
 
+# -- the element-local Laplacian on row-major (E, n) L-vectors ---------------
+
+def laplacian_local_plain(uL, g, Dh, hier):
+    """Plain version of :func:`laplacian_local` (``torch.matmul`` with the
+    dense stacked derivative; ``hier`` is already folded into ``Dh``):
+    ``grads = u Dh^T``, ``[fr fs] = [g0 ur + g1 us, g1 ur + g2 us]``,
+    ``out = [fr fs] Dh``.  Also takes a (k, E, n) stack."""
+    n = Dh.shape[1]
+    grads = torch.matmul(uL, Dh.T)                          # (..., E, 2n)
+    ur, us = grads[..., :n], grads[..., n:]
+    flux = torch.cat([g[0] * ur + g[1] * us, g[1] * ur + g[2] * us], dim=-1)
+    return torch.matmul(flux, Dh)
+
+
+def laplacian_local_batched_plain(uL, g, Dh, hier):
+    """Plain version of :func:`laplacian_local_batched`."""
+    return laplacian_local_plain(uL, g, Dh, hier)
+
+
+def vector_laplacian_local_plain(uL, g, Dh, hier):
+    """Plain version of :func:`vector_laplacian_local`: each of the k
+    components of an (E, k n) array on its own."""
+    E, kn = uL.shape
+    n = Dh.shape[1]
+    u3 = uL.reshape(E, kn // n, n).transpose(0, 1)          # (k, E, n)
+    out = laplacian_local_plain(u3, g, Dh, hier)
+    return out.transpose(0, 1).reshape(E, kn)
+
+
+def _check_tensor_product(Dh: torch.Tensor, hier: torch.Tensor) -> None:
+    """Raise unless ``Dh`` is ``[D0 (x) I; I (x) D1]`` with its columns
+    permuted by ``hier``, the form the kernel reads its tensor factors D0
+    and D1 from (csrc/sem_general.cuh).  Checked once on the host per
+    (``Dh``, ``hier``) state, and remembered on ``Dh``."""
+    key = (Dh._version, hier.data_ptr(), hier._version)
+    if getattr(Dh, "_tensor_product_checked", None) == key:
+        return
+    D = Dh.detach().double().cpu().numpy()
+    h = hier.detach().cpu().numpy().astype(np.int64)
+    n = D.shape[1]
+    m = int(round(n ** 0.5))
+    hinv = np.argsort(h)
+    ok = m * m == n and np.array_equal(np.sort(h), np.arange(n))
+    if ok:
+        D0 = D[np.arange(m) * m][:, hinv[np.arange(m) * m]]
+        D1 = D[n + np.arange(m)][:, hinv[np.arange(m)]]
+        want = np.concatenate([np.kron(D0, np.eye(m)), np.kron(np.eye(m), D1)])
+        ok = np.array_equal(D, want[:, h])
+    if not ok:
+        raise ValueError("Dh is not a hier-permuted tensor-product stacked "
+                         "derivative [D0 (x) I; I (x) D1]; the kernel takes "
+                         "only that form")
+    Dh._tensor_product_checked = key
+
+
+def _launch_local(uL, g, Dh, hier, k: int, estride: int, cstride: int):
+    dev = _cuda_device(uL)
+    n, E = Dh.shape[1], g.shape[1]
+    _check_n(n)
+    f32 = (torch.float32,)
+    _require(uL, "uL", f32, uL.shape, dev)
+    _require(g, "g", f32, (3, E, n), dev)
+    _require(Dh, "Dh", f32, (2 * n, n), dev)
+    _require(hier, "hier", (torch.int32,), (n,), dev)
+    _check_tensor_product(Dh, hier)
+    out = torch.empty_like(uL)
+    lib = _lib(_LOCAL)
+    rc = lib.sem_laplacian_local(_ptr(uL), _ptr(g), _ptr(Dh), _ptr(hier),
+                                 _ptr(out), n, E, k, estride, cstride,
+                                 _stream(dev))
+    _check(lib, rc, f"laplacian_local (n={n}, E={E}, k={k})")
+    return out
+
+
+def _local_shape(uL, g, Dh, shape, what: str) -> None:
+    if tuple(uL.shape) != tuple(shape):
+        raise ValueError(f"{what}: uL has shape {tuple(uL.shape)}, expected "
+                         f"{tuple(shape)} (g {tuple(g.shape)}, Dh "
+                         f"{tuple(Dh.shape)})")
+
+
+def laplacian_local(uL: torch.Tensor, g: torch.Tensor, Dh: torch.Tensor,
+                    hier: torch.Tensor) -> torch.Tensor:
+    """``out = [fr fs] Dh`` with ``[fr fs] = [g0 ur + g1 us, g1 ur + g2 us]``
+    and ``[ur us] = u Dh^T``, per element of a row-major (E, n) L-vector,
+    without DSS.
+
+    ``g`` (3, E, n): the geometric factors [G00, G01, G11] in lex node
+    order; ``Dh`` (2n, n): the stacked derivative with its columns in the
+    L-vector order ``hier`` ((n,) int32, L-vector column -> lex node).
+    The kernel applies ``Dh`` in tensor-product form, so ``Dh`` must be
+    ``[D0 (x) I; I (x) D1]`` with its columns permuted by ``hier`` (as
+    :func:`..ops.sumfac.make_stacked_derivative` builds it): the wrapper
+    checks this once on the host and raises otherwise.  CUDA tensors must
+    be float32.
+    """
+    if uL.device.type == "cpu":
+        return laplacian_local_plain(uL, g, Dh, hier)
+    _local_shape(uL, g, Dh, g.shape[1:], "laplacian_local")
+    n = Dh.shape[1]
+    out = _launch_local(uL, g, Dh, hier, 1, n, 0)
+    laplacian_local.launches += 1
+    return out
+
+
+laplacian_local.launches = 0
+
+
+def laplacian_local_batched(uL: torch.Tensor, g: torch.Tensor,
+                            Dh: torch.Tensor,
+                            hier: torch.Tensor) -> torch.Tensor:
+    """:func:`laplacian_local` of each (E, n) array of a (k, E, n) stack,
+    in one launch: the k arrays share ``g`` and ``Dh``."""
+    if uL.device.type == "cpu":
+        return laplacian_local_batched_plain(uL, g, Dh, hier)
+    E, n = g.shape[1:]
+    if uL.dim() != 3:
+        raise ValueError(f"uL has shape {tuple(uL.shape)}; expected "
+                         f"(k, {E}, {n})")
+    _local_shape(uL, g, Dh, (uL.shape[0], E, n), "laplacian_local_batched")
+    out = _launch_local(uL, g, Dh, hier, uL.shape[0], n, E * n)
+    laplacian_local_batched.launches += 1
+    return out
+
+
+laplacian_local_batched.launches = 0
+
+
+def vector_laplacian_local(uL: torch.Tensor, g: torch.Tensor,
+                           Dh: torch.Tensor,
+                           hier: torch.Tensor) -> torch.Tensor:
+    """:func:`laplacian_local` of each of k components packed side by side
+    as an (E, k n) array (component c of element e in columns
+    [c n, (c + 1) n)), in one launch; the components share ``g`` and
+    ``Dh``."""
+    if uL.device.type == "cpu":
+        return vector_laplacian_local_plain(uL, g, Dh, hier)
+    E, n = g.shape[1:]
+    if uL.dim() != 2 or uL.shape[1] % n:
+        raise ValueError(f"uL has shape {tuple(uL.shape)}; expected "
+                         f"({E}, k * {n})")
+    k = uL.shape[1] // n
+    _local_shape(uL, g, Dh, (E, k * n), "vector_laplacian_local")
+    out = _launch_local(uL, g, Dh, hier, k, k * n, n)
+    vector_laplacian_local.launches += 1
+    return out
+
+
+vector_laplacian_local.launches = 0
+
+
 #: the wrappers, by kernel name
 WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "affine_apply_dss_batched": affine_apply_dss_batched,
@@ -1020,7 +1185,10 @@ WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "cg_kernel_a_general": cg_kernel_a_general,
             "cg_kernel_a_general_batched": cg_kernel_a_general_batched,
             "cg_kernel_single": cg_kernel_single,
-            "cg_kernel_single_deferred": cg_kernel_single_deferred}
+            "cg_kernel_single_deferred": cg_kernel_single_deferred,
+            "laplacian_local": laplacian_local,
+            "laplacian_local_batched": laplacian_local_batched,
+            "vector_laplacian_local": vector_laplacian_local}
 
 
 def reset_launch_counts() -> None:

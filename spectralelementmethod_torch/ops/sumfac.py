@@ -1,7 +1,12 @@
-"""Matrix-free Laplacian on transposed L-vectors (PyTorch port).
+"""Matrix-free Laplacian on L-vectors and global vectors (PyTorch port).
 
-Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D main
-path runs, on the transposed (n, E) layout.  On an affine cell the local
+Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D solves
+run.  The global-vector helpers (:func:`gather`, :func:`scatter_add`,
+:func:`laplacian_apply_local`, :func:`laplacian_diag_local`,
+:func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` /
+``index_add_``, as the reference leaves them to XLA.
+
+On the transposed (n, E) layout (the main path's): on an affine cell the local
 weak Laplacian collapses to ``A_e = a0(e) K0 + a1(e) K1 + a2(e) K2`` with
 three fixed (n, n) matrices (:func:`make_affine_element_matrices`) and
 three scalars per element (:func:`affine_factorization`); the operator is
@@ -12,7 +17,11 @@ variable coefficient keeps the full (3, n, E) factor slabs
 with ``[ur; us] = Dhat u``, :func:`.kernels.general_apply_dss`).
 :func:`make_local_laplacian_operator` picks one by the reference's
 ``structure`` rule; ``.stacked(k)`` gives either on (k, n, E) stacks
-(:func:`make_multi_rhs_laplacian_T`).
+(:func:`make_multi_rhs_laplacian_T`).  On row-major (E, n) L-vectors
+(``vector_layout="en"``) the operator is :class:`LaplacianEN`: the local
+product by ``torch.matmul`` (``backend="xla"``) or by the hand-written
+element-local kernel (``backend="pallas"``,
+:func:`.kernels.laplacian_local`), then the exchange's ``dss``.
 
 The host helpers are numpy copies of the reference's, with one deliberate
 divergence: :func:`affine_factorization` measures each element against its
@@ -31,6 +40,62 @@ import torch
 from ..config import resolve_device, torch_dtype
 from . import kernels
 from .exchange import DSSPlan
+
+
+def gather(u, gather_nodes, shape):
+    """(n_nodes,) -> (E, *shape) element-local values."""
+    return u[gather_nodes].reshape((-1,) + tuple(shape))
+
+
+def scatter_add(vals, gather_nodes, n_nodes):
+    """(E, *shape) -> (n_nodes,) direct stiffness summation."""
+    out = torch.zeros(n_nodes, dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, gather_nodes.reshape(-1), vals.reshape(-1))
+
+
+def grad_2d(ue, D0, D1):
+    """Parametric gradient of (E, p0, p1) local fields: (ur, us)."""
+    ur = torch.einsum("mj,ejn->emn", D0, ue)
+    us = torch.einsum("nk,emk->emn", D1, ue)
+    return ur, us
+
+
+def grad_transpose_2d(fr, fs, D0, D1):
+    """Adjoint of :func:`grad_2d`: v = D0^T fr + fs D1."""
+    return (torch.einsum("mp,emq->epq", D0, fr)
+            + torch.einsum("nq,epn->epq", D1, fs))
+
+
+def laplacian_apply_local(ue, G, D0, D1):
+    """Local weak Laplacian: v_e = B_e^T (G . B_e u_e).
+
+    ``G``: (E, 3, p0, p1) packed [G00, G01, G11] geometric factors.
+    """
+    ur, us = grad_2d(ue, D0, D1)
+    fr = G[:, 0] * ur + G[:, 1] * us
+    fs = G[:, 1] * ur + G[:, 2] * us
+    return grad_transpose_2d(fr, fs, D0, D1)
+
+
+def laplacian_diag_local(G, D0, D1):
+    """Diagonal of the local weak Laplacian (for Jacobi preconditioning);
+    the tensor twin of :func:`laplacian_diag_local_host`."""
+    d0 = torch.einsum("emq,mp->epq", G[:, 0], D0**2)
+    d1 = torch.einsum("epn,nq->epq", G[:, 2], D1**2)
+    cross = (2.0 * G[:, 1] * torch.diagonal(D0)[:, None]
+             * torch.diagonal(D1)[None, :])
+    return d0 + d1 + cross
+
+
+def mass_apply_local(ue, detJxW):
+    """Local weak identity (mass) operator on the GLL-collocated rule:
+    diagonal, M_e u_e = detJxW * u_e."""
+    return detJxW * ue
+
+
+def masked(u, free_mask):
+    """Zero entries not in the free set (Dirichlet elimination helper)."""
+    return torch.where(free_mask, u, 0.0)
 
 
 def laplacian_diag_local_host(G, D0, D1):
@@ -282,49 +347,171 @@ class GeneralLaplacianT(LaplacianT):
                          "general fused CG uses the kernel pair)")
 
 
+class LaplacianEN(torch.nn.Module):
+    """Weak Laplacian on row-major (E, n) L-vectors, or on (k, E, n) stacks
+    of them (the reference's ``vector_layout="en"``): mask, element-local
+    product, ``dss``, mask.
+
+    ``Gf`` (E, 3, n): the lex-ordered geometric factors; ``Dhat`` (2n, n):
+    the stacked derivative of :func:`make_stacked_derivative` in lex order;
+    ``hier`` (n,): the local node order (L-vector column -> lex node);
+    ``dss``: the exchange's DSS of (..., E, n) tensors.  ``backend``:
+
+    * ``"xla"`` — ``torch.matmul``: with ``affine=(a, Kcat)`` (the affine
+      scales (E, 3) and ``[K0 | K1 | K2]`` (n, 3n) in the L-vector order)
+      the assembled-K product ``sum_c a_c (u K_c)``, else the dense
+      stacked-derivative product (:func:`.kernels.laplacian_local_plain`);
+    * ``"pallas"`` — the hand-written element-local kernel,
+      :func:`.kernels.laplacian_local` (:func:`.kernels.
+      laplacian_local_batched` on a stack, one launch for all k), which on
+      CPU tensors runs its plain version.  float32 only.
+
+    ``free_local`` (optional (E, n) bool) masks input and output, as in
+    :class:`LaplacianT`.  ``_structure`` and ``_backend`` name the resolved
+    choice, as the reference's operator does.
+    """
+
+    def __init__(self, Gf, Dhat, hier, dss, *, backend: str = "xla",
+                 affine=None, free_local=None, dtype=torch.float32,
+                 device="cpu"):
+        super().__init__()
+        Gf = np.asarray(Gf)
+        if Gf.ndim != 3 or Gf.shape[1] != 3:
+            raise ValueError(f"factors of shape {Gf.shape}; expected "
+                             "(E, 3, n)")
+        self.dss = dss
+        self._backend = backend
+        self._structure = "general" if affine is None else "affine"
+        hier = np.asarray(hier, dtype=np.int64)
+        Dh = np.ascontiguousarray(np.asarray(Dhat, np.float64)[:, hier])
+        self.register_buffer("Dh", torch.as_tensor(Dh, device=device)
+                             .to(dtype))
+        self.register_buffer(
+            "hier", torch.as_tensor(hier.astype(np.int32), device=device))
+        if backend == "pallas" or affine is None:
+            g = np.ascontiguousarray(Gf.transpose(1, 0, 2))   # (3, E, n)
+            self.register_buffer("g", torch.as_tensor(g, device=device)
+                                 .to(dtype))
+        else:
+            a, Kcat = affine
+            self.register_buffer("a", torch.as_tensor(
+                np.asarray(a, np.float64), device=device).to(dtype))
+            self.register_buffer("Kcat", torch.as_tensor(
+                np.asarray(Kcat, np.float64), device=device).to(dtype))
+        self.register_buffer(
+            "free", None if free_local is None
+            else torch.as_tensor(free_local, device=device))
+
+    def local(self, uL: torch.Tensor) -> torch.Tensor:
+        """The element-local product, without the DSS."""
+        if self._backend == "pallas":
+            if uL.dim() == 2:
+                return kernels.laplacian_local(uL, self.g, self.Dh, self.hier)
+            return kernels.laplacian_local_batched(uL, self.g, self.Dh,
+                                                   self.hier)
+        if self._structure == "affine":
+            n = self.Kcat.shape[0]
+            V = torch.matmul(uL, self.Kcat)                   # (..., E, 3n)
+            a = self.a
+            return (a[:, 0:1] * V[..., :n] + a[:, 1:2] * V[..., n:2 * n]
+                    + a[:, 2:3] * V[..., 2 * n:])
+        return kernels.laplacian_local_plain(uL, self.g, self.Dh, self.hier)
+
+    def forward(self, uL: torch.Tensor) -> torch.Tensor:
+        if self.free is not None:
+            uL = torch.where(self.free, uL, 0.0)
+        vL = self.dss(self.local(uL))
+        if self.free is not None:
+            vL = torch.where(self.free, vL, 0.0)
+        return vL
+
+
 STRUCTURES = ("auto", "general", "affine")
+LAYOUTS = ("ne", "en")
 
 
 def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
                                   assume_masked_input: bool = False,
-                                  device=None, structure: str = "auto"):
-    """Weak Laplacian acting on transposed (n, E) hierarchical L-vectors
-    (the reference's ``vector_layout="ne"``).
+                                  device=None, structure: str = "auto",
+                                  vector_layout: str = "ne",
+                                  backend: str = "auto",
+                                  compute_dtype=None):
+    """Weak Laplacian acting on hierarchical L-vectors.
 
     ``Gf``: (E, 3, n) lex-flattened geometric factors; their dtype is the
     operator's.  ``Dhat``: (2n, n) from :func:`make_stacked_derivative`.
-    ``free_local``: optional (n, E) bool mask for symmetric Dirichlet
-    elimination.  ``device``: the CUDA card unless given (see
+    ``device``: the CUDA card unless given (see
     :func:`..config.resolve_device`).  ``structure``: ``"auto"`` detects
-    affine meshes (:func:`affine_factorization`) and takes the
-    :class:`AffineLaplacianT`, else the :class:`GeneralLaplacianT`;
-    ``"general"`` forces the full factor slabs; ``"affine"`` requires an
-    affine mesh (``ValueError`` otherwise).
+    affine meshes (:func:`affine_factorization`), ``"general"`` forces the
+    full factors, ``"affine"`` requires an affine mesh (``ValueError``
+    otherwise).
+
+    ``vector_layout``: ``"ne"`` (the port's default; the reference's is
+    ``"en"``) acts on transposed (n, E) L-vectors: the
+    :class:`AffineLaplacianT` or the :class:`GeneralLaplacianT`, whose
+    applies are the hand-written apply+DSS kernels (their plain versions on
+    the CPU) whatever ``backend`` says, except that ``"pallas"`` raises
+    there, as in the reference.  ``"en"`` acts on row-major (E, n)
+    L-vectors: the :class:`LaplacianEN` with ``backend`` ``"xla"``,
+    ``"pallas"`` (float32 factors only: the kernel computes in f32, and the
+    reference's would return f64-typed output of f32 accuracy) or
+    ``"auto"``, which is ``"xla"`` as in the reference.
+    ``free_local``: optional bool mask in the operator's layout for
+    symmetric Dirichlet elimination; ``assume_masked_input`` (the (n, E)
+    operators only, as in the reference) skips its input pass.
+    ``compute_dtype`` (reduced-precision
+    products) is not ported: anything but None raises.
     """
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r}: the precision tiers are not "
+            "ported yet (ROADMAP, ground rules)")
     if structure not in STRUCTURES:
         raise ValueError(f"unknown structure {structure!r}")
+    if vector_layout not in LAYOUTS:
+        raise ValueError(f"unknown vector_layout {vector_layout!r}")
+    Gf = np.asarray(Gf)
+    if Gf.shape[0] != exchange.E:
+        raise ValueError(f"factors have {Gf.shape[0]} rows, the exchange "
+                         f"{exchange.E} elements")
+    dev = resolve_device(device)
+    dtype = torch_dtype(Gf.dtype)
+    affine = None
+    if structure != "general":
+        Wgrid = exchange.disc.basis.weight_grid().reshape(-1)
+        a, exact = affine_factorization(Gf, Wgrid)
+        if exact:
+            affine = (a, make_affine_element_matrices(Dhat, Wgrid,
+                                                      order=exchange.hier))
+        elif structure == "affine":
+            raise ValueError("mesh is not affine but structure='affine'")
+    if vector_layout == "en":
+        if backend == "auto":
+            # the reference's rule: its TPU kernel lost to XLA once composed
+            # with the exchange, so "auto" takes the matmul product
+            backend = "xla"
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"unknown backend {backend!r} for the 'en' "
+                             "layout")
+        if backend == "pallas" and dtype != torch.float32:
+            raise ValueError(
+                f"backend='pallas' requires float32 factors, got {Gf.dtype}: "
+                "the kernel computes in f32")
+        return LaplacianEN(Gf, Dhat, exchange.hier, exchange.dss,
+                           backend=backend, affine=affine,
+                           free_local=free_local, dtype=dtype, device=dev)
+    if backend not in ("auto", "fused", "xla"):
+        raise ValueError(f"unknown backend {backend!r} for the 'ne' layout")
     if not hasattr(exchange, "plan") or exchange.n_edge_tail or \
             exchange.n_vert_tail:
         raise NotImplementedError(
             "the apply kernels need a tail-free roll-class exchange "
             "(RollExchange); the generic-gather DSS has no kernel yet")
-    Gf = np.asarray(Gf)
-    if Gf.shape[0] != exchange.E:
-        raise ValueError(f"factors have {Gf.shape[0]} rows, the exchange "
-                         f"{exchange.E} elements")
-    plan = exchange.plan(resolve_device(device))
-    dtype = torch_dtype(Gf.dtype)
-    if structure != "general":
-        Wgrid = exchange.disc.basis.weight_grid().reshape(-1)
-        a, exact = affine_factorization(Gf, Wgrid)
-        if exact:
-            Kcat = make_affine_element_matrices(Dhat, Wgrid,
-                                                order=exchange.hier)
-            return AffineLaplacianT(Kcat, a, plan, free_local,
-                                    assume_masked_input=assume_masked_input,
-                                    dtype=dtype)
-        if structure == "affine":
-            raise ValueError("mesh is not affine but structure='affine'")
+    plan = exchange.plan(dev)
+    if affine is not None:
+        return AffineLaplacianT(affine[1], affine[0], plan, free_local,
+                                assume_masked_input=assume_masked_input,
+                                dtype=dtype)
     return GeneralLaplacianT(Gf, Dhat, exchange.hier, plan, free_local,
                              assume_masked_input=assume_masked_input,
                              dtype=dtype)

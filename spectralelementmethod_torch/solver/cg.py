@@ -14,6 +14,8 @@ Port of the main-path solvers of the JAX package's ``solver/cg.py``:
 * :func:`cg_batched` (whole-batch mode) and :func:`cg_fused_batched` — the
   same for a stack of k right-hand sides sharing one operator, with
   per-RHS scalars and freezing and one host ladder;
+* :func:`cg_host` — PCG with a plain host loop (one host read of the
+  residual norm per iteration), for small and one-off solves;
 * :func:`auto_defer_x`, :func:`auto_defer_x_batched` and
   :func:`hbm_residency_regime`, the reference's ``defer_x`` policies;
 * :func:`jacobi_preconditioner`.
@@ -160,6 +162,58 @@ def cg(
 
 def _identity(r):
     return r
+
+
+def cg_host(
+    A: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    M: Callable | None = None,
+    tol: float = 1e-12,
+    atol: float = 0.0,
+    max_iter: int = 1000,
+    dot: Callable | None = None,
+) -> CGResult:
+    """PCG with a host-side Python loop: the same math as :func:`cg`, with
+    the residual norm read back every iteration and no ladder or freezing.
+
+    ``dot``: the inner product (the exchange's weighted ``dot`` for
+    L-vectors); Euclidean by default.  Stops when ``||r|| <= max(tol
+    ||b||, atol)`` in the ``dot``-induced norm.  ``issued`` is the
+    iteration count.
+    """
+    if M is None:
+        M = _identity
+    if dot is None:
+        dot = lambda u, v: torch.sum(u * v)  # noqa: E731
+
+    def norm(v):
+        return float(torch.sqrt(dot(v, v)))
+
+    x = torch.zeros_like(b) if x0 is None else x0
+    stop = max(tol * norm(b), atol)
+    r = b - A(x)
+    z = M(r)
+    p = z
+    rz = dot(r, z)
+    k = 0
+    rnorm = norm(r)
+    while rnorm > stop and k < max_iter:
+        Ap = A(p)
+        alpha = rz / dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        k += 1
+        rnorm = norm(r)
+    dev = b.device
+    return CGResult(x, torch.tensor(k, dtype=torch.int32, device=dev),
+                    torch.tensor(rnorm, dtype=b.dtype, device=dev),
+                    torch.tensor(rnorm <= stop, device=dev), k)
 
 
 def _bc(s: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -118,6 +118,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, spectralelementmethod_torch as m\n"
             "import spectralelementmethod_torch.interop\n"
             "import spectralelementmethod_torch.models.poisson\n"
+            "import spectralelementmethod_torch.models.helmholtz\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k.startswith('spectralelementmethod_tpu')]"
             "\nprint(bad)\nassert not bad, bad\n")
