@@ -18,9 +18,15 @@ Phases (any failure exits non-zero and prints no result line):
    deferred), bit for bit on r', p', Ap' and x'; time the deferred-x
    catch-up; the element-local Laplacian of the row-major (E, n) layout
    (one array, K packed components, a stack of K) on the annulus factors
-   of the Helmholtz problem below; then hold every kernel against its
-   plain version at the other compiled orders (p = 2..7) on a small
-   rectangle and a small annulus;
+   of the Helmholtz problem below; the element-sharded operator on S_SH = 4
+   shards of the rectangle (each shard's block kernel against its plain
+   version, the assembled centres against the global apply, the whole
+   sharded apply and one block launch timed) and the far split at
+   ``max_halo=FAR_HALO`` (the far update against its plain version, the
+   split applies of the rectangle and the annulus against the unsplit);
+   then hold every kernel against its plain version at the other compiled
+   orders (p = 2..7) on a small rectangle (the block kernel on 2 shards,
+   the far update at ``max_halo=1``) and a small annulus;
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
    deferred x (``defer_x=8``), with the general apply forced
@@ -35,7 +41,12 @@ Phases (any failure exits non-zero and prints no result line):
    recorded) and agreement on iterations with plain CG of the same mesh,
    print each solve's (each RHS's) true residual, the gap between the
    L-vector solution and its global field, and ms per issued iteration
-   per RHS; time every mode's steady state (two fixed-length runs); then
+   per RHS; (3e, after those solves) on the rectangle with S_SH shards
+   ``sharded_local_poisson_problem(comm="shardmap-fused")`` and
+   ``comm="shardmap"`` solved by ``cg(..., dot=ex.dot_T)``, and plain CG on
+   the far-split apply, each within 2 iterations of plain CG, with its
+   true residual, CG ms per issued iteration and kernel launches; time
+   every mode's steady state (two fixed-length runs); then
    profile each single-RHS mode, ``fused1`` with bf16 directions, the
    batched bf16 deferred mode and the curved bf16 mode (device time and
    launches per iteration, busy share); then the variable-coefficient
@@ -93,6 +104,10 @@ TOL_ALL, TOL_F32 = 2e-3, 1e-4
 PROFILE_ITERS = 512    # the profiler's post-processing grows with them
 K = 4                  # right-hand sides of the batched solves (the bench's)
 DEFER = 8              # defer_x of the deferred modes (the bench's)
+S_SH = 4               # element shards of the sharded operator and solves
+# max_halo of the far split: the rectangle's vertical classes (|delta| =
+# NX - 1 .. NX + 1) and the annulus's radial ones go far
+FAR_HALO = 128
 STEADY = (512, 1536)   # iterations of the two steady-state timing runs
 # the Helmholtz modes' steady state and profile: the (E, n) exchanges are
 # plain PyTorch passes (~2 ms per iteration), so fewer iterations do
@@ -230,9 +245,12 @@ def main() -> int:
                                                       rectangle_mesh)
         from spectralelementmethod_torch.models.helmholtz import Helmholtz
         from spectralelementmethod_torch.models.poisson import Poisson
-        from spectralelementmethod_torch.ops import kernels
+        from spectralelementmethod_torch.ops import kernels, sumfac
         from spectralelementmethod_torch.ops.exchange import roll_dss_T
-        from spectralelementmethod_torch.solver.cg import _catch_up
+        from spectralelementmethod_torch.parallel import (
+            device_mesh, make_sharded_fused_operator,
+            sharded_local_poisson_problem)
+        from spectralelementmethod_torch.solver.cg import _catch_up, cg
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -565,6 +583,144 @@ def main() -> int:
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
 
+    # -- the element-sharded operator: S_SH shards of the rectangle, each
+    # an (n, Eb + 2H) halo-extended block through the block kernel
+    t0 = time.perf_counter()
+    smesh = device_mesh(S_SH)
+    Gf_r = prob._G_host.reshape(E, 3, -1)
+    Dhat_r = sumfac.make_stacked_derivative(prob._D0_host, prob._D1_host)
+    W_r = disc.basis.weight_grid().reshape(-1)
+    a_r, exact_r = sumfac.affine_factorization(Gf_r, W_r)
+    check(exact_r, "the rectangle is affine")
+    Kcat_r = sumfac.make_affine_element_matrices(Dhat_r, W_r,
+                                                 order=ctx["ex"].hier)
+    A_sh = make_sharded_fused_operator(ctx["ex"], Kcat_r, a_r, smesh)
+    Kst_b, a_stack, m_stack = A_sh._block_operands
+    bplan, H_sh = A_sh._block_plan, A_sh._halo
+    Eb, Eext = E // S_SH, bplan.E
+    torch.cuda.synchronize()
+    log(f"  sharded operator: {S_SH} shards of Eb={Eb}, halo H={H_sh}, "
+        f"E_ext={Eext} ({time.perf_counter() - t0:.1f} s) {at()}")
+    u_sh = randn()
+    blocks_sh = u_sh.split(Eb, dim=1)
+    errs_b = []
+    for s in range(S_SH):
+        args_b = (A_sh._extended(blocks_sh, s), Kst_b, a_stack[s],
+                  m_stack[s], bplan)
+        got = kernels.affine_block_apply_dss(*args_b)
+        ref = kernels.affine_block_apply_dss_plain(*args_b)
+        torch.cuda.synchronize()
+        errs_b.append(rel_err(got, ref))
+    err_b = max(e for e, _ in errs_b)
+    rel_b = max(r for _, r in errs_b)
+    log(f"  affine_block_apply_dss, {S_SH} shards: max abs err {err_b:.3e}, "
+        f"rel {rel_b:.3e}")
+    check(rel_b <= 1e-5, "affine_block_apply_dss matches its plain version "
+          "on every shard (1e-5 of max)")
+    v_sh, v_gl = A_sh(u_sh), kernels.affine_apply_dss(u_sh, Kst, aT, plan)
+    torch.cuda.synchronize()
+    d_sh, rel_sh = rel_err(v_sh, v_gl)
+    log(f"  the sharded apply's centres against the global affine_apply_dss: "
+        f"max abs diff {d_sh:.3e} (rel {rel_sh:.3e}; "
+        f"{'bit for bit' if d_sh == 0 else 'not bit for bit'})")
+    check(rel_sh <= 1e-6, "the assembled centres equal the global apply "
+          "(1e-6 of max)")
+    sets_b = [(A_sh._extended(randn().split(Eb, dim=1), 0), Kst_b,
+               a_stack[0], m_stack[0], bplan) for _ in range(3)]
+    ms_b = gpu_ms(kernels.affine_block_apply_dss, sets_b)
+    plain_b = gpu_ms(kernels.affine_block_apply_dss_plain, sets_b)
+    lib_b = gpu_ms(torch.matmul, [(K2, s_[0]) for s_ in sets_b])
+    nEx = n * Eext
+    bb_ms, bb_by = bound(8 * nEx + 12 * Eext + m_stack.shape[1] * Eext
+                         + Kst.numel() * 4,
+                         6 * n * n * Eext + 5 * nEx + bplan.n_entries * Eext)
+    rows.append(dict(name="affine_block_apply_dss", max_abs_err=err_b,
+                     ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
+                     library_ms=lib_b))
+    sets_sh = [(randn(),) for _ in range(3)]
+    sharded_ms = gpu_ms(A_sh, sets_sh)
+
+    def sharded_plain(u):
+        bl = u.split(Eb, dim=1)
+        return torch.cat([kernels.affine_block_apply_dss_plain(
+            A_sh._extended(bl, s), Kst_b, a_stack[s], m_stack[s],
+            bplan)[:, H_sh:H_sh + Eb] for s in range(S_SH)], dim=1)
+
+    sharded_plain_ms = gpu_ms(sharded_plain, sets_sh)
+    glob = next(r_ for r_ in rows if r_["name"] == "affine_apply_dss")
+    log(f"  one whole sharded apply (strips + {S_SH} block launches + "
+        f"centres): {sharded_ms:.4f} ms (plain {sharded_plain_ms:.4f}); the "
+        f"global apply {glob['ms']:.4f} ms, bound {glob['bound_ms']:.4f}, "
+        f"torch.matmul of the local product {glob['library_ms']:.4f}; one "
+        f"block launch {ms_b:.4f} ms (bound {bb_ms:.4f})")
+
+    # -- the far split: max_halo=FAR_HALO sends the vertical classes
+    # (|delta| ~ NX) far; the far update against its plain version, the
+    # split apply against the unsplit one, on the rectangle and on the
+    # annulus (general apply)
+    A_split = sumfac.make_local_laplacian_operator(
+        ctx["ex"], Gf_r, Dhat_r, None, device=dev, max_halo=FAR_HALO)
+    near_r, far_r = A_split._split
+    rows_dst = sorted({b_[0] + t for b_ in far_r.edge_blocks
+                       for t in range(b_[2])}
+                      | {v_[0] for v_ in far_r.vert_rows})
+    rows_src = sorted({b_[1] + t for b_ in far_r.edge_blocks
+                       for t in range(b_[2])}
+                      | {v_[1] for v_ in far_r.vert_rows})
+    n_masks = len({b_[5] for b_ in far_r.edge_blocks}
+                  | {v_[3] for v_ in far_r.vert_rows})
+    log(f"  far split at max_halo={FAR_HALO}: {far_r.n_entries} far entries "
+        f"into {len(rows_dst)} rows from {len(rows_src)} rows, "
+        f"{near_r.n_entries} near entries")
+    far_sets = []
+    for _ in range(3):
+        out0, aux0 = kernels.affine_apply_dss(randn(), Kst, aT, near_r,
+                                              aux=True)
+        far_sets.append((out0, aux0.clone(), far_r))
+    got = kernels.far_update(far_sets[0][0].clone(), *far_sets[0][1:])
+    ref = kernels.far_update_plain(far_sets[0][0].clone(), *far_sets[0][1:])
+    torch.cuda.synchronize()
+    err_f, rel_f = rel_err(got, ref)
+    log(f"  far_update: max abs err {err_f:.3e}, rel {rel_f:.3e}")
+    check(err_f == 0, "far_update matches its plain version bit for bit")
+    for label, op, whole in (
+            ("rectangle, affine", A_split, A.masked(None)),
+            ("annulus, general", sumfac.make_local_laplacian_operator(
+                actx["ex"], aprob._G_host.reshape(adisc.E, 3, -1),
+                sumfac.make_stacked_derivative(aprob._D0_host,
+                                               aprob._D1_host),
+                None, device=dev, max_halo=FAR_HALO), gA.masked(None))):
+        check(op.far_plan is not None, f"{label}: max_halo={FAR_HALO} "
+              "splits the classes")
+        u_f = randn() if label.startswith("rect") else torch.randn(
+            (n, adisc.E), generator=g, device=dev)
+        d_f, rel_fs = rel_err(op(u_f), whole(u_f))
+        log(f"  split apply ({label}) against the unsplit: max abs diff "
+            f"{d_f:.3e}, rel {rel_fs:.3e}")
+        check(rel_fs <= 1e-6, f"split apply ({label}) equals the unsplit "
+              "(1e-6 of max)")
+    # the far update on the general apply's raw rows (the annulus's op)
+    near_a, far_a = op._split
+    o_a, x_a = kernels.general_apply_dss(u_f, op.gT, op.Dh, op.hier, near_a,
+                                         aux=True)
+    d_a = (kernels.far_update(o_a.clone(), x_a, far_a)
+           - kernels.far_update_plain(o_a.clone(), x_a, far_a)).abs().max()
+    check(d_a.item() == 0, f"far_update on the annulus's general apply "
+          f"({far_a.n_entries} far entries) matches its plain version bit "
+          "for bit")
+    ms_f = gpu_ms(kernels.far_update, far_sets)
+    plain_f = gpu_ms(kernels.far_update_plain, far_sets)
+    # each destination row read and written, each source row and each far
+    # class mask read once; one add per entry
+    bf_ms, bf_by = bound(E * (8 * len(rows_dst) + 4 * len(rows_src)
+                              + n_masks), far_r.n_entries * E)
+    rows.append(dict(name="far_update", max_abs_err=err_f, ms=ms_f,
+                     plain_ms=plain_f, bound_ms=bf_ms, bound_by=bf_by,
+                     library_ms=None))
+    split_ms = gpu_ms(A_split, [(randn(),) for _ in range(3)])
+    log(f"  the split apply (near gather + far_update): {split_ms:.4f} ms, "
+        f"the unsplit {glob['ms']:.4f} ms")
+
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
@@ -662,8 +818,36 @@ def main() -> int:
                 # per-RHS totals
                 rels += [rel_err(a, b)[1] if a.shape == b.shape
                          else rhs_rel(a, b, k) for a, b in zip(got, ref)]
+        # the block kernel on the 2 shards of the small rectangle (and the
+        # assembled centres against the global apply), and the far update
+        # with max_halo=1 (every vertical class far)
+        sex = sprob._local_setup(dev)["ex"]
+        sGf = sprob._G_host.reshape(sdisc.E, 3, -1)
+        sD = sumfac.make_stacked_derivative(sprob._D0_host, sprob._D1_host)
+        sW = sdisc.basis.weight_grid().reshape(-1)
+        s_a, _ = sumfac.affine_factorization(sGf, sW)
+        sAsh = make_sharded_fused_operator(
+            sex, sumfac.make_affine_element_matrices(sD, sW, order=sex.hier),
+            s_a, device_mesh(2))
+        sKb, sab, smb = sAsh._block_operands
+        su = torch.randn(nl, generator=g, device=dev)
+        sbl = su.split(sdisc.E // 2, dim=1)
+        for s in range(2):
+            args = (sAsh._extended(sbl, s), sKb, sab[s], smb[s],
+                    sAsh._block_plan)
+            rels.append(rel_err(kernels.affine_block_apply_dss(*args),
+                                kernels.affine_block_apply_dss_plain(
+                                    *args))[1])
+        rels.append(rel_err(sAsh(su),
+                            kernels.affine_apply_dss(su, sK, saT, splan))[1])
+        snear, sfar = splan.split(1)
+        o_, x_ = kernels.affine_apply_dss(su, sK, saT, snear, aux=True)
+        rels.append(rel_err(kernels.far_update(o_.clone(), x_, sfar),
+                            kernels.far_update_plain(o_.clone(), x_,
+                                                     sfar))[1])
         check(max(rels) <= 1e-5, f"p={p} (n={sdisc.n_loc}, E={sdisc.E}): "
-              f"every kernel, one RHS and three, matches its plain version "
+              f"every kernel, one RHS and three, the block kernel on 2 "
+              f"shards and the far update, matches its plain version "
               f"({max(rels):.1e} <= 1e-5)")
         check(single_err == 0 and single_ap == 0,
               f"p={p}: the single kernel's r', p', x' bit for bit against "
@@ -854,6 +1038,76 @@ def main() -> int:
         check(p_its / ITER_RATIO <= its <= ITER_RATIO * p_its,
               f"{name}@{tol:g} iterations ({its}) within a factor "
               f"{ITER_RATIO} of {ref} ({p_its})")
+    # -- 3e. the element-sharded solves and the far-split solve ---------------
+    log(f"[3e] S={S_SH} element-sharded solves and a far-split plain CG on "
+        f"the rectangle, tol {TOL_ALL:g} {at()}")
+    true_residual, _, bLs, r0s = checks_of["rect"]
+    p_its = its_of("plain", TOL_ALL)
+    w_r = ctx["ex"].weights_T(torch.float32, dev)
+    u_dL_r = ctx["to_local"](np.where(prob._dirichlet_mask,
+                                      prob._dirichlet_vals, 0.0))
+    r_r = torch.where(ctx["free_local"],
+                      bLs[0] - ctx["A_raw"](u_dL_r), 0.0)
+    A_fs = A_split.masked(ctx["free_local"], assume_masked_input=True)
+
+    def timed_cg(*args, **kw):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        res_ = cg(*args, **kw)
+        torch.cuda.synchronize()
+        return res_, time.perf_counter() - t0_
+
+    def sharded_run(comm):
+        def run():
+            A_, r_, M_, u_dL_, ex_, _ = sharded_local_poisson_problem(
+                prob, device_mesh(S_SH), comm=comm)
+            res_, t_ = timed_cg(A_, r_, M=M_, tol=TOL_ALL, max_iter=MAX_ITER,
+                                dot=ex_.dot_T)
+            return res_, t_, ex_, u_dL_
+        return run
+
+    def far_split_run():
+        res_, t_ = timed_cg(A_fs, r_r, M=ctx["M"], tol=TOL_ALL,
+                            max_iter=MAX_ITER, dot_weight=w_r)
+        return res_, t_, ctx["ex"], u_dL_r
+
+    sharded_modes = {"sharded-fused": (sharded_run("shardmap-fused"),
+                                       "affine_block_apply_dss", S_SH),
+                     "sharded-shardmap": (sharded_run("shardmap"), None, 0),
+                     "far-split": (far_split_run, "far_update", 1)}
+    for name, (run, want, per_apply) in sharded_modes.items():
+        launches[name] = dict.fromkeys(kernels.WRAPPERS, 0)
+        (res, t_cg, ex_, u_dL_), dt = drive(name, run)
+        u_ = ex_.global_from_local_T((u_dL_ + res.x).cpu().numpy())
+        its, issued = int(res.iterations), res.issued
+        true_rel = true_residual(u_, bLs[0]) / r0s[0]
+        rec_rel = float(res.residual_norm) / r0s[0]
+        c_ = {k_: v for k_, v in launches[name].items() if v}
+        key = f"{name}@{TOL_ALL:g}"
+        solves[key] = dict(iterations=[its], issued=issued, seconds=dt,
+                           cg_seconds=t_cg,
+                           ms_per_issued=1e3 * t_cg / issued,
+                           recurrence_rel=[rec_rel], true_rel=[true_rel],
+                           converged=[bool(res.converged)], launches=c_)
+        log(f"  {key}: its {its} / {issued} issued, {dt:.3f} s with setup, "
+            f"CG {t_cg:.3f} s = {1e3 * t_cg / issued:.4f} ms per issued "
+            f"iteration, residual {rec_rel:.3e} relative (true "
+            f"{true_rel:.3e}), launches {c_}")
+        check(bool(res.converged) and bool(np.isfinite(u_).all())
+              and u_.size == disc.n_nodes,
+              f"{key}: converged, finite solution of the mesh's shape")
+        check(abs(its - p_its) <= 2, f"{key}: iterations ({its}) within 2 "
+              f"of plain solve_local ({p_its})")
+        if want:
+            got_l = launches[name][want]
+            check(got_l >= per_apply * issued and got_l % per_apply == 0,
+                  f"{key}: {got_l} launches of {want} ({per_apply} per "
+                  f"apply, {got_l / per_apply:.0f} applies for {issued} "
+                  "issued iterations)")
+        else:
+            check(launches[name]["affine_block_apply_dss"] == 0,
+                  f"{key}: the plain-PyTorch halo path launches no block "
+                  "kernel")
     log("  launches on the main path: " + str(
         {m: {k_: c for k_, c in d.items() if c} for m, d in launches.items()}))
 
@@ -911,7 +1165,7 @@ def main() -> int:
                  "curved-fused-bf16p"):
         profile_solve(name, functools.partial(solve, name), PROFILE_ITERS)
 
-    # -- 3d. Helmholtz (BASELINE config 3) on the annulus ------------------------
+    # -- 3d. Helmholtz (BASELINE config 3) on the annulus ---------------------
     log(f"[3d] Helmholtz -div(c grad u) + k u = 1 on the annulus, f32, "
         f"max_iter={MAX_ITER} {at()}")
     helm_modes = {
@@ -1035,7 +1289,7 @@ def main() -> int:
     profile_solve("helm-en-pallas", functools.partial(hsolve, "helm-en-pallas"),
                   HELM_PROFILE_ITERS)
 
-    # -- 4. manufactured solutions ---------------------------------------------
+    # -- 4. manufactured solutions --------------------------------------------
     # 32x32 p=8: the f32 recurrence reaches tol=1e-7 there, and the error
     # bar is the reference's f32 bar (tests/test_cg_fused.py: 1e-4)
     mdisc = Discretization(rectangle_mesh(32, 32, ORDER), gll_basis_2d(ORDER))
@@ -1087,7 +1341,7 @@ def main() -> int:
     check(bool(sol.cg.converged) and err_max < 1e-4,
           "manufactured Helmholtz solution: max nodal error below 1e-4")
 
-    # -- 5. report --------------------------------------------------------------
+    # -- 5. report ------------------------------------------------------------
     # launches per row: over the phase-3 solves that run the row's variant
     # (the applies: all solves; plain CG calls them every iteration, the
     # fused modes for their true-residual restarts and checks)

@@ -23,6 +23,18 @@
 // TPU mechanism is carried over: no lane windows or halo triples, no far
 // split, no procedural masks, no bf16x3 split (the FMAs are true f32).
 // The RHS of a stack is blockIdx.y in both launches.
+//
+// sem_affine_block_apply_dss, the second entry point, replaces
+// make_fused_affine_block_kernel (pallas_kernels.py:1110, pallas_call at
+// :1150), the per-shard apply of the element-sharded operator
+// (parallel/halo.py make_sharded_fused_operator): the same two launches
+// with k = 1 on one shard's halo-extended (n, E_ext) block, with that
+// shard's slices of the affine scales (3, E_ext) and class masks
+// (C, E_ext).  A source outside the block counts as zero: the halo
+// columns' sums are partial, and the caller keeps only the centre, whose
+// sources all lie inside when the halo is the largest |delta|.  One of four
+// shards of the 316 x 316 rectangle (E_ext = 25,598) does 1.0 GFLOP, 15 us
+// at 67 TFLOP/s, against 5 us for its 17 MB: bound by operations too.
 #include "sem_kernels.cuh"
 
 namespace sem {
@@ -103,4 +115,38 @@ extern "C" int sem_affine_apply_dss(const void* u, const void* K,
       Bf, of, static_cast<const int*>(row_ptr),
       static_cast<const int4*>(entries), static_cast<const bool*>(masks), n,
       E, nb, k, s));
+}
+
+// The apply on one shard's extended block (make_fused_affine_block_kernel).
+// u, out: (n, E) f32 (E = the extended block); K: (3, n, n) f32; aT: (3, E)
+// f32; M: (C, E) bool; B: (nb, E) f32 scratch; row_ptr: (nb + 1,) int32;
+// entries: (T, 4) int32.  Returns a cudaError_t code (0 on success).
+extern "C" int sem_affine_block_apply_dss(const void* u, const void* K,
+                                          const void* aT, const void* M,
+                                          void* out, void* B,
+                                          const void* row_ptr,
+                                          const void* entries, int n, int E,
+                                          int nb, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* uf = static_cast<const float*>(u);
+  const float* Kf = static_cast<const float*>(K);
+  const float* af = static_cast<const float*>(aT);
+  float* of = static_cast<float*>(out);
+  float* Bf = static_cast<float*>(B);
+  cudaError_t err;
+  switch (n) {
+#define SEM_CASE(NN)                                                       \
+  case NN:                                                                 \
+    err = sem::launch_affine_local<NN>(uf, Kf, af, of, Bf, E, nb, 1, s);   \
+    break;
+    SEM_FOR_EACH_N(SEM_CASE)
+#undef SEM_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sem::launch_dss_gather(
+      Bf, of, static_cast<const int*>(row_ptr),
+      static_cast<const int4*>(entries), static_cast<const bool*>(M), n, E,
+      nb, 1, s));
 }

@@ -9,8 +9,11 @@ port's operator, exchange plan and CG operands from them;
 its full geometric-factor slabs, the stacked derivative and the local node
 order; :func:`helmholtz_operator_from_numpy` builds the L-vector Helmholtz
 operator (either layout, either exchange form) from the factors, the
-mass-weighted reaction and the exchange tables.  Fed the JAX package's
-arrays, both packages then compute the same
+mass-weighted reaction and the exchange tables;
+:func:`sharded_fused_operator_from_numpy` builds the element-sharded fused
+operator (and with it each shard's block inputs) from the stiffness
+blocks, the affine scales, the stacked class masks and the class tables.
+Fed the JAX package's arrays, both packages then compute the same
 function on the same data, independently of the port's own (copied) host
 setup; that is how the tests hold each kernel's plain version against its
 TPU counterpart.  :meth:`InteropOperator.fused_kernels` builds the
@@ -36,6 +39,7 @@ from .models.poisson import fused_cg_operands
 from .ops.exchange import DSSPlan, gather_dss, roll_dss_T
 from .ops.sumfac import (AffineLaplacianT, GeneralLaplacianT, LaplacianEN,
                          LaplacianT)
+from .parallel.halo import make_sharded_fused_operator
 from .solver.cg import jacobi_preconditioner
 
 
@@ -233,3 +237,64 @@ def helmholtz_operator_from_numpy(Gf, Dhat, hier, kM, gather_hier, weights,
     M = jacobi_preconditioner(to_local(np.asarray(diag)), free_L)
     return HelmholtzInterop(A, M, layout(np.asarray(weights)).to(dt), free_L,
                             dss, to_local)
+
+
+class _RollTables:
+    """Exchange-shaped holder of roll-class tables (edges-first layout,
+    no tails), as :mod:`.parallel.halo` reads an exchange."""
+
+    n_edge_tail = n_vert_tail = 0
+    off_edge = 0
+
+    def __init__(self, n: int, E: int, edge_classes, vert_classes,
+                 edge_len=None):
+        m = int(round(np.sqrt(n)))
+        self.n_loc, self.E = int(n), int(E)
+        self.edge_len = tuple(int(v) for v in (
+            (m - 2,) * 4 if edge_len is None else edge_len))
+        self.edge_off = tuple(int(o) for o in np.concatenate(
+            [[0], np.cumsum(self.edge_len[:-1])]))
+        self.ne = self.edge_len[0] if len(set(self.edge_len)) == 1 else None
+        self.n_edge_block = sum(self.edge_len)
+        self.off_vert = self.n_edge_block
+        self.off_int = self.off_vert + 4
+        self.edge_classes, self.vert_classes = edge_classes, vert_classes
+        self._plans = {}
+
+    def plan(self, device) -> DSSPlan:
+        key = str(device)
+        if key not in self._plans:
+            self._plans[key] = DSSPlan.from_classes(
+                self.n_loc, self.E, self.edge_classes, self.vert_classes,
+                device, edge_len=self.edge_len)
+        return self._plans[key]
+
+
+def sharded_fused_operator_from_numpy(Kcat, a, class_masks, edge_classes,
+                                      vert_classes, mesh, *, edge_len=None,
+                                      free_local=None):
+    """The port's element-sharded fused operator
+    (:func:`.parallel.halo.make_sharded_fused_operator`) from numpy arrays.
+
+    ``Kcat`` (n, 3n): [K0 | K1 | K2] in the L-vector node order; ``a``
+    (E, 3): affine scales of the (padded) elements; ``class_masks`` (C, E)
+    bool: the class masks stacked edge classes first, then vertex classes
+    (the reference's ``stack_class_masks``); ``edge_classes`` /
+    ``vert_classes``: ``(dst_slot, src_slot, delta, flip)`` /
+    ``(dst_slot, src_slot, delta)`` in the same order; ``mesh``: a
+    :func:`.parallel.sharding.device_mesh`.  The operator's
+    ``_block_operands`` are ``(Kst, aT stack (S, 3, E_ext), mask stack
+    (S, C, E_ext))``, ``_extended(blocks, s)`` builds shard ``s``'s
+    extended input and ``_block_plan`` is the block's class tables: each
+    shard's block kernel can be called on its own.
+    """
+    masks = np.asarray(class_masks, dtype=bool)
+    ne = len(edge_classes)
+    ecl = [(int(d), int(s_), int(dl), bool(f), masks[i])
+           for i, (d, s_, dl, f) in enumerate(edge_classes)]
+    vcl = [(int(d), int(s_), int(dl), masks[ne + j])
+           for j, (d, s_, dl) in enumerate(vert_classes)]
+    tables = _RollTables(np.asarray(Kcat).shape[0], masks.shape[1], ecl, vcl,
+                         edge_len)
+    return make_sharded_fused_operator(tables, Kcat, a, mesh,
+                                       free_local=free_local)

@@ -17,7 +17,9 @@ preconditioner, ``cg_kernel`` in {``auto``, ``plain``, ``fused``,
 ``fused1``},
 ``p_dtype`` in {None, ``torch.bfloat16``}, ``defer_x`` (affine meshes), the
 transposed (n, E) layout.  Not yet: 3D, fdm/pmg preconditioners,
-``certify``, the ``en`` layout (ROADMAP queues).
+``certify``, ``host_loop``, ``compute_dtype``, the ``en`` layout (ROADMAP
+queues); the signatures are the reference's all the same, and those
+options raise.
 """
 
 from __future__ import annotations
@@ -68,6 +70,36 @@ def fused_cg_operands(diagT, freeT, wT, p_dtype, device):
         inv = inv.to(p_dtype)
         w_free = w_free.to(p_dtype)
     return inv, w_free
+
+
+def _check_unported(host_loop=False, precond="jacobi", compute_dtype=None,
+                    vector_layout="auto", certify=False) -> None:
+    """Raise for the reference's ``solve_local`` options the port has not
+    taken up yet, each naming its ROADMAP item."""
+    if host_loop:
+        raise NotImplementedError(
+            "host_loop=True is not ported for Poisson yet (ROADMAP Queue 1 "
+            "item 15)")
+    if isinstance(precond, dict) or precond in ("pmg", "fdm"):
+        item = 8 if precond == "fdm" else 3
+        raise NotImplementedError(
+            f"precond={precond!r} is not ported yet (ROADMAP Queue 1 item "
+            f"{item})")
+    if precond != "jacobi":
+        raise ValueError(f"unknown precond {precond!r}")
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r}: the precision tiers are not "
+            "ported yet (ROADMAP Queue 1 item 15)")
+    if vector_layout == "en":
+        raise NotImplementedError(
+            "vector_layout='en': the Poisson model takes the transposed "
+            "(n, E) 'ne' layout only (ROADMAP Queue 1 item 15)")
+    if vector_layout not in ("auto", "ne"):
+        raise ValueError(f"unknown vector_layout {vector_layout!r}")
+    if certify:
+        raise NotImplementedError(
+            "certify=True is not ported yet (ROADMAP Queue 1 item 2)")
 
 
 def _check_p_dtype(p_dtype) -> None:
@@ -276,13 +308,23 @@ class Poisson(BoundaryConditionMixin):
         return ctx
 
     def solve_local(self, tol: float = 1e-12, max_iter: int | None = None,
+                    host_loop: bool = False,
+                    precond: str = "jacobi",
                     structure: str = "auto",
+                    compute_dtype=None,
+                    vector_layout: str = "auto",
                     cg_kernel: str = "auto",
                     p_dtype=None,
                     defer_x: int | str = 0,
+                    certify: bool = False,
                     device=None) -> PoissonSolution:
         """Solve with Jacobi PCG on element-local (n, E) L-vectors.
 
+        The parameters are the reference's, in its order, with ``device``
+        last.  Not ported yet, and raising ``NotImplementedError`` with
+        their ROADMAP item: ``host_loop=True``, ``precond`` ``"pmg"`` or
+        ``"fdm"``, ``compute_dtype``, ``vector_layout="en"`` and
+        ``certify=True``; ``vector_layout`` ``"auto"`` is ``"ne"``.
         ``device``: where the solve runs — ``None`` is the CUDA card (and
         raises when there is none), ``"cpu"`` runs the plain PyTorch
         versions of the kernels.
@@ -327,6 +369,8 @@ class Poisson(BoundaryConditionMixin):
             raise NotImplementedError(
                 "3D solve_local is not ported yet (ROADMAP Queue 1, the 3D "
                 "path)")
+        _check_unported(host_loop, precond, compute_dtype, vector_layout,
+                        certify)
         if cg_kernel not in ("auto", "plain", "fused", "fused1"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
@@ -391,6 +435,7 @@ class Poisson(BoundaryConditionMixin):
                           max_iter: int | None = None,
                           precond: str = "jacobi",
                           structure: str = "auto",
+                          compute_dtype=None,
                           vector_layout: str = "auto",
                           cg_kernel: str = "auto",
                           p_dtype=None,
@@ -406,8 +451,11 @@ class Poisson(BoundaryConditionMixin):
 
         ``forcings``: a sequence of k forcing fields (callables ``f(x, y)``
         or scalars), or a (k, n_nodes) array of nodal forcing values (the
-        weak RHS is formed here in either case).  ``device`` and
-        ``structure`` as in :meth:`solve_local`.
+        weak RHS is formed here in either case).  The parameters are the
+        reference's, in its order, with ``device`` last; ``device``,
+        ``structure`` and the unported options (``precond``,
+        ``compute_dtype``, ``vector_layout="en"``) as in
+        :meth:`solve_local`.
         ``cg_kernel``: ``"plain"`` — :func:`..solver.cg.cg_batched` over the
         k-stack apply (:func:`..ops.kernels.affine_apply_dss_batched` or
         :func:`..ops.kernels.general_apply_dss_batched`); ``"fused"`` —
@@ -430,16 +478,8 @@ class Poisson(BoundaryConditionMixin):
             raise NotImplementedError(
                 "3D solve_local_batch is not ported yet (ROADMAP Queue 1, "
                 "the 3D path)")
-        if precond != "jacobi":
-            raise NotImplementedError(
-                f"precond={precond!r} is not ported yet (ROADMAP Queue 1: "
-                "pmg item 3, fdm item 8)")
-        if vector_layout not in ("auto", "ne"):
-            raise NotImplementedError(
-                f"vector_layout={vector_layout!r}: the Poisson model takes "
-                "the transposed (n, E) 'ne' layout only; the row-major one "
-                "is ported for the Helmholtz model (ROADMAP Queue 1 item "
-                "10)")
+        _check_unported(precond=precond, compute_dtype=compute_dtype,
+                        vector_layout=vector_layout)
         if cg_kernel not in ("auto", "plain", "fused"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)

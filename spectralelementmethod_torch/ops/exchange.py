@@ -45,12 +45,19 @@ class LocalExchange:
     here for anisotropic meshes whose roll classes would carry edge tails.
     """
 
-    def __init__(self, disc):
+    def __init__(self, disc, pad_to: int | None = None):
         geometry = disc.geometry
         m0, m1 = disc.shape
         self.disc = disc
         E = disc.E
-        self.E, self.m = E, m0
+        #: padded element count (>= disc.E): pad elements are inert — their
+        #: gather rows alias node 0, their dot weights are 0 and no class
+        #: mask is set on them — so the element axis divides a shard count
+        Ep = E if pad_to is None else int(pad_to)
+        if Ep < E:
+            raise ValueError(f"pad_to={Ep} < E={E}")
+        self.E, self.m = Ep, m0
+        self.E_real = E
         self.n_loc = disc.n_loc
         self.is_square = m0 == m1
         #: edge-interior nodes per face slot, hierarchical edge order
@@ -77,14 +84,15 @@ class LocalExchange:
         self.off_int = neb + 4
         #: the local node order (lex index -> L-vector column)
         self.hier = order
-        #: (E, n_loc) global node ids in the local order
-        self.gather_hier = np.ascontiguousarray(disc.gather_nodes[:, order],
-                                                dtype=np.int64)
+        #: (Ep, n_loc) global node ids in the local order (pad rows alias
+        #: node 0; their values never enter any reduction)
+        self.gather_hier = np.zeros((Ep, self.n_loc), dtype=np.int64)
+        self.gather_hier[:E] = disc.gather_nodes[:, order]
 
         # ---- edge pairing -------------------------------------------------
-        nb_lin = np.arange(E * 4, dtype=np.int32)  # default: self
-        has_nb = np.zeros((E, 4), dtype=bool)
-        flip = np.zeros((E, 4), dtype=bool)
+        nb_lin = np.arange(Ep * 4, dtype=np.int32)  # default: self
+        has_nb = np.zeros((Ep, 4), dtype=bool)
+        flip = np.zeros((Ep, 4), dtype=bool)
 
         def slot_nodes(e_idx, f_idx):
             """Global node ids of the edge-interior nodes of slots (e, f)
@@ -138,15 +146,15 @@ class LocalExchange:
         # neighbor); orientation flips are folded into the index.  One
         # flat gather then serves any (an)isotropic slot layout.
         cols = np.arange(self.n_loc, dtype=np.int64)
-        recv_col = np.tile(cols, (E, 1))
-        erow = np.arange(E, dtype=np.int64)[:, None]
+        recv_col = np.tile(cols, (Ep, 1))
+        erow = np.arange(Ep, dtype=np.int64)[:, None]
         recv_row = np.tile(erow, (1, self.n_loc))
         for f in range(4):
             l_f = self.edge_len[f]
             if l_f == 0:
                 continue
             o = self.off_edge + self.edge_off[f]
-            nb = nb_lin[np.arange(E) * 4 + f]
+            nb = nb_lin[np.arange(Ep) * 4 + f]
             j_e, j_f = nb // 4, nb % 4
             # partner slot offset per element (same length by conformity)
             o_j = (self.off_edge
@@ -158,21 +166,26 @@ class LocalExchange:
         oe, neb = self.off_edge, self.n_edge_block
         self._edge_recv_flat = np.asarray(
             (recv_row * self.n_loc + recv_col)[:, oe:oe + neb].reshape(-1))
-        edge_mask = np.zeros((E, neb), dtype=bool)
+        edge_mask = np.zeros((Ep, neb), dtype=bool)
         for f in range(4):
             o = self.edge_off[f]
             edge_mask[:, o:o + self.edge_len[f]] = has_nb[:, f][:, None]
         self._edge_recv_mask = np.asarray(edge_mask)
 
         # ---- vertex numbering --------------------------------------------
-        vert_g = self.gather_hier[:, self.off_vert:self.off_vert + 4]
-        uniq, inv = np.unique(vert_g.ravel(), return_inverse=True)
-        self.n_vertices = uniq.size
+        # pad-row vertex copies get fresh singleton ids, so they never join
+        # a real vertex's reduction or multiplicity
+        vert_g = self.gather_hier[:E, self.off_vert:self.off_vert + 4]
+        uniq, inv_real = np.unique(vert_g.ravel(), return_inverse=True)
+        self.n_vertices = uniq.size + 4 * (Ep - E)
+        inv = np.concatenate([
+            inv_real.reshape(-1),
+            uniq.size + np.arange(4 * (Ep - E), dtype=np.int64)])
         self._vert_gid_np = inv.astype(np.int64)
-        self.vert_gid = inv.astype(np.int64)             # (E*4,)
+        self.vert_gid = inv.astype(np.int64)             # (Ep*4,)
 
         # ---- multiplicity weights (host-side) ----------------------------
-        mult = np.ones((E, self.n_loc))
+        mult = np.ones((Ep, self.n_loc))
         if self.n_edge_block > 0:
             # edge-interior nodes of faces with a neighbor appear twice
             mult[:, self.off_edge:self.off_edge + self.n_edge_block] += (
@@ -180,12 +193,14 @@ class LocalExchange:
             )
         vert_counts = np.bincount(inv, minlength=self.n_vertices)
         mult[:, self.off_vert:self.off_vert + 4] = (
-            vert_counts[inv].reshape(E, 4)
+            vert_counts[inv].reshape(Ep, 4)
         )
         self.multiplicity = mult
+        weights = 1.0 / mult
+        weights[E:] = 0.0     # pad rows never contribute to inner products
         # kept host-side; device copies materialize lazily per dtype and
         # device in weights_T
-        self._weights_np = 1.0 / mult
+        self._weights_np = weights
 
     # -- conversions (host) ------------------------------------------------
 
@@ -194,11 +209,12 @@ class LocalExchange:
         return np.asarray(u_global)[self.gather_hier]
 
     def global_from_local(self, uL) -> np.ndarray:
-        """Consistent (E, n_loc[, k]) L-vector -> global (n_nodes[, k])."""
-        uL = np.asarray(uL)
+        """Consistent (E, n_loc[, k]) L-vector -> global (n_nodes[, k])
+        (pad rows are dropped)."""
+        uL = np.asarray(uL)[:self.E_real]
         out_shape = (self.disc.n_nodes,) + uL.shape[2:]
         out = np.zeros(out_shape, dtype=uL.dtype)
-        out[self.gather_hier.ravel()] = uL.reshape(
+        out[self.gather_hier[:self.E_real].ravel()] = uL.reshape(
             (-1,) + uL.shape[2:]
         )
         return out
@@ -301,8 +317,11 @@ class RollExchange(LocalExchange):
     #: least this fraction of faces/vertex-copies (else it joins the tail)
     MIN_CLASS_FRACTION = 0.02
 
-    def __init__(self, disc, min_class_fraction: float | None = None):
-        """``min_class_fraction`` overrides :data:`MIN_CLASS_FRACTION`.
+    def __init__(self, disc, pad_to: int | None = None,
+                 min_class_fraction: float | None = None):
+        """``pad_to`` pads the element axis with inert elements, as in
+        :class:`LocalExchange`; ``min_class_fraction`` overrides
+        :data:`MIN_CLASS_FRACTION`.
 
         The default keeps only large classes (each class costs an O(E)
         roll pass in the plain dss, so tiny ones are cheaper as tail
@@ -311,7 +330,7 @@ class RollExchange(LocalExchange):
         per boundary direction) that must stay classes — the CUDA kernels
         require zero tails.
         """
-        super().__init__(disc)
+        super().__init__(disc, pad_to=pad_to)
         E, ne = self.E, self.ne
         if min_class_fraction is None:
             min_count = max(8, int(self.MIN_CLASS_FRACTION * E))
@@ -488,10 +507,15 @@ class DSSPlan:
     rows of the edges-first layout are rows ``[0, nb)`` and every row from
     ``nb`` on is element-interior.  A mask is False wherever ``e + delta``
     falls outside ``[0, E)``.
+
+    ``masks=None`` makes a plan whose (C, E) class masks are a runtime
+    operand (:meth:`block_view`: one shard's halo-extended block, whose
+    masks are its slice of the global ones).  ``nb`` may be given to keep
+    the row count of a larger plan (:meth:`split`).
     """
 
     def __init__(self, n: int, E: int, edge_blocks, vert_rows, masks,
-                 device, has_tail: bool = False):
+                 device, has_tail: bool = False, nb: int | None = None):
         self.n, self.E = int(n), int(E)
         self.device = canonical_device(device)
         #: (dst_row0, src_row0, length, delta, flip, mask_index)
@@ -500,10 +524,13 @@ class DSSPlan:
         self.vert_rows = [tuple(v) for v in vert_rows]
         #: pairs outside every class exist (the CUDA kernels refuse them)
         self.has_tail = bool(has_tail)
-        masks = np.asarray(masks, dtype=bool).reshape(-1, self.E)
-        if masks.shape[0] == 0:
-            masks = np.zeros((1, self.E), dtype=bool)
-        self.masks = torch.as_tensor(masks, device=self.device)
+        if masks is None:
+            self.masks = None
+        else:
+            masks = np.asarray(masks, dtype=bool).reshape(-1, self.E)
+            if masks.shape[0] == 0:
+                masks = np.zeros((1, self.E), dtype=bool)
+            self.masks = torch.as_tensor(masks, device=self.device)
 
         entries = []
         for d0, s0, L, delta, flip, k in self.edge_blocks:
@@ -513,6 +540,11 @@ class DSSPlan:
         entries += [(d, s, delta, k) for d, s, delta, k in self.vert_rows]
         rows = [r for ent in entries for r in ent[:2]]
         self.nb = max(rows) + 1 if rows else 0
+        if nb is not None:
+            if int(nb) < self.nb:
+                raise ValueError(f"nb={nb} < the {self.nb} rows the entries "
+                                 "touch")
+            self.nb = int(nb)
         entries.sort(key=lambda ent: ent[0])           # stable: class order
         self.n_entries = len(entries)
         tab = np.zeros((max(len(entries), 1), 4), dtype=np.int32)
@@ -571,24 +603,86 @@ class DSSPlan:
             off_edge=ex.off_edge, off_vert=ex.off_vert,
             has_tail=bool(ex.n_edge_tail or ex.n_vert_tail))
 
+    def _with(self, E, edge_blocks, vert_rows, masks, nb=None):
+        plan = DSSPlan(self.n, E, edge_blocks, vert_rows, None, self.device,
+                       has_tail=self.has_tail, nb=nb)
+        plan.masks = masks
+        return plan
 
-def roll_dss_T(vT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
+    def split(self, max_halo: int) -> tuple["DSSPlan", "DSSPlan"]:
+        """``(near, far)``: the classes with ``|delta| <= max_halo`` and
+        those beyond it (the reference's far classes, ``_AffineFusedPrep``).
+        Both keep this plan's masks (by the same indices) and its ``nb``, so
+        an apply that gathers the near plan leaves every exchanged row of
+        the product in its scratch for the far update to read."""
+        h = int(max_halo)
+        near = self._with(
+            self.E, [b for b in self.edge_blocks if abs(b[3]) <= h],
+            [v for v in self.vert_rows if abs(v[2]) <= h], self.masks,
+            self.nb)
+        far = self._with(
+            self.E, [b for b in self.edge_blocks if abs(b[3]) > h],
+            [v for v in self.vert_rows if abs(v[2]) > h], self.masks,
+            self.nb)
+        return near, far
+
+    def block_view(self, E_ext: int) -> "DSSPlan":
+        """This plan's classes on a block of ``E_ext`` elements, with the
+        class masks a runtime (C, E_ext) operand (``masks`` is None): the
+        counterpart of the reference's ``_BlockExchangeView``."""
+        return self._with(int(E_ext), self.edge_blocks, self.vert_rows, None,
+                          self.nb)
+
+    @property
+    def n_classes(self) -> int:
+        """Rows of the class-mask stack (at least 1)."""
+        return max(1, max([b[5] for b in self.edge_blocks]
+                          + [v[3] for v in self.vert_rows] + [-1]) + 1)
+
+
+def shift(x: torch.Tensor, delta: int) -> torch.Tensor:
+    """``out[..., e] = x[..., e + delta]``, zero where ``e + delta`` leaves
+    the last axis (``torch.roll(x, -delta, -1)`` without the wrap)."""
+    E = x.shape[-1]
+    out = torch.zeros_like(x)
+    if abs(delta) < E:
+        if delta >= 0:
+            out[..., :E - delta] = x[..., delta:]
+        else:
+            out[..., -delta:] = x[..., :E + delta]
+    return out
+
+
+def roll_dss_T(vT: torch.Tensor, plan: DSSPlan, masks=None,
+               out=None) -> torch.Tensor:
     """Plain roll-class DSS of an (n, E) array, or of a (k, n, E) stack of
     them, each on its own (no tails): for every class
     ``out[dst rows] += where(mask, roll(v[src rows], -delta), 0)``.
 
     ``torch.roll`` wraps around the element axis; the masks are False on
-    every wrapped lane, so wrapped values never enter the sum."""
-    out = vT.clone()
-    masks = plan.masks
+    every wrapped lane of an exchange's plan, so wrapped values never enter
+    the sum.  ``masks`` (C, E) bool replaces the plan's own (a runtime-mask
+    plan, :meth:`DSSPlan.block_view`, needs them); such masks may be set
+    where ``e + delta`` leaves the block, and those sources count as zero
+    (:func:`shift`), as in the kernels.  ``out`` given: the class sums are
+    added into it in place (the exchanged rows of ``vT`` are then not
+    copied in first) and it is returned."""
+    runtime = masks is not None
+    masks = plan.masks if masks is None else masks
+    if masks is None:
+        raise ValueError("the plan's class masks are a runtime operand; "
+                         "pass masks=")
+    move = shift if runtime else (lambda x, d: torch.roll(x, -d, dims=-1))
+    if out is None:
+        out = vT.clone()
     for d0, s0, L, delta, flip, k in plan.edge_blocks:
-        src = torch.roll(vT[..., s0:s0 + L, :], -delta, dims=-1)
+        src = move(vT[..., s0:s0 + L, :], delta)
         if flip:
             src = src.flip(-2)
         out[..., d0:d0 + L, :] += torch.where(masks[k], src, 0.0)
     for d, s, delta, k in plan.vert_rows:
-        out[..., d, :] += torch.where(
-            masks[k], torch.roll(vT[..., s, :], -delta, dims=-1), 0.0)
+        out[..., d, :] += torch.where(masks[k], move(vT[..., s, :], delta),
+                                      0.0)
     return out
 
 
@@ -621,35 +715,38 @@ def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
 
 
 def _make_exchange_impl(disc, threshold: float = 0.25,
+                        pad_to: int | None = None,
                         min_class_fraction: float | None = None):
     """Best exchange structure for ``disc``: roll classes when they cover
-    enough of the mesh, generic gather otherwise.
+    enough of the mesh, generic gather otherwise.  ``pad_to`` pads the
+    element axis with inert elements (a shard-divisible count, for
+    :mod:`..parallel`).
 
-    The element axis is never padded: the JAX factory's padding exists
-    only for the TPU kernels' lane tiling, and the CUDA kernels take any
-    element count.
+    The JAX factory's ``fused_pad`` (padding for the TPU kernels' lane
+    tiling) is not ported: the CUDA kernels take any element count.
     """
     if len(disc.shape) != 2:
         raise NotImplementedError(
             "3D exchanges are not ported yet (ROADMAP Queue 1, the 3D path)")
     try:
-        ex = RollExchange(disc, min_class_fraction=min_class_fraction)
+        ex = RollExchange(disc, pad_to=pad_to,
+                          min_class_fraction=min_class_fraction)
     except NotImplementedError:
         # anisotropic node grid with edge tails: the roll fast path
         # needs full class coverage there — generic exchange instead
-        return LocalExchange(disc)
+        return LocalExchange(disc, pad_to=pad_to)
     if (min_class_fraction is None
             and (ex.n_edge_tail or ex.n_vert_tail)):
         # tails may be small *uniform* classes below the default size
         # threshold (panel-ordered meshes: one cross-panel-boundary class
         # per direction); zero tails unlock the CUDA kernels — worth a
         # bounded number of extra roll classes
-        ex2 = RollExchange(disc, min_class_fraction=0.0)
+        ex2 = RollExchange(disc, pad_to=pad_to, min_class_fraction=0.0)
         if (not (ex2.n_edge_tail or ex2.n_vert_tail)
                 and len(ex2.edge_classes) + len(ex2.vert_classes) <= 64):
             ex = ex2
     if ex.tail_fraction > threshold:
-        return LocalExchange(disc)
+        return LocalExchange(disc, pad_to=pad_to)
     return ex
 
 

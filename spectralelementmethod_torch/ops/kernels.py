@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Seven CUDA sources (``../csrc``, one shared library each) replace the TPU
+Nine CUDA sources (``../csrc``, one shared library each) replace the TPU
 Pallas kernels that the 2D ``solve_local`` and ``solve_local_batch`` of the
-Poisson and Helmholtz models run on affine and on curved meshes.  Each
+Poisson and Helmholtz models run on affine and on curved meshes, and those
+of the element-sharded operator and of the applies' far-class split.  Each
 apply and CG kernel but the single-kernel iteration takes
 one right-hand side or a ``(k * n, E)`` stack of k that share the operator
 (the RHS is a grid dimension of every launch), and each wrapper below
@@ -15,7 +16,13 @@ launches one variant:
 * :func:`general_apply_dss` / :func:`general_apply_dss_batched` — the
   apply on curved meshes, ``DSS(Dhat^T [g0 ur + g1 us; g1 ur + g2 us])``
   with ``[ur; us] = Dhat u`` and full (3, n, E) factor slabs
-  (``make_fused_general_laplacian_T``);
+  (``make_fused_general_laplacian_T``); with ``aux=True`` each also returns
+  the raw exchanged rows it summed from, for :func:`far_update`;
+* :func:`affine_block_apply_dss` — the affine apply on one shard's
+  halo-extended element block, its scales and class masks runtime operands
+  (``make_fused_affine_block_kernel``);
+* :func:`far_update` — adds the far roll classes of a split DSS into an
+  apply's output in place (``make_far_update_kernel``);
 * :func:`cg_kernel_a` / :func:`cg_kernel_a_deferred` — the direction half
   of a fused PCG iteration, with and without the lagged x update (kernel A
   of ``make_fused_cg_kernels``, ``defer_x`` False / True);
@@ -75,6 +82,7 @@ _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
 _GEN_APPLY, _GEN_CG_A = "general_apply_dss.cu", "cg_kernel_a_general.cu"
 _SINGLE = "cg_kernel_single.cu"
 _LOCAL = "laplacian_local.cu"
+_FAR = "far_update.cu"
 
 #: kernel name -> (source in csrc/, the TPU kernel it replaces)
 KERNELS = {
@@ -95,9 +103,12 @@ KERNELS = {
     "laplacian_local": (_LOCAL, f"{_REPLACED}:76"),
     "laplacian_local_batched": (_LOCAL, f"{_REPLACED}:76"),
     "vector_laplacian_local": (_LOCAL, f"{_REPLACED}:149"),
+    "affine_block_apply_dss": (_APPLY, f"{_REPLACED}:1110"),
+    "far_update": (_FAR, f"{_REPLACED}:876"),
 }
 #: the sources, one shared library each
-SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A, _SINGLE, _LOCAL)
+SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A, _SINGLE, _LOCAL,
+           _FAR)
 #: elements per block of the affine product kernels (one denominator
 #: partial each)
 THREADS = 256
@@ -127,6 +138,8 @@ _SIGNATURES = {
     "sem_cg_kernel_single_defer_bf16": [_P] * 17 + [_I] * 3 + [_P],
     "sem_laplacian_local": [_P] * 5 + [_I] * 3 + [ctypes.c_longlong] * 2
     + [_P],
+    "sem_affine_block_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
+    "sem_far_update": [_P] * 5 + [_I] * 2 + [_P],
 }
 #: the partial sums of the single-kernel iteration, their columns in order
 SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
@@ -302,10 +315,17 @@ def _col(v, like: torch.Tensor) -> torch.Tensor:
 
 # -- kernel 1: the operator apply ---------------------------------------------
 
-def affine_apply_dss_plain(uT, Kst, aT, plan: DSSPlan):
+def _with_aux(S, plan: DSSPlan, aux: bool):
+    """The roll-class DSS of the local product ``S``, and with ``aux`` the
+    raw exchanged rows ``S[:nb]`` beside it."""
+    out = roll_dss_T(S, plan)
+    return (out, S[..., :plan.nb, :]) if aux else out
+
+
+def affine_apply_dss_plain(uT, Kst, aT, plan: DSSPlan, *, aux: bool = False):
     """Plain version of :func:`affine_apply_dss` (``torch.matmul`` plus the
     roll-class DSS); also takes a (k, n, E) stack."""
-    return roll_dss_T(_local_product(uT, Kst, aT), plan)
+    return _with_aux(_local_product(uT, Kst, aT), plan, aux)
 
 
 def affine_apply_dss_batched_plain(uT, Kst, aT, plan: DSSPlan):
@@ -315,6 +335,8 @@ def affine_apply_dss_batched_plain(uT, Kst, aT, plan: DSSPlan):
 
 
 def _launch_apply(uT, Kst, aT, plan, k: int):
+    """The apply on CUDA tensors: (out, B), B the (k, nb, E) scratch of raw
+    exchanged rows."""
     dev = _cuda_device(uT)
     _check_plan(plan, dev)
     n, E = Kst.shape[-1], uT.shape[-1]
@@ -331,26 +353,28 @@ def _launch_apply(uT, Kst, aT, plan, k: int):
         _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
         n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"affine_apply_dss (n={n}, E={E}, k={k})")
-    return out
+    return out, B
 
 
 def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
-                     plan: DSSPlan) -> torch.Tensor:
+                     plan: DSSPlan, *, aux: bool = False):
     """``out = DSS(sum_c a_c K_c u)`` on an (n, E) L-vector.
 
     ``Kst`` (3, n, n): the blocks ``K_c``; ``aT`` (3, E): the affine scales;
     ``plan``: the exchange's :class:`.DSSPlan` on the tensors' device.
     CUDA tensors must be float32 (a float64 CUDA tensor raises).
+    ``aux=True`` returns ``(out, aux)``, ``aux`` (nb, E) the raw (pre-DSS)
+    exchanged rows of the product, which :func:`far_update` reads.
     """
     if uT.device.type == "cpu":
         _check_plan(plan, None)
-        return affine_apply_dss_plain(uT, Kst, aT, plan)
+        return affine_apply_dss_plain(uT, Kst, aT, plan, aux=aux)
     if uT.dim() != 2 or uT.shape[0] != Kst.shape[-1]:
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Kst.shape[-1]}, E)")
-    out = _launch_apply(uT, Kst, aT, plan, 1)
+    out, B = _launch_apply(uT, Kst, aT, plan, 1)
     affine_apply_dss.launches += 1
-    return out
+    return (out, B[0, :plan.nb]) if aux else out
 
 
 affine_apply_dss.launches = 0
@@ -364,7 +388,7 @@ def affine_apply_dss_batched(uT: torch.Tensor, Kst: torch.Tensor,
     if uT.device.type == "cpu":
         _check_plan(plan, None)
         return affine_apply_dss_batched_plain(uT, Kst, aT, plan)
-    out = _launch_apply(uT, Kst, aT, plan, k)
+    out, _ = _launch_apply(uT, Kst, aT, plan, k)
     affine_apply_dss_batched.launches += 1
     return out
 
@@ -676,11 +700,12 @@ def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
 
 # -- curved meshes: the general apply and its kernel A ------------------------
 
-def general_apply_dss_plain(uT, gT, Dh, hier, plan: DSSPlan):
+def general_apply_dss_plain(uT, gT, Dh, hier, plan: DSSPlan, *,
+                            aux: bool = False):
     """Plain version of :func:`general_apply_dss` (``torch.matmul`` with the
     dense stacked derivative, the flux, the roll-class DSS; ``hier`` is
     already folded into ``Dh``); also takes a (k, n, E) stack."""
-    return roll_dss_T(_general_local(uT, gT, Dh), plan)
+    return _with_aux(_general_local(uT, gT, Dh), plan, aux)
 
 
 def general_apply_dss_batched_plain(uT, gT, Dh, hier, plan: DSSPlan):
@@ -696,6 +721,8 @@ def _require_general(gT, Dh, hier, n, E, dev) -> None:
 
 
 def _launch_general_apply(uT, gT, Dh, hier, plan, k: int):
+    """The general apply on CUDA tensors: (out, B) as in
+    :func:`_launch_apply`."""
     dev = _cuda_device(uT)
     _check_plan(plan, dev)
     n, E = Dh.shape[1], uT.shape[-1]
@@ -710,11 +737,12 @@ def _launch_general_apply(uT, gT, Dh, hier, plan, k: int):
         _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
         n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"general_apply_dss (n={n}, E={E}, k={k})")
-    return out
+    return out, B
 
 
 def general_apply_dss(uT: torch.Tensor, gT: torch.Tensor, Dh: torch.Tensor,
-                      hier: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
+                      hier: torch.Tensor, plan: DSSPlan, *,
+                      aux: bool = False):
     """``out = DSS(Dh^T [g0 ur + g1 us; g1 ur + g2 us])``, ``[ur; us] =
     Dh u``, on an (n, E) L-vector of a curved mesh.
 
@@ -723,17 +751,17 @@ def general_apply_dss(uT: torch.Tensor, gT: torch.Tensor, Dh: torch.Tensor,
     columns in the L-vector order ``hier`` ((n,) int32, L-vector row ->
     lex node), which the kernel reads for its tensor-product form;
     ``plan``: the exchange's :class:`.DSSPlan` on the tensors' device.
-    CUDA tensors must be float32.
+    CUDA tensors must be float32.  ``aux`` as in :func:`affine_apply_dss`.
     """
     if uT.device.type == "cpu":
         _check_plan(plan, None)
-        return general_apply_dss_plain(uT, gT, Dh, hier, plan)
+        return general_apply_dss_plain(uT, gT, Dh, hier, plan, aux=aux)
     if uT.dim() != 2 or uT.shape[0] != Dh.shape[1]:
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Dh.shape[1]}, E)")
-    out = _launch_general_apply(uT, gT, Dh, hier, plan, 1)
+    out, B = _launch_general_apply(uT, gT, Dh, hier, plan, 1)
     general_apply_dss.launches += 1
-    return out
+    return (out, B[0, :plan.nb]) if aux else out
 
 
 general_apply_dss.launches = 0
@@ -749,7 +777,7 @@ def general_apply_dss_batched(uT: torch.Tensor, gT: torch.Tensor,
     if uT.device.type == "cpu":
         _check_plan(plan, None)
         return general_apply_dss_batched_plain(uT, gT, Dh, hier, plan)
-    out = _launch_general_apply(uT, gT, Dh, hier, plan, k)
+    out, _ = _launch_general_apply(uT, gT, Dh, hier, plan, k)
     general_apply_dss_batched.launches += 1
     return out
 
@@ -871,6 +899,107 @@ def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
     kA.defer_x, kA.offers_defer_x = False, False
     kA.n_rhs = 1 if n_rhs is None else int(n_rhs)
     return kA, cg_kernel_b if n_rhs is None else cg_kernel_b_batched
+
+
+# -- the element-sharded operator's block apply -------------------------------
+
+def affine_block_apply_dss_plain(uT_ext, Kst, aT_ext, M_ext,
+                                 block_plan: DSSPlan):
+    """Plain version of :func:`affine_block_apply_dss`: the local product
+    and the roll-class DSS with the runtime masks, a source outside the
+    block counting as zero."""
+    return roll_dss_T(_local_product(uT_ext, Kst, aT_ext), block_plan,
+                      masks=M_ext)
+
+
+def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
+                           aT_ext: torch.Tensor, M_ext: torch.Tensor,
+                           block_plan: DSSPlan) -> torch.Tensor:
+    """``DSS(sum_c a_c K_c u)`` on one shard's halo-extended (n, E_ext)
+    block: the reference's ``apply_block(uT, aT, M)``.
+
+    ``Kst`` (3, n, n): the blocks ``K_c``; ``aT_ext`` (3, E_ext) and
+    ``M_ext`` (C, E_ext) bool: the block's slices of the global affine
+    scales and class masks (runtime operands: each shard has its own);
+    ``block_plan``: the exchange's classes on E_ext elements
+    (:meth:`.DSSPlan.block_view`).  Sources outside the block count as
+    zero, so the result is exact on the columns at least the largest
+    |delta| from either end (the shard's centre).  CUDA tensors must be
+    float32.
+    """
+    if uT_ext.device.type == "cpu":
+        _check_plan(block_plan, None)
+        return affine_block_apply_dss_plain(uT_ext, Kst, aT_ext, M_ext,
+                                            block_plan)
+    dev = _cuda_device(uT_ext)
+    _check_plan(block_plan, dev)
+    n, E = Kst.shape[-1], uT_ext.shape[-1]
+    _check_n(n)
+    f32 = (torch.float32,)
+    _require(uT_ext, "uT_ext", f32, (n, E), dev)
+    _require(Kst, "Kst", f32, (3, n, n), dev)
+    _require(aT_ext, "aT_ext", f32, (3, E), dev)
+    _require(M_ext, "M_ext", (torch.bool,), (M_ext.shape[0], E), dev)
+    if block_plan.E != E or M_ext.shape[0] < block_plan.n_classes:
+        raise ValueError(f"block plan of E={block_plan.E} with "
+                         f"{block_plan.n_classes} classes; got E={E} and "
+                         f"{M_ext.shape[0]} mask rows")
+    out = torch.empty_like(uT_ext)
+    B = torch.empty((max(block_plan.nb, 1), E), dtype=torch.float32,
+                    device=dev)
+    lib = _lib(_APPLY)
+    rc = lib.sem_affine_block_apply_dss(
+        _ptr(uT_ext), _ptr(Kst), _ptr(aT_ext), _ptr(M_ext), _ptr(out),
+        _ptr(B), _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n, E,
+        block_plan.nb, _stream(dev))
+    _check(lib, rc, f"affine_block_apply_dss (n={n}, E={E})")
+    affine_block_apply_dss.launches += 1
+    return out
+
+
+affine_block_apply_dss.launches = 0
+
+
+# -- the far-class update of a split DSS --------------------------------------
+
+def far_update_plain(out, aux, far_plan: DSSPlan):
+    """Plain version of :func:`far_update`: per far class, ``out[dst rows]
+    += where(mask, roll(aux[src rows], -delta), 0)``, in place."""
+    return roll_dss_T(aux, far_plan, out=out)
+
+
+def far_update(out: torch.Tensor, aux: torch.Tensor,
+               far_plan: DSSPlan) -> torch.Tensor:
+    """Add every far class's masked, rolled source rows of ``aux`` into the
+    exchanged rows of ``out``, in place; returns ``out``.
+
+    ``out`` (n, E): an apply's output whose DSS gathered the near classes
+    only; ``aux`` (nb, E): the raw exchanged rows of its product (the
+    applies' ``aux=True``); ``far_plan``: the far half of
+    :meth:`.DSSPlan.split`.  CUDA tensors must be float32.
+    """
+    if out.device.type == "cpu":
+        _check_plan(far_plan, None)
+        return far_update_plain(out, aux, far_plan)
+    dev = _cuda_device(out)
+    _check_plan(far_plan, dev)
+    E = far_plan.E
+    f32 = (torch.float32,)
+    _require(out, "out", f32, (out.shape[0], E), dev)
+    _require(aux, "aux", f32, (far_plan.nb, E), dev)
+    if out.shape[0] < far_plan.nb:
+        raise ValueError(f"out has {out.shape[0]} rows; the plan exchanges "
+                         f"{far_plan.nb}")
+    lib = _lib(_FAR)
+    rc = lib.sem_far_update(_ptr(out), _ptr(aux), _ptr(far_plan.row_ptr),
+                            _ptr(far_plan.entries), _ptr(far_plan.masks), E,
+                            far_plan.nb, _stream(dev))
+    _check(lib, rc, f"far_update (E={E}, {far_plan.n_entries} entries)")
+    far_update.launches += 1
+    return out
+
+
+far_update.launches = 0
 
 
 # -- the single-kernel iteration: residual update + kernel A + all dots ------
@@ -1188,7 +1317,9 @@ WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "cg_kernel_single_deferred": cg_kernel_single_deferred,
             "laplacian_local": laplacian_local,
             "laplacian_local_batched": laplacian_local_batched,
-            "vector_laplacian_local": vector_laplacian_local}
+            "vector_laplacian_local": vector_laplacian_local,
+            "affine_block_apply_dss": affine_block_apply_dss,
+            "far_update": far_update}
 
 
 def reset_launch_counts() -> None:

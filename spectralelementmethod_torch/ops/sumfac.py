@@ -17,17 +17,24 @@ variable coefficient keeps the full (3, n, E) factor slabs
 with ``[ur; us] = Dhat u``, :func:`.kernels.general_apply_dss`).
 :func:`make_local_laplacian_operator` picks one by the reference's
 ``structure`` rule; ``.stacked(k)`` gives either on (k, n, E) stacks
-(:func:`make_multi_rhs_laplacian_T`).  On row-major (E, n) L-vectors
-(``vector_layout="en"``) the operator is :class:`LaplacianEN`: the local
-product by ``torch.matmul`` (``backend="xla"``) or by the hand-written
-element-local kernel (``backend="pallas"``,
-:func:`.kernels.laplacian_local`), then the exchange's ``dss``.
+(:func:`make_multi_rhs_laplacian_T`).  Either takes the reference's
+``max_halo``/``far_mode``: an integer ``max_halo`` splits the roll classes
+at that |delta| (:meth:`.DSSPlan.split`), the apply gathers the near ones
+and :func:`.kernels.far_update` adds the far ones; ``max_halo="auto"``
+splits nothing in the port (a deliberate divergence: the reference's rule
+weighs TPU VMEM windows that the CUDA gather pass does not have).  On
+row-major (E, n) L-vectors (``vector_layout="en"``) the operator is
+:class:`LaplacianEN`: the local product by ``torch.matmul``
+(``backend="xla"``) or by the hand-written element-local kernel
+(``backend="pallas"``, :func:`.kernels.laplacian_local`), then the
+exchange's ``dss``.
 
 The host helpers are numpy copies of the reference's, with one deliberate
 divergence: :func:`affine_factorization` measures each element against its
 own scale (ROADMAP Queue 3).  The reference's multi-RHS apply chunks its
 batch in pairs to fit TPU VMEM, and pads its factors to its padded
-exchange; here the whole stack is one launch and the exchange is unpadded.
+exchange; here the whole stack is one launch and the exchange is padded
+only for a shard count (:mod:`..parallel`).
 """
 
 from __future__ import annotations
@@ -186,6 +193,15 @@ class LaplacianT(torch.nn.Module):
     input unless ``assume_masked_input`` (true by induction for CG
     iterates, which saves one pass per apply).  ``plan`` is the exchange's
     :class:`.DSSPlan` on the operator's device.
+
+    ``max_halo`` (the reference's, on its single-RHS applies): an integer
+    sends the classes with |delta| above it through the far update
+    (``far_plan`` is then the far half of the plan); ``None`` or
+    ``"auto"`` splits nothing.  ``far_mode``: ``"kernel"`` (and ``"auto"``)
+    launches :func:`.kernels.far_update`, ``"xla"`` runs its plain version
+    (the reference's explicit epilogue mode: the caller's choice, not a
+    fallback).  A split operator refuses :meth:`stacked`, as the reference
+    keeps its k-RHS applies whole.
     """
 
     #: right-hand sides of a stacked operator (None: one (n, E) L-vector)
@@ -194,7 +210,8 @@ class LaplacianT(torch.nn.Module):
     structure = None
 
     def __init__(self, plan: DSSPlan, n: int, free_local=None,
-                 assume_masked_input: bool = False):
+                 assume_masked_input: bool = False, max_halo="auto",
+                 far_mode: str = "auto"):
         super().__init__()
         self.register_buffer(
             "free", None if free_local is None
@@ -202,12 +219,42 @@ class LaplacianT(torch.nn.Module):
         self.plan = plan
         self.n_loc = int(n)
         self.assume_masked_input = bool(assume_masked_input)
+        if far_mode not in FAR_MODES:
+            raise ValueError(f"unknown far_mode {far_mode!r}")
+        #: (near plan, far plan) of a split DSS, or None
+        self._split = None
+        if max_halo not in (None, "auto"):
+            near, far = plan.split(int(max_halo))
+            if far.n_entries:
+                self._split = (near, far)
+        self._far_update = (kernels.far_update_plain if far_mode == "xla"
+                            else kernels.far_update)
+
+    @property
+    def far_plan(self) -> DSSPlan | None:
+        """The far classes' plan when ``max_halo`` split the DSS."""
+        return None if self._split is None else self._split[1]
+
+    def _split_apply(self, apply, uT):
+        """``apply(uT, plan, aux)`` with the whole plan, or with the near
+        plan and the far update after it."""
+        if self._split is None:
+            return apply(uT, self.plan, False)
+        near, far = self._split
+        out, aux = apply(uT, near, True)
+        return self._far_update(out, aux, far)
+
+    def _refuse_split(self, what: str) -> None:
+        if self._split is not None:
+            raise ValueError(f"the far split (max_halo) {what} with "
+                             "max_halo=None")
 
     def stacked(self, n_rhs: int) -> "LaplacianT":
         """This operator on (n_rhs, n, E) stacks (the buffers are
         shared)."""
         if n_rhs < 1:
             raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
+        self._refuse_split("is single-RHS only: build the k-RHS operator")
         op = copy.copy(self)
         op.n_rhs = int(n_rhs)
         return op
@@ -239,6 +286,12 @@ class LaplacianT(torch.nn.Module):
         return vT
 
 
+#: why a split operator refuses the fused CG kernels
+_FUSED_SPLIT = ("is not carried by the fused CG kernels yet (their "
+                "cheap_far option, ROADMAP Queue 2's later options): build "
+                "the operator")
+
+
 class AffineLaplacianT(LaplacianT):
     """Weak Laplacian ``DSS(sum_c a_c K_c u)`` on an affine mesh.
 
@@ -252,10 +305,12 @@ class AffineLaplacianT(LaplacianT):
     structure = "affine"
 
     def __init__(self, Kcat, a, plan: DSSPlan, free_local=None,
-                 assume_masked_input: bool = False, dtype=torch.float32):
+                 assume_masked_input: bool = False, dtype=torch.float32,
+                 max_halo="auto", far_mode: str = "auto"):
         Kcat = np.asarray(Kcat, dtype=np.float64)
         n = Kcat.shape[0]
-        super().__init__(plan, n, free_local, assume_masked_input)
+        super().__init__(plan, n, free_local, assume_masked_input, max_halo,
+                         far_mode)
         dev = plan.device
         Kst = np.stack([Kcat[:, c * n:(c + 1) * n] for c in range(3)])
         self.register_buffer(
@@ -264,7 +319,9 @@ class AffineLaplacianT(LaplacianT):
         self.register_buffer("aT", torch.as_tensor(aT, device=dev).to(dtype))
 
     def _apply(self, uT):
-        return kernels.affine_apply_dss(uT, self.Kst, self.aT, self.plan)
+        return self._split_apply(
+            lambda u, pl, aux: kernels.affine_apply_dss(
+                u, self.Kst, self.aT, pl, aux=aux), uT)
 
     def _apply_batched(self, uT):
         return kernels.affine_apply_dss_batched(uT, self.Kst, self.aT,
@@ -273,7 +330,8 @@ class AffineLaplacianT(LaplacianT):
     def fused_cg_kernels(self, n_rhs=None, defer_x: bool = False):
         """``(kA, kB)`` of the fused CG on this operator: single-RHS
         (:func:`.kernels.make_fused_cg_kernels`) for ``n_rhs=None``, else
-        batched for ``n_rhs`` right-hand sides."""
+        batched for ``n_rhs`` right-hand sides.  A split operator raises."""
+        self._refuse_split(_FUSED_SPLIT)
         if n_rhs is None:
             return kernels.make_fused_cg_kernels(self.Kst, self.aT, self.plan,
                                                  defer_x=defer_x)
@@ -283,7 +341,8 @@ class AffineLaplacianT(LaplacianT):
     def fused_cg_kernel_single(self, defer_x: bool = False):
         """``kAB`` of the single-kernel CG iteration on this operator
         (:func:`.kernels.make_fused_cg_kernel_single`; ``cg_fused`` with
-        ``kB=None``)."""
+        ``kB=None``).  A split operator raises."""
+        self._refuse_split(_FUSED_SPLIT)
         return kernels.make_fused_cg_kernel_single(self.Kst, self.aT,
                                                    self.plan, defer_x=defer_x)
 
@@ -304,13 +363,15 @@ class GeneralLaplacianT(LaplacianT):
     structure = "general"
 
     def __init__(self, Gf, Dhat, hier, plan: DSSPlan, free_local=None,
-                 assume_masked_input: bool = False, dtype=torch.float32):
+                 assume_masked_input: bool = False, dtype=torch.float32,
+                 max_halo="auto", far_mode: str = "auto"):
         Gf = np.asarray(Gf)
         E, three, n = Gf.shape
         if three != 3 or E != plan.E:
             raise ValueError(f"factors of shape {Gf.shape}; expected "
                              f"({plan.E}, 3, n)")
-        super().__init__(plan, n, free_local, assume_masked_input)
+        super().__init__(plan, n, free_local, assume_masked_input, max_halo,
+                         far_mode)
         dev = plan.device
         gT = np.ascontiguousarray(Gf.transpose(1, 2, 0))
         self.register_buffer("gT", torch.as_tensor(gT, device=dev).to(dtype))
@@ -321,8 +382,9 @@ class GeneralLaplacianT(LaplacianT):
             "hier", torch.as_tensor(hier.astype(np.int32), device=dev))
 
     def _apply(self, uT):
-        return kernels.general_apply_dss(uT, self.gT, self.Dh, self.hier,
-                                         self.plan)
+        return self._split_apply(
+            lambda u, pl, aux: kernels.general_apply_dss(
+                u, self.gT, self.Dh, self.hier, pl, aux=aux), uT)
 
     def _apply_batched(self, uT):
         return kernels.general_apply_dss_batched(uT, self.gT, self.Dh,
@@ -332,7 +394,9 @@ class GeneralLaplacianT(LaplacianT):
         """``(kA, kB)`` of the fused CG on this operator
         (:func:`.kernels.make_fused_cg_kernels_general`): single-RHS for
         ``n_rhs=None``, else batched.  ``defer_x`` raises: the general
-        kernels carry no deferred-x mode, as in the reference."""
+        kernels carry no deferred-x mode, as in the reference, and so
+        does a split operator."""
+        self._refuse_split(_FUSED_SPLIT)
         if defer_x:
             raise ValueError("defer_x is not offered on the general fused "
                              "CG (curved meshes): its kernels carry no "
@@ -428,6 +492,7 @@ class LaplacianEN(torch.nn.Module):
 
 STRUCTURES = ("auto", "general", "affine")
 LAYOUTS = ("ne", "en")
+FAR_MODES = ("auto", "kernel", "xla")
 
 
 def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
@@ -435,7 +500,8 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
                                   device=None, structure: str = "auto",
                                   vector_layout: str = "ne",
                                   backend: str = "auto",
-                                  compute_dtype=None):
+                                  compute_dtype=None, max_halo="auto",
+                                  far_mode: str = "auto"):
     """Weak Laplacian acting on hierarchical L-vectors.
 
     ``Gf``: (E, 3, n) lex-flattened geometric factors; their dtype is the
@@ -460,7 +526,8 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
     symmetric Dirichlet elimination; ``assume_masked_input`` (the (n, E)
     operators only, as in the reference) skips its input pass.
     ``compute_dtype`` (reduced-precision
-    products) is not ported: anything but None raises.
+    products) is not ported: anything but None raises.  ``max_halo`` and
+    ``far_mode`` (the (n, E) operators only) as in :class:`LaplacianT`.
     """
     if compute_dtype is not None:
         raise NotImplementedError(
@@ -497,6 +564,9 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
             raise ValueError(
                 f"backend='pallas' requires float32 factors, got {Gf.dtype}: "
                 "the kernel computes in f32")
+        if max_halo not in (None, "auto"):
+            raise ValueError("max_halo splits the (n, E) applies' DSS; the "
+                             "'en' layout has no split")
         return LaplacianEN(Gf, Dhat, exchange.hier, exchange.dss,
                            backend=backend, affine=affine,
                            free_local=free_local, dtype=dtype, device=dev)
@@ -508,13 +578,14 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
             "the apply kernels need a tail-free roll-class exchange "
             "(RollExchange); the generic-gather DSS has no kernel yet")
     plan = exchange.plan(dev)
+    split = dict(max_halo=max_halo, far_mode=far_mode)
     if affine is not None:
         return AffineLaplacianT(affine[1], affine[0], plan, free_local,
                                 assume_masked_input=assume_masked_input,
-                                dtype=dtype)
+                                dtype=dtype, **split)
     return GeneralLaplacianT(Gf, Dhat, exchange.hier, plan, free_local,
                              assume_masked_input=assume_masked_input,
-                             dtype=dtype)
+                             dtype=dtype, **split)
 
 
 def make_multi_rhs_laplacian_T(exchange, Gf, Dhat, n_rhs: int,

@@ -2,10 +2,11 @@
 
 Port of the main-path solvers of the JAX package's ``solver/cg.py``:
 
-* :func:`cg` — PCG with the ``dot_weight`` fold, run as a block ladder
-  (64 iterations first, doubling to 4096) with one host synchronisation
-  per block.  Converged, budget-spent and diverged states freeze inside a
-  block (alpha = 0), so results match an exactly-stopping loop;
+* :func:`cg` — PCG with a ``dot`` callable or the ``dot_weight`` fold, run
+  as a block ladder (``block`` iterations first, 64 by default, doubling
+  to 4096) with one host synchronisation per block.  Converged,
+  budget-spent and diverged states freeze inside a block (alpha = 0), so
+  results match an exactly-stopping loop;
 * :func:`cg_fused` — PCG whose iteration is the two fused kernels of
   :mod:`..ops.kernels`, with x lagging one direction (or, ``defer_x=m``,
   caught up once per m iterations) and the true-residual restart; or one
@@ -49,6 +50,9 @@ class CGResult(NamedTuple):
     #: including post-convergence frozen ones — the honest denominator
     #: for time-per-iteration accounting
     issued: int = 0
+    #: :func:`cg` with ``stall_cut``: the ladder ended on a stall (a
+    #: block shrank ||r||^2 by less than the cut while above tolerance)
+    stalled: bool = False
 
 
 class _State(NamedTuple):
@@ -86,39 +90,60 @@ def _ladder_size(max_iter: int, issued: int, block: int) -> int:
 def cg(
     A: Callable,
     b: torch.Tensor,
+    x0: torch.Tensor | None = None,
     *,
     M: Callable | None = None,
     tol: float = 1e-12,
+    atol: float = 0.0,
     max_iter: int = 1000,
+    dot: Callable | None = None,
     dot_weight: torch.Tensor | None = None,
+    block: int = 64,
+    stall_cut: float | None = None,
 ) -> CGResult:
-    """Solve ``A x = b`` with preconditioned CG from ``x0 = 0``.
+    """Solve ``A x = b`` with preconditioned CG (the reference's signature).
 
-    ``A``: SPD operator; ``M``: preconditioner approximating ``A^-1``.
-    ``dot_weight``: diagonal weights of the inner product
-    ``<u, v> = sum(w u v)`` (multiplicity weights for L-vectors; Euclidean
-    when None); the body folds the weight into each vector pass once
-    (``w*Ap``, ``w*z``).  Stops when ``||r|| <= tol ||b||`` in the
-    dot-induced norm.
+    ``A``: SPD operator; ``M``: preconditioner approximating ``A^-1``;
+    ``x0``: the initial guess (zero when None).  ``dot``: the inner product
+    (e.g. an exchange's multiplicity-weighted ``dot_T`` for L-vectors);
+    Euclidean when None.  ``dot_weight``: diagonal weights of the inner
+    product ``<u, v> = sum(w u v)``, in place of ``dot``; the body folds the
+    weight into each vector pass once (``w*Ap``, ``w*z``).  Stops when
+    ``||r|| <= max(tol ||b||, atol)`` in the dot-induced norm.  ``block``:
+    the first ladder block (it doubles up to 4096); ``block >= max_iter``
+    runs the whole budget with one host synchronisation.  ``stall_cut``
+    stops the ladder when a whole block of at least 64 iterations shrinks
+    ``||r||^2`` by less than that factor while above tolerance; the result
+    then has ``stalled=True`` and the best block-boundary state.
     """
     if M is None:
         M = _identity
     w = dot_weight
+    if w is not None:
+        def wsum(u, v):
+            return torch.sum(u * v * w)
 
-    def wsum(u, v):
-        return torch.sum(u * v) if w is None else torch.sum(u * v * w)
+        def fold(v):
+            return w * v
+    else:
+        if dot is None:
+            def dot(u, v):
+                return torch.sum(u * v)
 
-    def fold(v):
-        return v if w is None else w * v
+        def wsum(u, v):
+            return dot(u, v)
+
+        def fold(v):
+            return v
 
     dev = b.device
-    x0 = torch.zeros_like(b)
+    x0 = torch.zeros_like(b) if x0 is None else x0
     r0 = b - A(x0)
     z0 = M(r0)
     rn0 = wsum(r0, r0)
+    stop2 = torch.clamp_min(tol * tol * wsum(b, b), atol * atol)
     state = _State(x0, r0, z0, z0, wsum(r0, z0), rn0,
-                   torch.zeros((), dtype=torch.int32, device=dev),
-                   tol * tol * wsum(b, b),
+                   torch.zeros((), dtype=torch.int32, device=dev), stop2,
                    torch.tensor(max_iter, dtype=torch.int32, device=dev),
                    rn0)
     zero = torch.zeros((), dtype=b.dtype, device=dev)
@@ -126,12 +151,12 @@ def cg(
     def step(s: _State) -> _State:
         done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
         Ap = A(s.p)
-        denom = torch.sum(s.p * fold(Ap))
+        denom = wsum(s.p, Ap) if w is None else torch.sum(s.p * fold(Ap))
         alpha = torch.where(done, zero, s.rz / _safe(denom))
         x = s.x + alpha * s.p
         r = s.r - alpha * Ap
         z = M(r)
-        rz_n = torch.sum(r * fold(z))
+        rz_n = wsum(r, z) if w is None else torch.sum(r * fold(z))
         rn2 = wsum(r, r)
         beta = rz_n / _safe(s.rz)
         p = z + beta * s.p
@@ -139,8 +164,9 @@ def cg(
         rn2_min = torch.where(done, s.rn2_min, torch.minimum(s.rn2_min, rn2))
         return _State(x, r, z, p, rz_n, rn2, k, s.stop2, s.max_it, rn2_min)
 
-    issued, block = 0, _BLOCK0
+    issued = 0
     best_state, best_rn2 = state, float("inf")
+    rn2_ckpt, stalled = float("inf"), False
     while issued < max_iter:
         n = _ladder_size(max_iter, issued, block)
         for _ in range(n):
@@ -153,11 +179,17 @@ def cg(
         if (rn2_now <= stop2_now or rn2_now > 1e6 * rn2_min_now
                 or not math.isfinite(rn2_now)):
             break
+        if (stall_cut is not None and n >= 64 and math.isfinite(rn2_ckpt)
+                and rn2_now > rn2_ckpt / stall_cut):
+            stalled = True
+            break
+        rn2_ckpt = rn2_now
         block = min(block * 2, _BLOCK_MAX)
 
     # on breakdown/divergence, fall back to the best block-boundary state
     s = best_state
-    return CGResult(s.x, s.k, torch.sqrt(s.rn2), s.rn2 <= s.stop2, issued)
+    return CGResult(s.x, s.k, torch.sqrt(s.rn2), s.rn2 <= s.stop2, issued,
+                    stalled)
 
 
 def _identity(r):

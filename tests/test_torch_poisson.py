@@ -119,6 +119,7 @@ def test_import_pulls_in_no_jax():
             "import spectralelementmethod_torch.interop\n"
             "import spectralelementmethod_torch.models.poisson\n"
             "import spectralelementmethod_torch.models.helmholtz\n"
+            "import spectralelementmethod_torch.parallel\n"
             "bad = [k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k.startswith('spectralelementmethod_tpu')]"
             "\nprint(bad)\nassert not bad, bad\n")

@@ -1,0 +1,104 @@
+"""The port's public entry points take the reference's parameters in the
+reference's order, so a positional call binds the same parameter in both
+packages.  ``device`` may follow as the last parameter; every parameter the
+port has not taken up yet exists and raises ``NotImplementedError`` naming
+its ROADMAP item when asked for more than the default."""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import spectralelementmethod_torch.parallel as t_par
+import spectralelementmethod_tpu.parallel.halo as j_halo
+import spectralelementmethod_tpu.parallel.partition as j_part
+import spectralelementmethod_tpu.parallel.sharding as j_sh
+from spectralelementmethod_torch.basis import gll_basis_2d
+from spectralelementmethod_torch.core.discretization import Discretization
+from spectralelementmethod_torch.mesh import rectangle_mesh
+from spectralelementmethod_torch.models.helmholtz import Helmholtz
+from spectralelementmethod_torch.models.poisson import Poisson
+from spectralelementmethod_torch.solver.cg import cg
+from spectralelementmethod_tpu.models.helmholtz import Helmholtz as JHelm
+from spectralelementmethod_tpu.models.poisson import Poisson as JPoisson
+from spectralelementmethod_tpu.solver.cg import cg as j_cg
+
+torch.set_num_threads(2)
+
+PAIRS = {
+    "Poisson.solve_local": (Poisson.solve_local, JPoisson.solve_local),
+    "Poisson.solve_local_batch": (Poisson.solve_local_batch,
+                                  JPoisson.solve_local_batch),
+    "Helmholtz.solve": (Helmholtz.solve, JHelm.solve),
+    "Helmholtz.solve_local": (Helmholtz.solve_local, JHelm.solve_local),
+    "Helmholtz.solve_local_batch": (Helmholtz.solve_local_batch,
+                                    JHelm.solve_local_batch),
+    "cg": (cg, j_cg),
+}
+PAIRS.update({f"parallel.{name}": (getattr(t_par, name), getattr(mod, name))
+              for mod, names in (
+                  (j_sh, ("device_mesh", "pad_elements", "pad_element_arrays",
+                          "sharded_local_poisson_problem")),
+                  (j_halo, ("global_roll", "make_halo_dss_T",
+                            "stack_class_masks",
+                            "make_sharded_fused_operator",
+                            "make_sharded_local_operator")),
+                  (j_part, ("cut_faces", "morton_order", "panel_order",
+                            "rcm_order", "reorder_elements")))
+              for name in names})
+
+
+def _params(fn):
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_signature_matches_reference(name):
+    port, ref = (_params(f) for f in PAIRS[name])
+    if port and port[-1][0] == "device" and (not ref
+                                             or ref[-1][0] != "device"):
+        assert port[-1][2] is None, "device defaults to the card"
+        port = port[:-1]
+    assert [p[0] for p in port] == [p[0] for p in ref]
+    assert [p[1] for p in port] == [p[1] for p in ref]
+    # the defaults agree (the axis name is the same string in both)
+    assert [p[2] for p in port] == [p[2] for p in ref]
+
+
+def _poisson():
+    prob = Poisson(Discretization(rectangle_mesh(4, 4, 2), gll_basis_2d(2)))
+    prob.set_dirichlet("ebc", 0.0)
+    return prob
+
+
+UNPORTED = [
+    ("solve_local", dict(host_loop=True), "item 15"),
+    ("solve_local", dict(precond="pmg"), "item 3"),
+    ("solve_local", dict(precond="fdm"), "item 8"),
+    ("solve_local", dict(compute_dtype=np.float32), "item 15"),
+    ("solve_local", dict(vector_layout="en"), "item 15"),
+    ("solve_local", dict(certify=True), "item 2"),
+    ("solve_local_batch", dict(precond="pmg"), "item 3"),
+    ("solve_local_batch", dict(compute_dtype=np.float32), "item 15"),
+    ("solve_local_batch", dict(vector_layout="en"), "item 15"),
+]
+
+
+@pytest.mark.parametrize("method,kw,item", UNPORTED,
+                         ids=[f"{m}-{next(iter(k))}-{k[next(iter(k))]}"
+                              for m, k, _ in UNPORTED])
+def test_unported_parameters_raise(method, kw, item):
+    prob = _poisson()
+    args = ([np.ones((2, prob.disc.n_nodes))]
+            if method == "solve_local_batch" else [])
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        getattr(prob, method)(*args, device="cpu", **kw)
+
+
+def test_positional_call_binds_the_reference_parameter():
+    """The third positional argument is host_loop in both packages (it
+    used to bind structure in the port)."""
+    with pytest.raises(NotImplementedError, match="host_loop"):
+        _poisson().solve_local(1e-8, 100, True, device="cpu")
