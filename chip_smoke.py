@@ -122,6 +122,10 @@ HELM_PROFILE_ITERS = 128
 # 2548 / 2971 on the annulus, at most 1.21x (one kernel per iteration:
 # 393 / 472 and 6222); the bar leaves room above that and no more
 ITER_RATIO = 1.3
+# plain CG's iterations to TOL_ALL on the rectangle on an H100, with every
+# apply kernel since PR 1 (the assembled-K and the tensor-product ones);
+# plain CG with either apply must stay within 2 of them
+PLAIN_ITS = 392
 # kernels that no solve of the system calls, so that no path launches them
 # (their rows report the launches they got, 0)
 OFF_PATH = {"vector_laplacian_local": (
@@ -281,8 +285,13 @@ def main() -> int:
     prob.set_dirichlet("ebc", lambda x, y: 0.2 * ((x + 1) + (y + 1)))
     ctx = prob._local_setup(dev)
     A = ctx["A"]
-    Kst, aT, plan = A.Kst, A.aT, A.plan
+    Kst, aT, plan, fac = A.Kst, A.aT, A.plan, A.factors
     n, E = disc.n_loc, disc.E
+    m_ = int(round(n ** 0.5))
+    # the element product's flops: the tensor-product form the affine and
+    # the general kernels compute (8 n M + 6 n per element), and the
+    # assembled-K form's 6 n^2, logged beside each affine bound
+    tflops, aflops = (8 * n * m_ + 6 * n) * E, 6 * n * n * E
     inv32, w32 = prob._fused_cg_operands(ctx["ex"], ctx["free_np"], None, dev)
     inv16, w16 = prob._fused_cg_operands(ctx["ex"], ctx["free_np"],
                                          torch.bfloat16, dev)
@@ -304,6 +313,16 @@ def main() -> int:
     mask_bytes = plan.masks.numel()
     small = aT.numel() * 4 + Kst.numel() * 4 + mask_bytes
     rows = []
+    # the apply kernels take the blocks' tensor-product factors
+    affine_apply = functools.partial(kernels.affine_apply_dss, factors=fac)
+    affine_apply_batched = functools.partial(
+        kernels.affine_apply_dss_batched, factors=fac)
+
+    def assembled_ms(bytes_moved, flops, k=1):
+        """The bound of k products had the assembled-K form's flops been
+        the least work (the bounds before the tensor-product kernel), for
+        the log."""
+        return bound(bytes_moved, flops + k * (aflops - tflops))[0]
 
     def kernel_a_row(name, fn, plain, k, with_x, pdt, inv, sc,
                      op=None):
@@ -314,7 +333,7 @@ def main() -> int:
         bytes) — the affine operator of the rectangle by default."""
         op_args, local, pl, flops_loc, op_bytes = op or (
             (Kst, aT), lambda u: kernels._local_product(u, Kst, aT),
-            plan, 6 * n * n * E, small)
+            plan, tflops, small)
         ne = pl.E * n
 
         def rnd(k_, dtype=torch.float32):
@@ -355,18 +374,21 @@ def main() -> int:
         # p in and p' out (p's dtype); inv once
         s_ = 2 if pdt == torch.bfloat16 else 4
         per_rhs = 8 + (8 if with_x else 0) + 2 * s_
-        b_ms, b_by = bound(k * per_rhs * ne + s_ * ne + op_bytes,
-                           k * (flops_loc + (12 if with_x else 10) * ne
-                                + pl.n_entries * pl.E))
+        by_, fl_ = (k * per_rhs * ne + s_ * ne + op_bytes,
+                    k * (flops_loc + (12 if with_x else 10) * ne
+                         + pl.n_entries * pl.E))
+        b_ms, b_by = bound(by_, fl_)
         return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    assembled_bound_ms=(assembled_ms(by_, fl_, k)
+                                        if op is None else None))
 
     # kernel 1, one RHS and a K-stack
     K2 = Kst.reshape(3 * n, n)
     for name, k, fn, plain in (
-            ("affine_apply_dss", 1, kernels.affine_apply_dss,
+            ("affine_apply_dss", 1, affine_apply,
              kernels.affine_apply_dss_plain),
-            ("affine_apply_dss_batched", K, kernels.affine_apply_dss_batched,
+            ("affine_apply_dss_batched", K, affine_apply_batched,
              kernels.affine_apply_dss_batched_plain)):
         sets = [(randn(k), Kst, aT, plan) for _ in range(3 if k == 1 else 2)]
         got = fn(*sets[0])
@@ -380,11 +402,12 @@ def main() -> int:
         lib_ms = gpu_ms(torch.matmul,
                         [(K2, s_[0].view(k, n, E) if k > 1 else s_[0])
                          for s_ in sets])
-        b_ms, b_by = bound(8 * k * nE + small, k * (6 * n * n * E + 5 * nE
-                                                    + plan.n_entries * E))
+        by_, fl_ = 8 * k * nE + small, k * (tflops + plan.n_entries * E)
+        b_ms, b_by = bound(by_, fl_)
         rows.append(dict(name=name, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms,
+                         assembled_bound_ms=assembled_ms(by_, fl_, k)))
 
     # kernel A: f32 and bf16 directions; one RHS and a K-stack; with the
     # lagged x update and deferred (no x)
@@ -459,13 +482,13 @@ def main() -> int:
             s_ = 2 if pdt == torch.bfloat16 else 4
             # r and Ap in, r' and Ap' out (f32); x in and x' out (f32, with
             # x); p, inv and w in and p' out (p's type)
-            b_ms, b_by = bound(
-                (16 + (8 if with_x else 0) + 4 * s_) * nE + small,
-                6 * n * n * E + (22 if with_x else 20) * nE
-                + plan.n_entries * E)
+            by_ = (16 + (8 if with_x else 0) + 4 * s_) * nE + small
+            fl_ = tflops + (22 if with_x else 20) * nE + plan.n_entries * E
+            b_ms, b_by = bound(by_, fl_)
             rows.append(dict(name=name, max_abs_err=max(errs.values()),
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None))
+                             bound_by=b_by, library_ms=None,
+                             assembled_bound_ms=assembled_ms(by_, fl_)))
 
     # the curved path at its full shapes: the polar half-annulus, same E
     t0 = time.perf_counter()
@@ -490,9 +513,6 @@ def main() -> int:
     ginv16, _ = aprob._fused_cg_operands(actx["ex"], actx["free_np"],
                                          torch.bfloat16, dev)
     torch.cuda.synchronize()
-    m_ = int(round(n ** 0.5))
-    # 8 n M + 6 n flops per element (tensor-product derivatives and flux)
-    gflops = (8 * n * m_ + 6 * n) * E
     gbytes = gA.gT.numel() * 4 + gplan.masks.numel() + gA.Dh.numel() * 4
     log(f"  annulus setup (E={adisc.E}) in {time.perf_counter() - t0:.1f} s "
         f"({gplan.n_entries} DSS entries in {gplan.masks.shape[0]} classes, "
@@ -524,12 +544,12 @@ def main() -> int:
              torch.randn((k, 2 * n, E) if k > 1 else (2 * n, E),
                          generator=g, device=dev)) for s_ in sets])
         b_ms, b_by = bound(8 * k * nE + gbytes,
-                           k * (gflops + gplan.n_entries * E))
+                           k * (tflops + gplan.n_entries * E))
         rows.append(dict(name=name, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
     gen_op = (gop, lambda u: kernels._general_local(u, *gop[:2]), gplan,
-              gflops, gbytes)
+              tflops, gbytes)
     for base, k in (("cg_kernel_a_general", 1),
                     ("cg_kernel_a_general_batched", K)):
         fn, plain = kernels.WRAPPERS[base], getattr(kernels, base + "_plain")
@@ -578,7 +598,7 @@ def main() -> int:
             (s_[0].view(-1, E, n) if k > 1 else s_[0],
              torch.randn((k, E, 2 * n) if k > 1 else (E, 2 * n),
                          generator=g, device=dev)) for s_ in sets])
-        b_ms, b_by = bound(8 * k * nE + lbytes, k * gflops)
+        b_ms, b_by = bound(8 * k * nE + lbytes, k * tflops)
         rows.append(dict(name=name, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
@@ -595,7 +615,9 @@ def main() -> int:
     Kcat_r = sumfac.make_affine_element_matrices(Dhat_r, W_r,
                                                  order=ctx["ex"].hier)
     A_sh = make_sharded_fused_operator(ctx["ex"], Kcat_r, a_r, smesh)
-    Kst_b, a_stack, m_stack = A_sh._block_operands
+    Kst_b, a_stack, m_stack, fac_b = A_sh._block_operands
+    block_apply = functools.partial(kernels.affine_block_apply_dss,
+                                    factors=fac_b)
     bplan, H_sh = A_sh._block_plan, A_sh._halo
     Eb, Eext = E // S_SH, bplan.E
     torch.cuda.synchronize()
@@ -607,7 +629,7 @@ def main() -> int:
     for s in range(S_SH):
         args_b = (A_sh._extended(blocks_sh, s), Kst_b, a_stack[s],
                   m_stack[s], bplan)
-        got = kernels.affine_block_apply_dss(*args_b)
+        got = block_apply(*args_b)
         ref = kernels.affine_block_apply_dss_plain(*args_b)
         torch.cuda.synchronize()
         errs_b.append(rel_err(got, ref))
@@ -617,7 +639,7 @@ def main() -> int:
         f"rel {rel_b:.3e}")
     check(rel_b <= 1e-5, "affine_block_apply_dss matches its plain version "
           "on every shard (1e-5 of max)")
-    v_sh, v_gl = A_sh(u_sh), kernels.affine_apply_dss(u_sh, Kst, aT, plan)
+    v_sh, v_gl = A_sh(u_sh), affine_apply(u_sh, Kst, aT, plan)
     torch.cuda.synchronize()
     d_sh, rel_sh = rel_err(v_sh, v_gl)
     log(f"  the sharded apply's centres against the global affine_apply_dss: "
@@ -627,16 +649,16 @@ def main() -> int:
           "(1e-6 of max)")
     sets_b = [(A_sh._extended(randn().split(Eb, dim=1), 0), Kst_b,
                a_stack[0], m_stack[0], bplan) for _ in range(3)]
-    ms_b = gpu_ms(kernels.affine_block_apply_dss, sets_b)
+    ms_b = gpu_ms(block_apply, sets_b)
     plain_b = gpu_ms(kernels.affine_block_apply_dss_plain, sets_b)
     lib_b = gpu_ms(torch.matmul, [(K2, s_[0]) for s_ in sets_b])
-    nEx = n * Eext
-    bb_ms, bb_by = bound(8 * nEx + 12 * Eext + m_stack.shape[1] * Eext
-                         + Kst.numel() * 4,
-                         6 * n * n * Eext + 5 * nEx + bplan.n_entries * Eext)
+    by_b = (8 * n * Eext + 12 * Eext + m_stack.shape[1] * Eext
+            + Kst.numel() * 4)
+    bb_ms, bb_by = bound(by_b, (tflops // E + bplan.n_entries) * Eext)
     rows.append(dict(name="affine_block_apply_dss", max_abs_err=err_b,
                      ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
-                     library_ms=lib_b))
+                     library_ms=lib_b, assembled_bound_ms=bound(
+                         by_b, (aflops // E + bplan.n_entries) * Eext)[0]))
     sets_sh = [(randn(),) for _ in range(3)]
     sharded_ms = gpu_ms(A_sh, sets_sh)
 
@@ -674,8 +696,7 @@ def main() -> int:
         f"{near_r.n_entries} near entries")
     far_sets = []
     for _ in range(3):
-        out0, aux0 = kernels.affine_apply_dss(randn(), Kst, aT, near_r,
-                                              aux=True)
+        out0, aux0 = affine_apply(randn(), Kst, aT, near_r, aux=True)
         far_sets.append((out0, aux0.clone(), far_r))
     got = kernels.far_update(far_sets[0][0].clone(), *far_sets[0][1:])
     ref = kernels.far_update_plain(far_sets[0][0].clone(), *far_sets[0][1:])
@@ -722,8 +743,11 @@ def main() -> int:
         f"the unsplit {glob['ms']:.4f} ms")
 
     for r in rows:
+        asm = r.pop("assembled_bound_ms", None)
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']}"
+            + ("" if asm is None else
+               f"; {asm:.4f} with the assembled-K flops") + ", library "
             f"{r['library_ms']})")
 
     # the deferred-x catch-up x += sum_j alpha_j P_j (plain PyTorch, once
@@ -745,7 +769,7 @@ def main() -> int:
         sdisc = Discretization(rectangle_mesh(24, 20, p), gll_basis_2d(p))
         sprob = Poisson(sdisc, dtype=np.float32)
         sA = sprob._local_setup(dev)["A"]
-        sK, saT, splan = sA.Kst, sA.aT, sA.plan
+        sK, saT, splan, sfac = sA.Kst, sA.aT, sA.plan, sA.factors
         # and the curved path on a small polar annulus (E = 475)
         cdisc = Discretization(annulus_mesh(p, **SMALL_ANNULUS),
                                gll_basis_2d(p))
@@ -767,13 +791,15 @@ def main() -> int:
                 return torch.randn(shape, generator=g, device=dev).to(dtype)
 
             u, cu = rnd(), rnd(cshp)
-            cases = [("affine_apply_dss" + b_, (u, sK, saT, splan)),
-                     ("general_apply_dss" + b_, (cu, *cop)),
+            # (kernel, arguments, the kernel's keywords)
+            cases = [("affine_apply_dss" + b_, (u, sK, saT, splan),
+                      dict(factors=sfac)),
+                     ("general_apply_dss" + b_, (cu, *cop), {}),
                      ("laplacian_local" + b_,
-                      (rnd((k, *ne_) if k > 1 else ne_), *lop_s))]
+                      (rnd((k, *ne_) if k > 1 else ne_), *lop_s), {})]
             if k > 1:
                 cases.append(("vector_laplacian_local",
-                              (rnd((ne_[0], k * ne_[1])), *lop_s)))
+                              (rnd((ne_[0], k * ne_[1])), *lop_s), {}))
             for pdt in (torch.float32, torch.bfloat16):
                 inv = torch.rand(nl, generator=g, device=dev).to(pdt)
                 w_ = torch.rand(nl, generator=g, device=dev).to(pdt)
@@ -782,12 +808,13 @@ def main() -> int:
                 p_, x_ = rnd(dtype=pdt), rnd()
                 cases += [
                     ("cg_kernel_a" + b_,
-                     (u, p_, inv, x_, *sc, sK, saT, splan)),
+                     (u, p_, inv, x_, *sc, sK, saT, splan), {}),
                     (f"cg_kernel_a{b_}_deferred",
-                     (u, p_, inv, sc[0], sK, saT, splan)),
-                    ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1])),
+                     (u, p_, inv, sc[0], sK, saT, splan), {}),
+                    ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1]), {}),
                     ("cg_kernel_a_general" + b_,
-                     (cu, rnd(cshp, pdt), cinv, rnd(cshp), *sc, *cop))]
+                     (cu, rnd(cshp, pdt), cinv, rnd(cshp), *sc, *cop),
+                     {})]
                 if k == 1:
                     single = (u, x_, p_, rnd(), inv, w_, *sc[::-1], sK, saT,
                               splan)
@@ -802,15 +829,17 @@ def main() -> int:
                                                            ref[:-1]))
                             if i != 2))
                         ap_k = kernels.affine_apply_dss(
-                            got[1].float().contiguous(), sK, saT, splan)
-                        single_ap = max(single_ap,
-                                        (got[2] - ap_k).abs().max().item())
+                            got[1].float().contiguous(), sK, saT, splan,
+                            factors=sfac)
+                        # the single kernel's assembled-K product against
+                        # the apply's tensor-product form: ~1e-7 of max
+                        single_ap = max(single_ap, rel_err(got[2], ap_k)[1])
                         single_rel = max(single_rel,
                                          rel_err(got[2], ref[2])[1])
                         rels += [single_rel, rhs_rel(
                             got[-1], ref[-1], len(kernels.SINGLE_PARTS))]
-            for name, args in cases:
-                got = kernels.WRAPPERS[name](*args)
+            for name, args, kw in cases:
+                got = kernels.WRAPPERS[name](*args, **kw)
                 ref = getattr(kernels, name + "_plain")(*args)
                 if isinstance(got, torch.Tensor):
                     got, ref = (got,), (ref,)
@@ -829,19 +858,20 @@ def main() -> int:
         sAsh = make_sharded_fused_operator(
             sex, sumfac.make_affine_element_matrices(sD, sW, order=sex.hier),
             s_a, device_mesh(2))
-        sKb, sab, smb = sAsh._block_operands
+        sKb, sab, smb, sfb = sAsh._block_operands
         su = torch.randn(nl, generator=g, device=dev)
         sbl = su.split(sdisc.E // 2, dim=1)
         for s in range(2):
             args = (sAsh._extended(sbl, s), sKb, sab[s], smb[s],
                     sAsh._block_plan)
-            rels.append(rel_err(kernels.affine_block_apply_dss(*args),
-                                kernels.affine_block_apply_dss_plain(
-                                    *args))[1])
-        rels.append(rel_err(sAsh(su),
-                            kernels.affine_apply_dss(su, sK, saT, splan))[1])
+            rels.append(rel_err(kernels.affine_block_apply_dss(
+                *args, factors=sfb), kernels.affine_block_apply_dss_plain(
+                    *args))[1])
+        rels.append(rel_err(sAsh(su), kernels.affine_apply_dss(
+            su, sK, saT, splan, factors=sfac))[1])
         snear, sfar = splan.split(1)
-        o_, x_ = kernels.affine_apply_dss(su, sK, saT, snear, aux=True)
+        o_, x_ = kernels.affine_apply_dss(su, sK, saT, snear, aux=True,
+                                          factors=sfac)
         rels.append(rel_err(kernels.far_update(o_.clone(), x_, sfar),
                             kernels.far_update_plain(o_.clone(), x_,
                                                      sfar))[1])
@@ -849,11 +879,11 @@ def main() -> int:
               f"every kernel, one RHS and three, the block kernel on 2 "
               f"shards and the far update, matches its plain version "
               f"({max(rels):.1e} <= 1e-5)")
-        check(single_err == 0 and single_ap == 0,
+        check(single_err == 0 and single_ap <= 1e-5,
               f"p={p}: the single kernel's r', p', x' bit for bit against "
-              f"its plain version ({single_err}), Ap' against the apply of "
-              f"its p' ({single_ap}; the plain version's {single_rel:.1e} "
-              "of max)")
+              f"its plain version ({single_err}), Ap' within 1e-5 of max of "
+              f"the apply of its p' ({single_ap:.1e}; the plain version's "
+              f"{single_rel:.1e})")
 
     # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "
@@ -1038,6 +1068,10 @@ def main() -> int:
         check(p_its / ITER_RATIO <= its <= ITER_RATIO * p_its,
               f"{name}@{tol:g} iterations ({its}) within a factor "
               f"{ITER_RATIO} of {ref} ({p_its})")
+    for name in ("plain", "general-plain"):
+        its = its_of(name, TOL_ALL)
+        check(abs(its - PLAIN_ITS) <= 2, f"{name}@{TOL_ALL:g} iterations "
+              f"({its}) within 2 of {PLAIN_ITS}")
     # -- 3e. the element-sharded solves and the far-split solve ---------------
     log(f"[3e] S={S_SH} element-sharded solves and a far-split plain CG on "
         f"the rectangle, tol {TOL_ALL:g} {at()}")

@@ -284,9 +284,10 @@ def sharded_fused_operator_from_numpy(Kcat, a, class_masks, edge_classes,
     ``(dst_slot, src_slot, delta)`` in the same order; ``mesh``: a
     :func:`.parallel.sharding.device_mesh`.  The operator's
     ``_block_operands`` are ``(Kst, aT stack (S, 3, E_ext), mask stack
-    (S, C, E_ext))``, ``_extended(blocks, s)`` builds shard ``s``'s
-    extended input and ``_block_plan`` is the block's class tables: each
-    shard's block kernel can be called on its own.
+    (S, C, E_ext), factors)`` (the :class:`.ops.kernels.AffineFactors` of
+    ``Kst``, or None on the CPU), ``_extended(blocks, s)`` builds shard
+    ``s``'s extended input and ``_block_plan`` is the block's class
+    tables: each shard's block kernel can be called on its own.
     """
     masks = np.asarray(class_masks, dtype=bool)
     ne = len(edge_classes)

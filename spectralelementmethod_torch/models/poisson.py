@@ -330,7 +330,7 @@ class Poisson(BoundaryConditionMixin):
         versions of the kernels.
         ``structure``: the apply of plain CG, of the lift and of the
         true-residual checks — ``"auto"`` detects affine meshes (the
-        assembled-K apply, :func:`..ops.kernels.affine_apply_dss`) and
+        affine apply, :func:`..ops.kernels.affine_apply_dss`) and
         takes the full-factor apply otherwise
         (:func:`..ops.kernels.general_apply_dss`), ``"general"`` forces
         the latter, ``"affine"`` requires an affine mesh.

@@ -30,6 +30,17 @@ import torch
 from ..config import canonical_device, torch_dtype
 
 
+def edges_first_order(hier0, n_edge_block: int) -> np.ndarray:
+    """The exchanges' local node order, "edges-first": [edge interiors |
+    vertices | cell interior], from a cell's hierarchical order ``hier0``
+    (vertices, edges, interior; ``Geometry.hierarchical_node_order``) with
+    ``n_edge_block`` edge-interior nodes.  Entry j is the lex node of
+    L-vector row j."""
+    hier0 = np.asarray(hier0)
+    neb = int(n_edge_block)
+    return np.concatenate([hier0[4:4 + neb], hier0[:4], hier0[4 + neb:]])
+
+
 class LocalExchange:
     """Precomputed DSS-exchange structure for a Discretization.
 
@@ -76,10 +87,8 @@ class LocalExchange:
         # cell interior] (the reference's hierarchical order,
         # sem/geometry.py:197-212, with the vertex block moved behind the
         # edges), so the exchanged rows are the leading block [0, neb + 4)
-        hier0 = geometry.hierarchical_node_order
         neb = self.n_edge_block
-        order = np.concatenate(
-            [hier0[4:4 + neb], hier0[:4], hier0[4 + neb:]])
+        order = edges_first_order(geometry.hierarchical_node_order, neb)
         self.off_edge, self.off_vert = 0, neb
         self.off_int = neb + 4
         #: the local node order (lex index -> L-vector column)

@@ -12,7 +12,8 @@ launches one variant:
 
 * :func:`affine_apply_dss` / :func:`affine_apply_dss_batched` —
   ``DSS(sum_c a_c K_c u)``, the operator apply on affine meshes
-  (``make_fused_affine_laplacian_T``, ``n_rhs = 1`` / k);
+  (``make_fused_affine_laplacian_T``, ``n_rhs = 1`` / k), computed on the
+  card in tensor-product form from the :class:`AffineFactors` of ``K_c``;
 * :func:`general_apply_dss` / :func:`general_apply_dss_batched` — the
   apply on curved meshes, ``DSS(Dhat^T [g0 ur + g1 us; g1 ur + g2 us])``
   with ``[ur; us] = Dhat u`` and full (3, n, E) factor slabs
@@ -75,7 +76,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("sem_kernels.cuh", "sem_general.cuh")
+_HEADERS = ("sem_kernels.cuh", "sem_general.cuh", "sem_affine.cuh")
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
@@ -140,6 +141,7 @@ _SIGNATURES = {
     + [_P],
     "sem_affine_block_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
     "sem_far_update": [_P] * 5 + [_I] * 2 + [_P],
+    "sem_affine_tables_size": [],
 }
 #: the partial sums of the single-kernel iteration, their columns in order
 SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
@@ -207,6 +209,10 @@ def _lib(source: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
         lib.sem_error_string.argtypes = [ctypes.c_int]
         lib.sem_error_string.restype = ctypes.c_char_p
+        if (hasattr(lib, "sem_affine_tables_size")
+                and lib.sem_affine_tables_size() != _AFFINE_TABLES.itemsize):
+            raise RuntimeError("AffineTables layout differs between "
+                               "csrc/sem_affine.cuh and ops/kernels.py")
         _LIBS[source] = lib
     return lib
 
@@ -313,6 +319,92 @@ def _col(v, like: torch.Tensor) -> torch.Tensor:
                            device=like.device).reshape(-1, 1, 1)
 
 
+# -- the affine applies' operand: the blocks K_c in tensor-product form -------
+
+#: the by-value table operand of the affine apply kernels (``AffineTables``
+#: in csrc/sem_affine.cuh): D and W as float32, the lex-to-row map as
+#: uint8, each padded to the largest compiled n
+_AFFINE_TABLES = np.dtype([("D", "<f4", (max(SUPPORTED_N),)),
+                           ("W", "<f4", (max(SUPPORTED_N),)),
+                           ("row", "u1", (max(SUPPORTED_N),))], align=True)
+
+
+def _tensor_factors(D: np.ndarray, h: np.ndarray):
+    """``(D0, D1)`` when ``D`` (2n, n) is ``[D0 (x) I; I (x) D1]`` with its
+    columns permuted by ``h`` (L-vector row -> lex node), else None.  Lex
+    node (a, b) is a M + b; column j holds lex node h[j], so each factor's
+    columns are read through the inverse of ``h``."""
+    n = D.shape[1]
+    m = int(round(n ** 0.5))
+    if m * m != n or D.shape[0] != 2 * n or not np.array_equal(
+            np.sort(h), np.arange(n)):
+        return None
+    hinv = np.argsort(h)
+    D0 = D[np.arange(m) * m][:, hinv[np.arange(m) * m]]
+    D1 = D[n + np.arange(m)][:, hinv[np.arange(m)]]
+    want = np.concatenate([np.kron(D0, np.eye(m)), np.kron(np.eye(m), D1)])
+    return (D0, D1) if np.array_equal(D, want[:, h]) else None
+
+
+class AffineFactors:
+    """The affine apply kernels' operand: the element blocks ``K_c`` in
+    tensor-product form (``sum_c a_c K_c u = Dr^T fr + Ds^T fs``, see
+    csrc/sem_affine.cuh).
+
+    ``Dh`` (2n, n): the stacked derivative ``[D (x) I; I (x) D]`` with its
+    columns in the L-vector order ``hier`` ((n,), L-vector row -> lex
+    node), as the general kernels take it; ``W`` (n,): the lex quadrature
+    weights; ``Kst`` (3, n, n): the blocks these make, as
+    :func:`.sumfac.affine_tensor_factors` checked them.  Host arrays: the
+    kernels take D, W and the inverse of ``hier`` by value
+    (:attr:`tables`).  Raises ``ValueError`` unless ``Dh`` has that form,
+    one 1D derivative in both directions.
+    """
+
+    def __init__(self, Dh, W, hier, Kst):
+        Dh = np.asarray(Dh, np.float64)
+        hier = np.asarray(hier, np.int64)
+        n = Dh.shape[1]
+        fac = _tensor_factors(Dh, hier)
+        if fac is None or not np.array_equal(*fac) or n > max(SUPPORTED_N):
+            raise ValueError(
+                f"Dh ({Dh.shape}) is not [D (x) I; I (x) D] with its columns "
+                f"permuted by hier for n <= {max(SUPPORTED_N)}: the affine "
+                "kernels take one 1D derivative for both directions")
+        self.n = n
+        #: the 1D derivative (M, M), lex: D[a, m] = d l_m / dr at node a
+        self.D = fac[0]
+        self.W = np.asarray(W, np.float64).reshape(n)
+        self.hier = hier
+        self.Kst = np.asarray(Kst, np.float64).reshape(3, n, n)
+        self.tables = np.zeros((), _AFFINE_TABLES)
+        self.tables["D"][:n] = self.D.ravel()
+        self.tables["W"][:n] = self.W
+        self.tables["row"][:n] = np.argsort(hier)
+
+
+def _require_factors(factors, Kst: torch.Tensor, what: str) -> int:
+    """The host pointer of ``factors``' tables, after checking (once per
+    ``Kst`` state) that they make the blocks ``Kst`` the plain version
+    uses, to 1e-6 of their max (``Kst`` is float32)."""
+    n = Kst.shape[-1]
+    if not isinstance(factors, AffineFactors) or factors.n != n:
+        raise ValueError(
+            f"{what} on CUDA tensors computes sum_c a_c K_c u in "
+            "tensor-product form: pass factors= (the AffineFactors of Kst, "
+            "as AffineLaplacianT.factors or sumfac.affine_tensor_factors("
+            f"Kcat) give them for n={n}); got {factors!r}")
+    key = (Kst.data_ptr(), Kst._version, id(factors))
+    if getattr(Kst, "_affine_factors_checked", None) != key:
+        K = Kst.detach().double().cpu().numpy()
+        ref = factors.Kst
+        if np.abs(K - ref).max() > 1e-6 * np.abs(ref).max():
+            raise ValueError(f"{what}: Kst is not the blocks K_c of the "
+                             "given factors")
+        Kst._affine_factors_checked = key
+    return factors.tables.ctypes.data
+
+
 # -- kernel 1: the operator apply ---------------------------------------------
 
 def _with_aux(S, plan: DSSPlan, aux: bool):
@@ -334,7 +426,7 @@ def affine_apply_dss_batched_plain(uT, Kst, aT, plan: DSSPlan):
     return affine_apply_dss_plain(u3, Kst, aT, plan).reshape(uT.shape)
 
 
-def _launch_apply(uT, Kst, aT, plan, k: int):
+def _launch_apply(uT, Kst, aT, plan, k: int, factors):
     """The apply on CUDA tensors: (out, B), B the (k, nb, E) scratch of raw
     exchanged rows."""
     dev = _cuda_device(uT)
@@ -345,11 +437,12 @@ def _launch_apply(uT, Kst, aT, plan, k: int):
     _require(uT, "uT", f32, (k * n, E), dev)
     _require(Kst, "Kst", f32, (3, n, n), dev)
     _require(aT, "aT", f32, (3, E), dev)
+    tables = _require_factors(factors, Kst, "affine_apply_dss")
     out = torch.empty_like(uT)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
     lib = _lib(_APPLY)
     rc = lib.sem_affine_apply_dss(
-        _ptr(uT), _ptr(Kst), _ptr(aT), _ptr(out), _ptr(B),
+        _ptr(uT), tables, _ptr(aT), _ptr(out), _ptr(B),
         _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
         n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"affine_apply_dss (n={n}, E={E}, k={k})")
@@ -357,14 +450,18 @@ def _launch_apply(uT, Kst, aT, plan, k: int):
 
 
 def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
-                     plan: DSSPlan, *, aux: bool = False):
+                     plan: DSSPlan, *, aux: bool = False,
+                     factors: AffineFactors | None = None):
     """``out = DSS(sum_c a_c K_c u)`` on an (n, E) L-vector.
 
     ``Kst`` (3, n, n): the blocks ``K_c``; ``aT`` (3, E): the affine scales;
     ``plan``: the exchange's :class:`.DSSPlan` on the tensors' device.
-    CUDA tensors must be float32 (a float64 CUDA tensor raises).
-    ``aux=True`` returns ``(out, aux)``, ``aux`` (nb, E) the raw (pre-DSS)
-    exchanged rows of the product, which :func:`far_update` reads.
+    CUDA tensors must be float32 (a float64 CUDA tensor raises), and the
+    kernel computes the product in tensor-product form from ``factors``,
+    the :class:`AffineFactors` of ``Kst`` (required there: checked once
+    against ``Kst``; the plain version reads ``Kst``).  ``aux=True``
+    returns ``(out, aux)``, ``aux`` (nb, E) the raw (pre-DSS) exchanged
+    rows of the product, which :func:`far_update` reads.
     """
     if uT.device.type == "cpu":
         _check_plan(plan, None)
@@ -372,7 +469,7 @@ def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
     if uT.dim() != 2 or uT.shape[0] != Kst.shape[-1]:
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Kst.shape[-1]}, E)")
-    out, B = _launch_apply(uT, Kst, aT, plan, 1)
+    out, B = _launch_apply(uT, Kst, aT, plan, 1, factors)
     affine_apply_dss.launches += 1
     return (out, B[0, :plan.nb]) if aux else out
 
@@ -381,14 +478,17 @@ affine_apply_dss.launches = 0
 
 
 def affine_apply_dss_batched(uT: torch.Tensor, Kst: torch.Tensor,
-                             aT: torch.Tensor, plan: DSSPlan) -> torch.Tensor:
+                             aT: torch.Tensor, plan: DSSPlan, *,
+                             factors: AffineFactors | None = None
+                             ) -> torch.Tensor:
     """:func:`affine_apply_dss` of each (n, E) block of a (k * n, E) stack:
-    the k right-hand sides share ``Kst``, ``aT`` and the class tables."""
+    the k right-hand sides share ``Kst`` (``factors``), ``aT`` and the
+    class tables."""
     k = _n_rhs(uT.shape[0], Kst.shape[-1])
     if uT.device.type == "cpu":
         _check_plan(plan, None)
         return affine_apply_dss_batched_plain(uT, Kst, aT, plan)
-    out, _ = _launch_apply(uT, Kst, aT, plan, k)
+    out, _ = _launch_apply(uT, Kst, aT, plan, k, factors)
     affine_apply_dss_batched.launches += 1
     return out
 
@@ -914,7 +1014,9 @@ def affine_block_apply_dss_plain(uT_ext, Kst, aT_ext, M_ext,
 
 def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
                            aT_ext: torch.Tensor, M_ext: torch.Tensor,
-                           block_plan: DSSPlan) -> torch.Tensor:
+                           block_plan: DSSPlan, *,
+                           factors: AffineFactors | None = None
+                           ) -> torch.Tensor:
     """``DSS(sum_c a_c K_c u)`` on one shard's halo-extended (n, E_ext)
     block: the reference's ``apply_block(uT, aT, M)``.
 
@@ -925,7 +1027,7 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
     (:meth:`.DSSPlan.block_view`).  Sources outside the block count as
     zero, so the result is exact on the columns at least the largest
     |delta| from either end (the shard's centre).  CUDA tensors must be
-    float32.
+    float32; ``factors`` as in :func:`affine_apply_dss`.
     """
     if uT_ext.device.type == "cpu":
         _check_plan(block_plan, None)
@@ -944,12 +1046,13 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
         raise ValueError(f"block plan of E={block_plan.E} with "
                          f"{block_plan.n_classes} classes; got E={E} and "
                          f"{M_ext.shape[0]} mask rows")
+    tables = _require_factors(factors, Kst, "affine_block_apply_dss")
     out = torch.empty_like(uT_ext)
     B = torch.empty((max(block_plan.nb, 1), E), dtype=torch.float32,
                     device=dev)
     lib = _lib(_APPLY)
     rc = lib.sem_affine_block_apply_dss(
-        _ptr(uT_ext), _ptr(Kst), _ptr(aT_ext), _ptr(M_ext), _ptr(out),
+        _ptr(uT_ext), tables, _ptr(aT_ext), _ptr(M_ext), _ptr(out),
         _ptr(B), _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n, E,
         block_plan.nb, _stream(dev))
     _check(lib, rc, f"affine_block_apply_dss (n={n}, E={E})")
@@ -1188,16 +1291,7 @@ def _check_tensor_product(Dh: torch.Tensor, hier: torch.Tensor) -> None:
         return
     D = Dh.detach().double().cpu().numpy()
     h = hier.detach().cpu().numpy().astype(np.int64)
-    n = D.shape[1]
-    m = int(round(n ** 0.5))
-    hinv = np.argsort(h)
-    ok = m * m == n and np.array_equal(np.sort(h), np.arange(n))
-    if ok:
-        D0 = D[np.arange(m) * m][:, hinv[np.arange(m) * m]]
-        D1 = D[n + np.arange(m)][:, hinv[np.arange(m)]]
-        want = np.concatenate([np.kron(D0, np.eye(m)), np.kron(np.eye(m), D1)])
-        ok = np.array_equal(D, want[:, h])
-    if not ok:
+    if _tensor_factors(D, h) is None:
         raise ValueError("Dh is not a hier-permuted tensor-product stacked "
                          "derivative [D0 (x) I; I (x) D1]; the kernel takes "
                          "only that form")

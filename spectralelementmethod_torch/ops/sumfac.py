@@ -11,8 +11,9 @@ weak Laplacian collapses to ``A_e = a0(e) K0 + a1(e) K1 + a2(e) K2`` with
 three fixed (n, n) matrices (:func:`make_affine_element_matrices`) and
 three scalars per element (:func:`affine_factorization`); the operator is
 then ``DSS(sum_c a_c K_c u)`` (:class:`AffineLaplacianT`, one hand-written
-CUDA kernel, :func:`.kernels.affine_apply_dss`).  A curved mesh or a
-variable coefficient keeps the full (3, n, E) factor slabs
+CUDA kernel, :func:`.kernels.affine_apply_dss`, which computes the product
+in tensor-product form from :func:`affine_tensor_factors`).  A curved mesh
+or a variable coefficient keeps the full (3, n, E) factor slabs
 (:class:`GeneralLaplacianT`: ``DSS(Dhat^T [g0 ur + g1 us; g1 ur + g2 us])``
 with ``[ur; us] = Dhat u``, :func:`.kernels.general_apply_dss`).
 :func:`make_local_laplacian_operator` picks one by the reference's
@@ -44,9 +45,11 @@ import copy
 import numpy as np
 import torch
 
+from ..basis import gll_basis_2d
 from ..config import resolve_device, torch_dtype
+from ..mesh.geometry import Quadrilateral
 from . import kernels
-from .exchange import DSSPlan
+from .exchange import DSSPlan, edges_first_order
 
 
 def gather(u, gather_nodes, shape):
@@ -183,6 +186,58 @@ def make_affine_element_matrices(Dhat, W, order=None):
     return np.concatenate([K0, K1, K2], axis=1)
 
 
+def affine_tensor_factors(Kcat) -> kernels.AffineFactors:
+    """The tensor-product factors of the assembled blocks ``Kcat``, the
+    operand of the affine apply kernels.
+
+    ``Kcat`` (n, 3n) = [K0 | K1 | K2] with n = M^2 must be
+    :func:`make_affine_element_matrices` of the degree M - 1 GLL basis
+    (this package's own weights and derivative, the derivative in float64
+    or rounded to float32 as a float32 model builds it) in the exchanges'
+    edges-first node order, to 1e-12 of its max, checked in float64.  Returns their
+    :class:`.kernels.AffineFactors`; raises ``ValueError`` otherwise.
+    """
+    Kcat = np.asarray(Kcat, dtype=np.float64)
+    n = Kcat.shape[0]
+    m = int(round(n ** 0.5))
+    if Kcat.shape != (n, 3 * n) or m * m != n:
+        raise ValueError(f"Kcat of shape {Kcat.shape}: the affine kernels "
+                         "take the (n, 3n) blocks of an M x M node grid")
+    basis = gll_basis_2d(m - 1)
+    D = np.asarray(basis.subbases[0].D1, np.float64)
+    W = np.asarray(basis.weight_grid(), np.float64).reshape(-1)
+    hier = edges_first_order(Quadrilateral(m, m).hierarchical_node_order,
+                             4 * (m - 2))
+    tol = 1e-12 * np.abs(Kcat).max()
+    for D_ in (D, D.astype(np.float32)):
+        Dhat = make_stacked_derivative(D_, D_)
+        if np.abs(make_affine_element_matrices(Dhat, W, order=hier)
+                  - Kcat).max() <= tol:
+            Kst = np.stack([Kcat[:, c * n:(c + 1) * n] for c in range(3)])
+            return kernels.AffineFactors(
+                np.asarray(Dhat, np.float64)[:, hier], W, hier, Kst)
+    raise ValueError(
+        f"Kcat (n={n}) is not the stiffness blocks of the degree {m - 1} GLL "
+        "basis in the edges-first node order (to 1e-12 of its max): the "
+        "CUDA apply computes sum_c a_c K_c u in tensor-product form from "
+        "that basis's derivative and weights, and takes no other Kcat")
+
+
+def _operator_factors(Kcat, device) -> kernels.AffineFactors | None:
+    """:func:`affine_tensor_factors` of an operator on ``device``.  On a
+    CUDA device a ``Kcat`` without them raises where a kernel is compiled
+    for its n: the kernels take no other.  Otherwise a ``Kcat`` without
+    them gives None: the plain version reads ``Kcat`` alone, and the
+    apply raises for an n without a kernel."""
+    try:
+        return affine_tensor_factors(Kcat)
+    except ValueError:
+        if (torch.device(device).type == "cuda"
+                and np.shape(Kcat)[0] in kernels.SUPPORTED_N):
+            raise
+        return None
+
+
 class LaplacianT(torch.nn.Module):
     """Weak Laplacian on (n, E) L-vectors, or on (n_rhs, n, E) stacks
     (:meth:`stacked`): the Dirichlet masking shared by the affine and the
@@ -298,8 +353,10 @@ class AffineLaplacianT(LaplacianT):
     ``Kcat`` (n, 3n) = [K0 | K1 | K2] in the L-vector node order, ``a``
     (E, 3) affine scales; the rest as in :class:`LaplacianT`.  The apply
     is :func:`.kernels.affine_apply_dss` (``affine_apply_dss_batched`` on
-    stacks) — the CUDA kernel on a CUDA tensor, its plain PyTorch version
-    on the CPU.
+    stacks) — the CUDA kernel on a CUDA tensor, computing the product in
+    tensor-product form from :attr:`factors`
+    (:func:`affine_tensor_factors` of ``Kcat``: on a CUDA device a
+    ``Kcat`` without them raises), its plain PyTorch version on the CPU.
     """
 
     structure = "affine"
@@ -317,15 +374,19 @@ class AffineLaplacianT(LaplacianT):
             "Kst", torch.as_tensor(Kst, device=dev).to(dtype).contiguous())
         aT = np.ascontiguousarray(np.asarray(a, dtype=np.float64).T)
         self.register_buffer("aT", torch.as_tensor(aT, device=dev).to(dtype))
+        #: the blocks' tensor-product factors (host arrays; None on the
+        #: CPU for a Kcat that has none)
+        self.factors = _operator_factors(Kcat, dev)
 
     def _apply(self, uT):
         return self._split_apply(
             lambda u, pl, aux: kernels.affine_apply_dss(
-                u, self.Kst, self.aT, pl, aux=aux), uT)
+                u, self.Kst, self.aT, pl, aux=aux, factors=self.factors),
+            uT)
 
     def _apply_batched(self, uT):
-        return kernels.affine_apply_dss_batched(uT, self.Kst, self.aT,
-                                                self.plan)
+        return kernels.affine_apply_dss_batched(
+            uT, self.Kst, self.aT, self.plan, factors=self.factors)
 
     def fused_cg_kernels(self, n_rhs=None, defer_x: bool = False):
         """``(kA, kB)`` of the fused CG on this operator: single-RHS

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import kernels
+from ..ops import kernels, sumfac
 
 ELEM_AXIS = "elements"
 
@@ -224,7 +224,10 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     apply.
 
     ``Kcat``: (n, 3n) assembled element stiffness
-    (:func:`..ops.sumfac.make_affine_element_matrices`); ``a``: (E, 3)
+    (:func:`..ops.sumfac.make_affine_element_matrices`; the block kernel
+    computes it in tensor-product form from
+    :func:`..ops.sumfac.affine_tensor_factors`, so on a CUDA device a
+    ``Kcat`` without them raises); ``a``: (E, 3)
     affine scales of the exchange's (padded) elements; ``mesh``: a
     :func:`.sharding.device_mesh` (its ``size`` shards, its ``device``);
     ``free_local``: optional (n, E) bool Dirichlet mask.  Returns ``A(uT)``
@@ -266,6 +269,7 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     Kst = torch.as_tensor(np.stack([Kcat[:, c * n:(c + 1) * n]
                                     for c in range(3)]),
                           device=dev).to(torch.float32).contiguous()
+    factors = sumfac._operator_factors(Kcat, dev)
     aT_g = np.ascontiguousarray(np.asarray(a, np.float64).T)      # (3, E)
     M_g = stack_class_masks(ex)                                  # (C, E)
     if M_g.shape[0] == 0:
@@ -295,7 +299,8 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
         out = torch.empty_like(uT)
         for s in range(S):
             blk = kernels.affine_block_apply_dss(
-                extended(blocks, s), Kst, a_stack[s], m_stack[s], block_plan)
+                extended(blocks, s), Kst, a_stack[s], m_stack[s], block_plan,
+                factors=factors)
             out[:, s * Eb:(s + 1) * Eb] = blk[:, H:H + Eb]
         if free is not None:
             out = torch.where(free, out, 0.0)
@@ -303,7 +308,7 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
 
     A._halo = H
     A._block_plan = block_plan
-    A._block_operands = (Kst, a_stack, m_stack)
+    A._block_operands = (Kst, a_stack, m_stack, factors)
     A._extended = extended
     return A
 
