@@ -15,7 +15,9 @@ Phases (any failure exits non-zero and prints no result line):
    card could take; the same for the curved-mesh kernels (the general
    apply and kernel A, one RHS and K) on the polar half-annulus of the
    same E; the single-kernel iteration (f32 and bf16, with x and
-   deferred), bit for bit on r', p', Ap' and x'; time the deferred-x
+   deferred), bit for bit on r', p' and x'; the Ap' of every affine
+   kernel A and single-kernel variant bit for bit against the affine
+   apply of its own stored p'; time the deferred-x
    catch-up; the element-local Laplacian of the row-major (E, n) layout
    (one array, K packed components, a stack of K) on the annulus factors
    of the Helmholtz problem below; the element-sharded operator on S_SH = 4
@@ -26,7 +28,8 @@ Phases (any failure exits non-zero and prints no result line):
    split applies of the rectangle and the annulus against the unsplit);
    then hold every kernel against its plain version at the other compiled
    orders (p = 2..7) on a small rectangle (the block kernel on 2 shards,
-   the far update at ``max_halo=1``) and a small annulus;
+   the far update at ``max_halo=1``; kernel A's and the single kernel's
+   Ap' against the apply of their own p' bit for bit) and a small annulus;
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
    deferred x (``defer_x=8``), with the general apply forced
@@ -330,7 +333,13 @@ def main() -> int:
         checks, times and the bound (k stacks of r, p, p', Ap' and, with
         x, x and x'; inv once).  ``op``: (operator arguments, element-local
         product, plan, bytes and flops per RHS of the product, operator
-        bytes) — the affine operator of the rectangle by default."""
+        bytes) — the affine operator of the rectangle by default, whose
+        kernels take its factors: there p' and x' must equal the plain
+        version's bit for bit (p' within 1 bf16 ulp) and Ap' the affine
+        apply of the kernel's own stored p' bit for bit."""
+        affine = op is None
+        if affine:
+            fn = functools.partial(fn, factors=fac)
         op_args, local, pl, flops_loc, op_bytes = op or (
             (Kst, aT), lambda u: kernels._local_product(u, Kst, aT),
             plan, tflops, small)
@@ -351,8 +360,11 @@ def main() -> int:
         gp, gAp, gd = got[0], got[1], got[-1]
         rp, rAp, rd = ref[0], ref[1], ref[-1]
         if with_x:
-            _, rel_x = rel_err(got[2], ref[2])
-            check(rel_x <= 1e-5, f"{name} x' (1e-5)")
+            err_x, rel_x = rel_err(got[2], ref[2])
+            if affine:
+                check(err_x == 0, f"{name} x' bit for bit")
+            else:
+                check(rel_x <= 1e-5, f"{name} x' (1e-5)")
         if pdt == torch.bfloat16:
             check(bf16_ulp_ok(gp, rp), f"{name} p' within 1 bf16 ulp")
             # Ap' and the partials from the kernel's own stored p'
@@ -360,13 +372,22 @@ def main() -> int:
             S = local(p3)
             rAp, rd = roll_dss_T(S, pl).view(gAp.shape), (p3 * S).sum(1).T
         else:
-            _, rel_p = rel_err(gp, rp)
-            check(rel_p <= 1e-5, f"{name} p' (1e-5)")
+            err_p, rel_p = rel_err(gp, rp)
+            if affine:
+                check(err_p == 0, f"{name} p' bit for bit")
+            else:
+                check(rel_p <= 1e-5, f"{name} p' (1e-5)")
         err, rel = rel_err(gAp, rAp)
         check(rel <= 1e-5, f"{name} Ap' (1e-5 of max)")
         d_rel = rhs_rel(gd, rd, k)
         check(d_rel <= 1e-5, f"{name} <p', Ap'> partials ({d_rel:.2e} <= "
               "1e-5)")
+        if affine:
+            own = (affine_apply if k == 1 else affine_apply_batched)(
+                gp.float().contiguous(), Kst, aT, pl)
+            d_own = (gAp - own).abs().max().item()
+            check(d_own == 0, f"{name} Ap' equals the affine apply of its "
+                  f"own stored p' bit for bit ({d_own:.1e})")
         log(f"  {name}: max abs err Ap' {err:.3e}, rel {rel:.3e}")
         ms = gpu_ms(fn, sets)
         plain_ms = gpu_ms(plain, sets)
@@ -453,14 +474,18 @@ def main() -> int:
 
     # the single-kernel iteration, f32 and bf16 p, inv and w, with x and
     # deferred; r, Ap and p consistent (the DSS of random data), as the CG
-    # loop's are.  r', p', x' and Ap' must equal the plain version's bit for
-    # bit; the partials sum in another order
+    # loop's are.  r', p' and x' must equal the plain version's bit for
+    # bit; Ap' (the tensor-product form against the plain version's
+    # torch.matmul of Kst) to 1e-5 of max and the partials (summed in
+    # another order) to 1e-6; Ap' the affine apply of the kernel's own
+    # stored p' bit for bit
     def consistent(dtype=torch.float32):
         return roll_dss_T(randn(), plan).to(dtype)
 
     for base, with_x in (("cg_kernel_single", True),
                          ("cg_kernel_single_deferred", False)):
-        fn, plain = kernels.WRAPPERS[base], getattr(kernels, base + "_plain")
+        fn = functools.partial(kernels.WRAPPERS[base], factors=fac)
+        plain = getattr(kernels, base + "_plain")
         for tag, pdt, inv, w in (("f32", torch.float32, inv32, w32),
                                  ("bf16", torch.bfloat16, inv16, w16)):
             name = f"{base}[{tag}]"
@@ -472,11 +497,19 @@ def main() -> int:
             errs = {what: (a.float() - b.float()).abs().max().item()
                     for what, a, b in zip(("r'", "p'", "Ap'", "x'"),
                                           got[:-1], ref[:-1])}
+            ap_err, ap_rel = rel_err(got[2], ref[2])
+            errs.pop("Ap'")
             d_rel = rhs_rel(got[-1], ref[-1], len(kernels.SINGLE_PARTS))
-            log(f"  {name}: max abs err {errs}, partials {d_rel:.2e}")
+            own = affine_apply(got[1].float().contiguous(), Kst, aT, plan)
+            d_own = (got[2] - own).abs().max().item()
+            log(f"  {name}: max abs err {errs}, Ap' {ap_err:.3e} (rel "
+                f"{ap_rel:.3e}), partials {d_rel:.2e}")
             check(max(errs.values()) == 0,
                   f"{name} {', '.join(errs)} bit for bit")
+            check(ap_rel <= 1e-5, f"{name} Ap' (1e-5 of max)")
             check(d_rel <= 1e-6, f"{name} partials ({d_rel:.2e} <= 1e-6)")
+            check(d_own == 0, f"{name} Ap' equals the affine apply of its "
+                  f"own stored p' bit for bit ({d_own:.1e})")
             ms = gpu_ms(fn, sets)
             plain_ms = gpu_ms(plain, sets)
             s_ = 2 if pdt == torch.bfloat16 else 4
@@ -485,7 +518,7 @@ def main() -> int:
             by_ = (16 + (8 if with_x else 0) + 4 * s_) * nE + small
             fl_ = tflops + (22 if with_x else 20) * nE + plan.n_entries * E
             b_ms, b_by = bound(by_, fl_)
-            rows.append(dict(name=name, max_abs_err=max(errs.values()),
+            rows.append(dict(name=name, max_abs_err=ap_err,
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None,
                              assembled_bound_ms=assembled_ms(by_, fl_)))
@@ -780,8 +813,9 @@ def main() -> int:
         ne_ = (cdisc.E, sdisc.n_loc)
         nl = (sdisc.n_loc, sdisc.E)
         # the single kernel: r', p', x' (pointwise) against the plain
-        # version, and Ap' against the hand-written apply of its own p'
-        rels, single_err, single_ap, single_rel = [], 0.0, 0.0, 0.0
+        # version; its Ap' and kernel A's against the hand-written apply of
+        # their own stored p', bit for bit
+        rels, single_err, own_err = [], 0.0, 0.0
         for k, b_, sc in ((1, "", (beta, alpha_prev)),
                           (3, "_batched", (scal[K][0][:3], scal[K][1][:3]))):
             shp = (k * sdisc.n_loc, sdisc.E)
@@ -808,9 +842,11 @@ def main() -> int:
                 p_, x_ = rnd(dtype=pdt), rnd()
                 cases += [
                     ("cg_kernel_a" + b_,
-                     (u, p_, inv, x_, *sc, sK, saT, splan), {}),
+                     (u, p_, inv, x_, *sc, sK, saT, splan),
+                     dict(factors=sfac)),
                     (f"cg_kernel_a{b_}_deferred",
-                     (u, p_, inv, sc[0], sK, saT, splan), {}),
+                     (u, p_, inv, sc[0], sK, saT, splan),
+                     dict(factors=sfac)),
                     ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1]), {}),
                     ("cg_kernel_a_general" + b_,
                      (cu, rnd(cshp, pdt), cinv, rnd(cshp), *sc, *cop),
@@ -821,7 +857,7 @@ def main() -> int:
                     for name, args in (("cg_kernel_single", single),
                                        ("cg_kernel_single_deferred",
                                         single[:3] + single[4:])):
-                        got = kernels.WRAPPERS[name](*args)
+                        got = kernels.WRAPPERS[name](*args, factors=sfac)
                         ref = getattr(kernels, name + "_plain")(*args)
                         single_err = max(single_err, *(
                             (a.float() - b.float()).abs().max().item()
@@ -831,18 +867,20 @@ def main() -> int:
                         ap_k = kernels.affine_apply_dss(
                             got[1].float().contiguous(), sK, saT, splan,
                             factors=sfac)
-                        # the single kernel's assembled-K product against
-                        # the apply's tensor-product form: ~1e-7 of max
-                        single_ap = max(single_ap, rel_err(got[2], ap_k)[1])
-                        single_rel = max(single_rel,
-                                         rel_err(got[2], ref[2])[1])
-                        rels += [single_rel, rhs_rel(
+                        own_err = max(own_err,
+                                      (got[2] - ap_k).abs().max().item())
+                        rels += [rel_err(got[2], ref[2])[1], rhs_rel(
                             got[-1], ref[-1], len(kernels.SINGLE_PARTS))]
             for name, args, kw in cases:
                 got = kernels.WRAPPERS[name](*args, **kw)
                 ref = getattr(kernels, name + "_plain")(*args)
                 if isinstance(got, torch.Tensor):
                     got, ref = (got,), (ref,)
+                elif name.startswith("cg_kernel_a") and "general" not in name:
+                    own = kernels.WRAPPERS["affine_apply_dss" + b_](
+                        got[0].float().contiguous(), sK, saT, splan,
+                        factors=sfac)
+                    own_err = max(own_err, (got[1] - own).abs().max().item())
                 # outputs of the stack's shape elementwise; partials as
                 # per-RHS totals
                 rels += [rel_err(a, b)[1] if a.shape == b.shape
@@ -879,11 +917,11 @@ def main() -> int:
               f"every kernel, one RHS and three, the block kernel on 2 "
               f"shards and the far update, matches its plain version "
               f"({max(rels):.1e} <= 1e-5)")
-        check(single_err == 0 and single_ap <= 1e-5,
+        check(single_err == 0 and own_err == 0,
               f"p={p}: the single kernel's r', p', x' bit for bit against "
-              f"its plain version ({single_err}), Ap' within 1e-5 of max of "
-              f"the apply of its p' ({single_ap:.1e}; the plain version's "
-              f"{single_rel:.1e})")
+              f"its plain version ({single_err}); its Ap' and every kernel "
+              f"A's equal the affine apply of their own stored p' bit for "
+              f"bit ({own_err})")
 
     # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "

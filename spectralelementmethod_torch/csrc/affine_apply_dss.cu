@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(aff_threads<N>(), 4)
   u += (size_t)blockIdx.y * N * E;
   out += (size_t)blockIdx.y * N * E;
   B += (size_t)blockIdx.y * nb * E;
-  float x[M], S[M];
+  float x[M], S[M], y[M];
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
   if (valid) {
     a0 = aT[e];
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(aff_threads<N>(), 4)
 #pragma unroll
   for (int a = 0; a < M; ++a)
     x[a] = valid ? u[(size_t)t.row[a * M + w] * E + e] : 0.f;
-  aff_product<N>(sm, t, x, a0, a1, a2, S);
+  aff_product<N>(sm, t, x, a0, a1, a2, S, y);
   if (!valid) return;
 #pragma unroll
   for (int c = 0; c < M; ++c) {

@@ -6,7 +6,7 @@
 //   p'  = inv * r' + beta * p, stored in p's type (f32 or bf16)
 //   Ap' = DSS(sum_c a_c K_c p'_stored)
 //   x'  = x + alpha_prev * p           (left out with DEFER)
-//   parts[g, :] = block g's partial sums of
+//   parts[g, :] = partial sums of
 //         [denom, c1, c2, e1, e2] = [p'_stored . S (S before the DSS),
 //                                    <r', inv Ap'>_w, <Ap', inv Ap'>_w,
 //                                    <r', inv r'>_w, <r', r'>_w]
@@ -25,36 +25,50 @@
 // are pointwise.
 //
 // What bounds it on an H100 (p = 8, E = 99,856, one (n, E) f32 pass 32.35
-// MB): with x and f32 p, inv, w it moves ten passes (r, Ap, p, x, inv, w in;
-// r', p', Ap', x' out), 323.5 MB or 97 us at 3.35 TB/s, against 59 us for
-// the 3.93 GFLOP of the assembled-K product: bound by bytes.  With bf16 p,
-// inv and w, 258.8 MB (77 us); deferred, 258.8 MB in f32 and 194.1 MB
-// (58 us) in bf16, where the product's flops bound it.
+// MB): bytes.  With x and f32 p, inv, w it moves ten passes (r, Ap, p, x,
+// inv, w in; r', p', Ap', x' out), 323.5 MB or 97 us at 3.35 TB/s; with
+// bf16 p, inv and w, 258.8 MB (77 us); deferred, 258.8 MB in f32 and 194.1
+// MB (58 us) in bf16.  The product in tensor-product form does 0.63 GFLOP
+// (9 us at 67 TFLOP/s).
 //
-// Design: kernel A's (cg_kernel_a.cu) — one thread per element, p' in
-// registers, K in dynamic shared memory, the exchanged rows [0, nb) of S to
-// the scratch B and the class gather as a second launch.  The first pass
-// over the rows forms r', p' and x' and the e1, e2 partials; the product
-// pass accumulates denom and, on the element-interior rows [nb, n) whose
-// Ap' it writes directly, c1 and c2 (reading back r', inv and w).  The
-// gather launch forms Ap' on the exchanged rows and adds their c1 and c2:
-// its blocks write rows [G, 2G) of parts (zeros in the other columns), so
-// parts is (2G, 5), or (G, 5) when nothing is exchanged.
-#include "sem_kernels.cuh"
+// Design: kernel A's (cg_kernel_a.cu) tile of 32 elements and M warps
+// around aff_product (sem_affine.cuh).  Warp w's column line (a, w) reads
+// r, Ap, p, x, inv and w at rows row[a M + w], forms r', p' and x' (with
+// kernel A's explicit roundings, so they match the plain version bit for
+// bit) and the pointwise e1 and e2, and hands the stored p' to the
+// product.  Its row line (w, c) writes S to B (rows < nb) or to Ap' and
+// forms denom from the row-line p' the product returns, as kernel A does;
+// Ap' is the apply's product of the stored p', bit for bit.  c1 and c2
+// need w inv r' and w inv at the row-line nodes: the column-line owner
+// keeps them in registers and writes them into the product's hand-over
+// slots that only it reads after the flux (its hook, between the second
+// and the third barrier), and the row-line owner reads them after the
+// third, so they cost no global read-back and no extra shared memory.  On
+// the interior rows [nb, n), whose Ap' is final, that gives c1 and c2;
+// the gather launch forms Ap' on the exchanged rows and adds theirs.
+// Layout of parts: rows [0, G_tile) one per tile (G_tile = ceil(E / 32)),
+// then, when nb > 0, rows [G_tile, G_tile + G_gather) one per gather block
+// of 256 elements (G_gather = ceil(E / 256)), with zeros in the other
+// columns.  The launch bounds allow 2 blocks (18 warps) per SM: the three
+// column-line arrays it keeps through the product need the registers.
+#include "sem_affine.cuh"
+
+#include <cstring>
 
 namespace sem {
 
 constexpr int kParts = 5;
+constexpr int kSingleMinBlocks = 2;
 
 template <int N, typename PT, bool DEFER>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(aff_threads<N>(), kSingleMinBlocks)
     cg_single_local_kernel(const float* __restrict__ r,
                            const float* __restrict__ ap,
                            const PT* __restrict__ p,
                            const float* __restrict__ x,
                            const PT* __restrict__ inv,
-                           const PT* __restrict__ w,
-                           const float* __restrict__ K,
+                           const PT* __restrict__ wt,
+                           const AffineTables t,
                            const float* __restrict__ aT,
                            const float* __restrict__ alpha_prev_v,
                            const float* __restrict__ beta_v,
@@ -62,57 +76,75 @@ __global__ void __launch_bounds__(kThreads, 2)
                            float* __restrict__ ap_out,
                            float* __restrict__ x_out, float* __restrict__ B,
                            float* __restrict__ parts, int E, int nb) {
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  load_K<N>(K, Ks);
+  constexpr int M = AffSmem<N>::M;
+  __shared__ AffSmem<N> sm;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int e = blockIdx.x * kAffTile + lane;
+  const bool valid = e < E;
   const float alpha_prev = *alpha_prev_v, beta = *beta_v;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  float denom = 0.f, c1 = 0.f, c2 = 0.f, e1 = 0.f, e2 = 0.f;
-  if (e < E) {
-    constexpr int NP = pad4(N);
-    float pv[NP];
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  if (valid) {
+    a0 = aT[e];
+    a1 = aT[E + e];
+    a2 = aT[2 * E + e];
+  }
+  // [denom, c1, c2, e1, e2]
+  float sums[kParts] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  // the column line (a, w): r', p', x', e1, e2, and w inv r' (q1) and
+  // w inv (q2) for the row-line owners
+  float xv[M], q1[M], q2[M];
 #pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      if (j < N) {
-        const size_t o = (size_t)j * E + e;
-        const float pj = to_f32(p[o]);
-        // explicit roundings (no FMA contraction): r', x' and the stored
-        // direction match the plain version bit for bit
-        const float rv = __fsub_rn(r[o], __fmul_rn(alpha_prev, ap[o]));
-        r_out[o] = rv;
-        if (!DEFER) x_out[o] = __fadd_rn(x[o], __fmul_rn(alpha_prev, pj));
-        const float iv = to_f32(inv[o]);
-        const PT st =
-            from_f32<PT>(__fadd_rn(__fmul_rn(iv, rv), __fmul_rn(beta, pj)));
-        p_out[o] = st;
-        pv[j] = to_f32(st);
-        const float wr = to_f32(w[o]) * rv;
-        e1 = fmaf(wr, iv * rv, e1);
-        e2 = fmaf(wr, rv, e2);
-      } else {
-        pv[j] = 0.f;
-      }
+  for (int a = 0; a < M; ++a) {
+    xv[a] = q1[a] = q2[a] = 0.f;
+    if (valid) {
+      const size_t o = (size_t)t.row[a * M + w] * E + e;
+      const float pj = to_f32(p[o]);
+      // explicit roundings (no FMA contraction): r', x' and the stored
+      // direction match the plain version bit for bit
+      const float rv = __fsub_rn(r[o], __fmul_rn(alpha_prev, ap[o]));
+      r_out[o] = rv;
+      if (!DEFER) x_out[o] = __fadd_rn(x[o], __fmul_rn(alpha_prev, pj));
+      const float iv = to_f32(inv[o]);
+      const PT st =
+          from_f32<PT>(__fadd_rn(__fmul_rn(iv, rv), __fmul_rn(beta, pj)));
+      p_out[o] = st;
+      xv[a] = to_f32(st);
+      const float wv = to_f32(wt[o]);
+      const float wr = wv * rv;
+      sums[3] = fmaf(wr, iv * rv, sums[3]);
+      sums[4] = fmaf(wr, rv, sums[4]);
+      q2[a] = wv * iv;
+      q1[a] = q2[a] * rv;
     }
-    const float a0 = aT[e], a1 = aT[E + e], a2 = aT[2 * E + e];
-    for (int i = 0; i < N; ++i) {
-      const float s = affine_row<N>(Ks, i, pv, a0, a1, a2);
-      const size_t o = (size_t)i * E + e;
-      // this thread wrote p_out, r_out above; read them back rather than
-      // index the register array with a run-time row
-      denom = fmaf(to_f32(p_out[o]), s, denom);
-      if (i < nb) {
-        B[o] = s;
+  }
+  float S[M], y[M];
+  // node (a, w)'s q1 into the column-line slot sm.s[a M + w], its q2 into
+  // the row-line slot sm.r[w M + a]: no other thread reads either slot
+  // between the second and the third barrier
+  aff_product<N>(sm, t, xv, a0, a1, a2, S, y, [&](AffSmem<N>& h) {
+#pragma unroll
+    for (int a = 0; a < M; ++a) {
+      h.s[a * M + w][lane] = q1[a];
+      h.r[w * M + a][lane] = q2[a];
+    }
+  });
+  // the row line (w, c): node (w, c) is column-line node (w, c) of warp c,
+  // whose q1 sits at sm.s[w M + c] and q2 at sm.r[c M + w]
+#pragma unroll
+  for (int c = 0; c < M; ++c) {
+    sums[0] = fmaf(y[c], S[c], sums[0]);
+    if (valid) {
+      const int j = t.row[w * M + c];
+      if (j < nb) {
+        B[(size_t)j * E + e] = S[c];
       } else {
-        ap_out[o] = s;
-        const float q = to_f32(inv[o]) * s;
-        const float wv = to_f32(w[o]);
-        c1 = fmaf(wv * r_out[o], q, c1);
-        c2 = fmaf(wv * s, q, c2);
+        ap_out[(size_t)j * E + e] = S[c];
+        sums[1] = fmaf(sm.s[w * M + c][lane], S[c], sums[1]);
+        sums[2] = fmaf(sm.r[c * M + w][lane] * S[c], S[c], sums[2]);
       }
     }
   }
-  const float sums[kParts] = {block_sum(denom), block_sum(c1), block_sum(c2),
-                              block_sum(e1), block_sum(e2)};
+  block_sums(sums);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int c = 0; c < kParts; ++c)
@@ -121,7 +153,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // Ap'[d, e] = the DSS of the exchanged row d < nb, and block g's c1 and c2
-// over those rows into row G + g of parts.
+// over those rows into row g_tile + g of parts.
 template <typename PT>
 __global__ void __launch_bounds__(kThreads)
     cg_single_gather_kernel(const float* __restrict__ B,
@@ -132,9 +164,10 @@ __global__ void __launch_bounds__(kThreads)
                             const int* __restrict__ row_ptr,
                             const int4* __restrict__ ent,
                             const bool* __restrict__ masks,
-                            float* __restrict__ parts, int E, int nb) {
+                            float* __restrict__ parts, int E, int nb,
+                            int g_tile) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  float c1 = 0.f, c2 = 0.f;
+  float c[2] = {0.f, 0.f};
   if (e < E) {
     for (int d = 0; d < nb; ++d) {
       const float s = dss_gather_row(B, row_ptr, ent, masks, E, d, e);
@@ -142,17 +175,16 @@ __global__ void __launch_bounds__(kThreads)
       ap_out[o] = s;
       const float q = to_f32(inv[o]) * s;
       const float wv = to_f32(w[o]);
-      c1 = fmaf(wv * r_out[o], q, c1);
-      c2 = fmaf(wv * s, q, c2);
+      c[0] = fmaf(wv * r_out[o], q, c[0]);
+      c[1] = fmaf(wv * s, q, c[1]);
     }
   }
-  c1 = block_sum(c1);
-  c2 = block_sum(c2);
+  block_sums(c);
   if (threadIdx.x == 0) {
-    float* row = parts + (size_t)(gridDim.x + blockIdx.x) * kParts;
+    float* row = parts + (size_t)(g_tile + blockIdx.x) * kParts;
     row[0] = 0.f;
-    row[1] = c1;
-    row[2] = c2;
+    row[1] = c[0];
+    row[2] = c[1];
     row[3] = 0.f;
     row[4] = 0.f;
   }
@@ -161,32 +193,30 @@ __global__ void __launch_bounds__(kThreads)
 template <int N, typename PT, bool DEFER>
 cudaError_t launch_single_local(const float* r, const float* ap, const PT* p,
                                 const float* x, const PT* inv, const PT* w,
-                                const float* K, const float* aT,
+                                const AffineTables& t, const float* aT,
                                 const float* alpha_prev, const float* beta,
                                 float* r_out, PT* p_out, float* ap_out,
                                 float* x_out, float* B, float* parts, int E,
                                 int nb, cudaStream_t stream) {
-  constexpr size_t smem = k_smem_bytes<N>();
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_single_local_kernel<N, PT, DEFER>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = (E + kThreads - 1) / kThreads;
-  cg_single_local_kernel<N, PT, DEFER><<<grid, kThreads, smem, stream>>>(
-      r, ap, p, x, inv, w, K, aT, alpha_prev, beta, r_out, p_out, ap_out,
-      x_out, B, parts, E, nb);
+  const int tiles = (E + kAffTile - 1) / kAffTile;
+  cg_single_local_kernel<N, PT, DEFER>
+      <<<tiles, aff_threads<N>(), 0, stream>>>(
+          r, ap, p, x, inv, w, t, aT, alpha_prev, beta, r_out, p_out, ap_out,
+          x_out, B, parts, E, nb);
   return cudaGetLastError();
 }
 
 template <typename PT, bool DEFER>
 int cg_kernel_single(const void* r, const void* ap, const void* p,
                      const void* x, const void* inv, const void* w,
-                     const void* K, const void* aT, const void* alpha_prev,
-                     const void* beta, void* r_out, void* p_out,
-                     void* ap_out, void* x_out, void* B, void* parts,
-                     const void* row_ptr, const void* entries,
+                     const void* tables, const void* aT,
+                     const void* alpha_prev, const void* beta, void* r_out,
+                     void* p_out, void* ap_out, void* x_out, void* B,
+                     void* parts, const void* row_ptr, const void* entries,
                      const void* masks, int n, int E, int nb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  AffineTables t;
+  std::memcpy(&t, tables, sizeof t);
   const PT* invp = static_cast<const PT*>(inv);
   const PT* wp = static_cast<const PT*>(w);
   float* rf = static_cast<float*>(r_out);
@@ -200,7 +230,7 @@ int cg_kernel_single(const void* r, const void* ap, const void* p,
     err = launch_single_local<NN, PT, DEFER>(                               \
         static_cast<const float*>(r), static_cast<const float*>(ap),        \
         static_cast<const PT*>(p), static_cast<const float*>(x), invp, wp,  \
-        static_cast<const float*>(K), static_cast<const float*>(aT),        \
+        t, static_cast<const float*>(aT),                                   \
         static_cast<const float*>(alpha_prev),                              \
         static_cast<const float*>(beta), rf, static_cast<PT*>(p_out), apf,  \
         static_cast<float*>(x_out), Bf, pf, E, nb, s);                      \
@@ -211,33 +241,37 @@ int cg_kernel_single(const void* r, const void* ap, const void* p,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess || nb == 0) return static_cast<int>(err);
+  const int g_tile = (E + kAffTile - 1) / kAffTile;
   const int grid = (E + kThreads - 1) / kThreads;
   cg_single_gather_kernel<PT><<<grid, kThreads, 0, s>>>(
       Bf, apf, rf, invp, wp, static_cast<const int*>(row_ptr),
       static_cast<const int4*>(entries), static_cast<const bool*>(masks), pf,
-      E, nb);
+      E, nb, g_tile);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sem
 
 // r, ap, x, r_out, ap_out, x_out: (n, E) f32; p, inv, w, p_out: (n, E) f32
-// (_f32) or bf16 (_bf16); K: (3, n, n) f32; aT: (3, E) f32; alpha_prev,
-// beta: f32 scalars on the device; B: (nb, E) f32 scratch; parts:
-// (2 * ceil(E / 256), 5) f32, or (ceil(E / 256), 5) when nb = 0.  Returns
-// a cudaError_t code (0 on success).
+// (_f32) or bf16 (_bf16); tables: host pointer to the operator's
+// AffineTables (sem_affine.cuh); aT: (3, E) f32; alpha_prev, beta: f32
+// scalars on the device; B: (nb, E) f32 scratch; parts: (G_tile +
+// G_gather, 5) f32 with G_tile = ceil(E / 32) rows of the product tiles
+// and G_gather = ceil(E / 256) rows of the gather blocks (c1 and c2 of the
+// exchanged rows; zeros elsewhere), or (G_tile, 5) when nb = 0.  Returns a
+// cudaError_t code (0 on success).
 #define SEM_SINGLE_ENTRY(NAME, PT)                                            \
   extern "C" int NAME(const void* r, const void* ap, const void* p,          \
                       const void* x, const void* inv, const void* w,         \
-                      const void* K, const void* aT, const void* alpha_prev, \
-                      const void* beta, void* r_out, void* p_out,            \
-                      void* ap_out, void* x_out, void* B, void* parts,       \
-                      const void* row_ptr, const void* entries,              \
+                      const void* tables, const void* aT,                    \
+                      const void* alpha_prev, const void* beta, void* r_out, \
+                      void* p_out, void* ap_out, void* x_out, void* B,       \
+                      void* parts, const void* row_ptr, const void* entries, \
                       const void* masks, int n, int E, int nb,               \
                       void* stream) {                                        \
     return sem::cg_kernel_single<PT, false>(                                 \
-        r, ap, p, x, inv, w, K, aT, alpha_prev, beta, r_out, p_out, ap_out,  \
-        x_out, B, parts, row_ptr, entries, masks, n, E, nb, stream);         \
+        r, ap, p, x, inv, w, tables, aT, alpha_prev, beta, r_out, p_out,     \
+        ap_out, x_out, B, parts, row_ptr, entries, masks, n, E, nb, stream); \
   }
 SEM_SINGLE_ENTRY(sem_cg_kernel_single_f32, float)
 SEM_SINGLE_ENTRY(sem_cg_kernel_single_bf16, __nv_bfloat16)
@@ -245,7 +279,7 @@ SEM_SINGLE_ENTRY(sem_cg_kernel_single_bf16, __nv_bfloat16)
 // The deferred kernel: as above without x and x_out.
 #define SEM_SINGLE_DEFER_ENTRY(NAME, PT)                                      \
   extern "C" int NAME(const void* r, const void* ap, const void* p,          \
-                      const void* inv, const void* w, const void* K,         \
+                      const void* inv, const void* w, const void* tables,    \
                       const void* aT, const void* alpha_prev,                \
                       const void* beta, void* r_out, void* p_out,            \
                       void* ap_out, void* B, void* parts,                    \
@@ -253,9 +287,14 @@ SEM_SINGLE_ENTRY(sem_cg_kernel_single_bf16, __nv_bfloat16)
                       const void* masks, int n, int E, int nb,               \
                       void* stream) {                                        \
     return sem::cg_kernel_single<PT, true>(                                  \
-        r, ap, p, nullptr, inv, w, K, aT, alpha_prev, beta, r_out, p_out,    \
-        ap_out, nullptr, B, parts, row_ptr, entries, masks, n, E, nb,        \
+        r, ap, p, nullptr, inv, w, tables, aT, alpha_prev, beta, r_out,      \
+        p_out, ap_out, nullptr, B, parts, row_ptr, entries, masks, n, E, nb, \
         stream);                                                             \
   }
 SEM_SINGLE_DEFER_ENTRY(sem_cg_kernel_single_defer_f32, float)
 SEM_SINGLE_DEFER_ENTRY(sem_cg_kernel_single_defer_bf16, __nv_bfloat16)
+
+// The size of AffineTables, for the host side's check of its layout.
+extern "C" int sem_affine_tables_size() {
+  return static_cast<int>(sizeof(sem::AffineTables));
+}

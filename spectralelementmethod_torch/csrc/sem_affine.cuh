@@ -37,6 +37,11 @@
 // j holding lex node hier[j]; AffineTables.row is its inverse (lex node ->
 // row), so a warp reads the rows of its column line and writes the rows of
 // its row line directly, each as one 128-byte segment of an (n, E) array.
+//
+// Users: the apply (affine_apply_dss.cu), kernel A (cg_kernel_a.cu) and the
+// single-kernel iteration (cg_kernel_single.cu).  Each forms the product's
+// operand on the column line and takes S on the row line from this one
+// function, so their Ap' equals the apply of their stored p' bit for bit.
 #pragma once
 
 #include "sem_general.cuh"
@@ -68,15 +73,30 @@ __host__ __device__ constexpr int aff_threads() {
   return 32 * grid_side(N);
 }
 
+// aff_product's hook when the caller stages nothing.
+struct AffNoHook {
+  template <typename Smem>
+  __device__ __forceinline__ void operator()(Smem&) const {}
+};
+
 // The local product S = sum_c a_c K_c u of this lane's element, in
 // tensor-product form.  x: u on the column line (., w) of this thread's
 // warp w (zeros, and zero scales, for a lane past the last element).  On
-// return S[c] holds lex node (w, c), the row line.  Three barriers: every
+// return S[c] holds lex node (w, c), the row line, and y[c] the u of that
+// node (read from the column lines' hand-over).  Three barriers: every
 // thread of the block calls it.
-template <int N>
+//
+// hook(sm) runs between the second and the third barrier, after this
+// thread's last read of sm.r and sm.s: the slots sm.s[a M + w] (column
+// line) and sm.r[w M + a] (row line) are then read by no other thread, so
+// the hook may write its own values for column-line node (a, w) there,
+// which the row-line owner of that node (warp a) reads after the return
+// (see cg_kernel_single.cu).  The product itself does not depend on it.
+template <int N, typename Hook = AffNoHook>
 __device__ __forceinline__ void aff_product(
     AffSmem<N>& sm, const AffineTables& t, const float (&x)[AffSmem<N>::M],
-    float a0, float a1, float a2, float (&S)[AffSmem<N>::M]) {
+    float a0, float a1, float a2, float (&S)[AffSmem<N>::M],
+    float (&y)[AffSmem<N>::M], const Hook& hook = Hook()) {
   constexpr int M = AffSmem<N>::M;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
@@ -85,7 +105,6 @@ __device__ __forceinline__ void aff_product(
   // ur on the column line (a, w), us on the row line (w, a)
   float ur[M], us[M];
   {
-    float y[M];
 #pragma unroll
     for (int c = 0; c < M; ++c) y[c] = sm.u[w * M + c][lane];
 #pragma unroll
@@ -114,6 +133,7 @@ __device__ __forceinline__ void aff_product(
     fr[a] = t.W[a * M + w] * fmaf(a0, ur[a], a1 * sm.s[a * M + w][lane]);
     fs[a] = t.W[w * M + a] * fmaf(a1, sm.r[w * M + a][lane], a2 * us[a]);
   }
+  hook(sm);
   // sum_a D[a, m] fr[a, w] at (m, w) into sm.u (read last before the
   // second barrier); sum_b D[b, c] fs[w, b] at (w, c) into S
 #pragma unroll

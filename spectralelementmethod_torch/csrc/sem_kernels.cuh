@@ -4,19 +4,19 @@
 // of every element, so element e of row j sits at j * E + e and a warp of
 // consecutive elements reads 32 consecutive words of one row.
 //
-// The local affine product S[:, e] = sum_c a_c(e) K_c u[:, e] runs one thread
-// per element: the element's n values live in registers, the three (n, n)
-// stiffness blocks in dynamic shared memory (3 * 81 * 84 * 4 B = 81.6 KB at
-// p = 8, above the 48 KB static limit, hence cudaFuncSetAttribute), read as
-// float4 broadcasts.  The direct stiffness summation (DSS) is a second pass,
-// dss_gather_kernel: the exchanged rows [0, nb) of S go to a scratch array B
-// and are gathered per roll class from B[src, e + delta] under the class
-// mask.  Masks are false wherever e + delta leaves [0, E), and the read is
-// guarded by the range as well.
+// The element-local products live in sem_affine.cuh (affine meshes: the
+// tensor-product tile of 32 elements and one warp per grid line) and
+// sem_general.cuh (curved meshes); no kernel reads an assembled stiffness
+// block.  The direct stiffness summation (DSS) is a second pass,
+// dss_gather_kernel: the product kernels write the exchanged rows [0, nb)
+// of S to a scratch array B, and the gather sums them per roll class from
+// B[src, e + delta] under the class mask.  Masks are false wherever
+// e + delta leaves [0, E), and the read is guarded by the range as well.
 //
 // A stack of k right-hand sides is k (n, E) arrays one after the other,
-// (k * n, E); every kernel takes the RHS from blockIdx.y, so the k RHS share
-// K, the affine scales and the class tables, and k = 1 is the single array.
+// (k * n, E); every kernel takes the RHS from blockIdx.y, so the k RHS
+// share the operator, the affine scales and the class tables, and k = 1 is
+// the single array.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,8 +26,6 @@
 namespace sem {
 
 constexpr int kThreads = 256;
-
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -65,53 +63,33 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// Dynamic shared memory of the local product: the three blocks K_c (c, i, j)
-// with row stride pad4(N), zero padded.
-template <int N>
-constexpr size_t k_smem_bytes() {
-  return sizeof(float) * 3 * N * pad4(N);
-}
-
-// K: (3, N, N) row-major in global memory -> Ks (3, N, pad4(N)) in shared.
-template <int N>
-__device__ __forceinline__ void load_K(const float* __restrict__ K, float* Ks) {
-  constexpr int NP = pad4(N);
-  for (int t = threadIdx.x; t < 3 * N * NP; t += blockDim.x) {
-    const int j = t % NP;
-    const int ci = t / NP;  // c * N + i
-    Ks[t] = j < N ? K[ci * N + j] : 0.f;
+// block_sum of NV values at once, with one pair of barriers: on return
+// v[i] holds the block's sum of v[i] in thread 0.
+template <int NV>
+__device__ __forceinline__ void block_sums(float (&v)[NV]) {
+  __shared__ float warp_sums[NV][32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[i] += __shfl_down_sync(0xffffffffu, v[i], o);
   }
   __syncthreads();
-}
-
-// Row i of the element's affine product: a0 (K0 u)_i + a1 (K1 u)_i +
-// a2 (K2 u)_i, u zero padded to pad4(N).
-template <int N>
-__device__ __forceinline__ float affine_row(const float* Ks, int i,
-                                            const float (&u)[pad4(N)],
-                                            float a0, float a1, float a2) {
-  constexpr int NP = pad4(N);
-  const float4* k0 = reinterpret_cast<const float4*>(Ks + i * NP);
-  const float4* k1 = reinterpret_cast<const float4*>(Ks + (N + i) * NP);
-  const float4* k2 = reinterpret_cast<const float4*>(Ks + (2 * N + i) * NP);
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  if (lane == 0) {
 #pragma unroll
-  for (int q = 0; q < NP / 4; ++q) {
-    const float4 x = k0[q], y = k1[q], z = k2[q];
-    s0 = fmaf(x.x, u[4 * q], s0);
-    s0 = fmaf(x.y, u[4 * q + 1], s0);
-    s0 = fmaf(x.z, u[4 * q + 2], s0);
-    s0 = fmaf(x.w, u[4 * q + 3], s0);
-    s1 = fmaf(y.x, u[4 * q], s1);
-    s1 = fmaf(y.y, u[4 * q + 1], s1);
-    s1 = fmaf(y.z, u[4 * q + 2], s1);
-    s1 = fmaf(y.w, u[4 * q + 3], s1);
-    s2 = fmaf(z.x, u[4 * q], s2);
-    s2 = fmaf(z.y, u[4 * q + 1], s2);
-    s2 = fmaf(z.z, u[4 * q + 2], s2);
-    s2 = fmaf(z.w, u[4 * q + 3], s2);
+    for (int i = 0; i < NV; ++i) warp_sums[i][wid] = v[i];
   }
-  return a0 * s0 + a1 * s1 + a2 * s2;
+  __syncthreads();
+  if (wid == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      v[i] = lane < (blockDim.x >> 5) ? warp_sums[i][lane] : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        v[i] += __shfl_down_sync(0xffffffffu, v[i], o);
+    }
+  }
 }
 
 // Row d < nb of the DSS at element e: B[d, e] + the sum over the entries t

@@ -28,7 +28,8 @@ launches one variant:
   of a fused PCG iteration, with and without the lagged x update (kernel A
   of ``make_fused_cg_kernels``, ``defer_x`` False / True);
   :func:`cg_kernel_a_batched` / :func:`cg_kernel_a_batched_deferred` — the
-  same for k RHS (``make_fused_cg_kernels_batched``);
+  same for k RHS (``make_fused_cg_kernels_batched``); their product is the
+  affine apply's tensor-product tile, from the same :class:`AffineFactors`;
   :func:`cg_kernel_a_general` / :func:`cg_kernel_a_general_batched` — the
   direction half on curved meshes (kernel A of
   ``make_fused_cg_kernels_general``);
@@ -37,7 +38,7 @@ launches one variant:
 * :func:`cg_kernel_single` / :func:`cg_kernel_single_deferred` — one whole
   PCG iteration with the residual update deferred into the next kernel,
   with and without the lagged x update (``make_fused_cg_kernel_single``,
-  one RHS, affine meshes);
+  one RHS, affine meshes), around the same tile;
 * :func:`laplacian_local`, :func:`laplacian_local_batched` and
   :func:`vector_laplacian_local` — the element-local weak Laplacian on
   row-major (E, n) L-vectors without DSS, on one array, a (k, E, n) stack
@@ -47,8 +48,11 @@ launches one variant:
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and for CUDA tensors launches the kernel or raises: there is no
-fallback.  Each keeps a launch count (``wrapper.launches``), incremented
-only where the kernel is launched.  Per-RHS scalars of the batched kernels
+fallback.  The affine kernels (the applies, kernel A and the single
+kernel) take ``factors=`` on CUDA tensors and read no assembled ``Kst``;
+their plain versions multiply by ``Kst`` and ignore the factors.  Each
+wrapper keeps a launch count (``wrapper.launches``), incremented only
+where the kernel is launched.  Per-RHS scalars of the batched kernels
 are (k,) float32 tensors on the device; their partial sums are (G, k).
 
 The libraries are compiled with ``nvcc`` for ``sm_90a`` on first use into
@@ -110,9 +114,13 @@ KERNELS = {
 #: the sources, one shared library each
 SOURCES = (_APPLY, _CG_A, _CG_B, _GEN_APPLY, _GEN_CG_A, _SINGLE, _LOCAL,
            _FAR)
-#: elements per block of the affine product kernels (one denominator
-#: partial each)
+#: threads per block of the class gather (``kThreads`` in
+#: csrc/sem_kernels.cuh; one row of the single kernel's gather partials
+#: each)
 THREADS = 256
+#: elements per tile of the affine product kernels (``kAffTile`` in
+#: csrc/sem_affine.cuh; one denominator partial row each)
+AFFINE_TILE = 32
 #: elements per block of the general kernels (``kGenTile`` in
 #: csrc/sem_general.cuh; one denominator partial each)
 GENERAL_TILE = 32
@@ -558,9 +566,12 @@ def cg_kernel_a_batched_deferred_plain(r, p, inv, beta, Kst, aT,
     return p_st, Ap, d
 
 
-def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, what):
-    """Kernel A on CUDA tensors: (p', Ap', x' or None, (G, k) partials).
-    ``beta``/``alpha_prev`` are float32 device tensors of k elements."""
+def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, tables,
+              what):
+    """Kernel A on CUDA tensors: (p', Ap', x' or None, (G, k) partials, G
+    the tiles of :data:`AFFINE_TILE` elements).  ``beta``/``alpha_prev``
+    are float32 device tensors of k elements; ``tables`` the host pointer
+    :func:`_require_factors` gave."""
     dev = _cuda_device(r)
     _check_plan(plan, dev)
     n, E = Kst.shape[-1], r.shape[-1]
@@ -574,48 +585,54 @@ def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, what):
     _require(aT, "aT", f32, (3, E), dev)
     p_out, ap = torch.empty_like(p), torch.empty_like(r)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    dparts = torch.empty((-(-E // THREADS), k), dtype=torch.float32,
+    dparts = torch.empty((-(-E // AFFINE_TILE), k), dtype=torch.float32,
                          device=dev)
     lib = _lib(_CG_A)
     bf16 = p.dtype == torch.bfloat16
-    tables = (_ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks))
+    dss = (_ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks))
+    tail = (n, E, plan.nb, k, _stream(dev))
     if x is None:
         x_out = None
         fn = (lib.sem_cg_kernel_a_defer_bf16 if bf16
               else lib.sem_cg_kernel_a_defer_f32)
-        rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(Kst), _ptr(aT),
-                _ptr(beta), _ptr(p_out), _ptr(ap), _ptr(B), _ptr(dparts),
-                *tables, n, E, plan.nb, k, _stream(dev))
+        rc = fn(_ptr(r), _ptr(p), _ptr(inv), tables, _ptr(aT), _ptr(beta),
+                _ptr(p_out), _ptr(ap), _ptr(B), _ptr(dparts), *dss, *tail)
     else:
         _require(x, "x", f32, shape, dev)
         x_out = torch.empty_like(x)
         fn = lib.sem_cg_kernel_a_bf16 if bf16 else lib.sem_cg_kernel_a_f32
-        rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), _ptr(Kst), _ptr(aT),
+        rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), tables, _ptr(aT),
                 _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out),
-                _ptr(ap), _ptr(B), _ptr(dparts), *tables, n, E, plan.nb, k,
-                _stream(dev))
+                _ptr(ap), _ptr(B), _ptr(dparts), *dss, *tail)
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
     return p_out, ap, x_out, dparts
 
 
-def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan):
+def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan, *,
+                factors: AffineFactors | None = None):
     """``(p', Ap', x', dparts)`` of one fused PCG iteration (affine mesh).
 
     ``x' = x + alpha_prev p``; ``p' = inv r + beta p`` stored in ``p``'s
     dtype (float32 or bfloat16, with ``inv`` of the same dtype);
     ``Ap' = DSS(sum_c a_c K_c p')`` from the stored ``p'``; ``dparts`` the
     partial sums of ``p' . S`` before the DSS (their total is
-    ``<p', A p'>``).  ``r`` and ``x`` are float32; ``beta`` and
-    ``alpha_prev`` are floats or float32 scalars on the device.
+    ``<p', A p'>``; one per tile of :data:`AFFINE_TILE` elements on the
+    card, one per element on the CPU).  ``r`` and ``x`` are float32;
+    ``beta`` and ``alpha_prev`` are floats or float32 scalars on the
+    device.  On CUDA tensors the kernel computes the product from
+    ``factors``, the :class:`AffineFactors` of ``Kst`` (required there, as
+    in :func:`affine_apply_dss`), so ``Ap'`` is that apply of the stored
+    ``p'`` bit for bit.
     """
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
                                  plan)
+    tables = _require_factors(factors, Kst, "cg_kernel_a")
     dev = _cuda_device(r)
     p_out, ap, x_out, dparts = _launch_a(
         r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), Kst, aT,
-        plan, 1, "cg_kernel_a")
+        plan, 1, tables, "cg_kernel_a")
     cg_kernel_a.launches += 1
     return p_out, ap, x_out, dparts.view(-1)
 
@@ -623,15 +640,17 @@ def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan):
 cg_kernel_a.launches = 0
 
 
-def cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan):
+def cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
+                         factors: AffineFactors | None = None):
     """``(p', Ap', dparts)``: :func:`cg_kernel_a` without the x update
     (``defer_x``: the CG driver catches x up once per m iterations)."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan)
+    tables = _require_factors(factors, Kst, "cg_kernel_a_deferred")
     dev = _cuda_device(r)
     p_out, ap, _, dparts = _launch_a(r, p, inv, None, _scalar(beta, dev),
-                                     None, Kst, aT, plan, 1,
+                                     None, Kst, aT, plan, 1, tables,
                                      "cg_kernel_a_deferred")
     cg_kernel_a_deferred.launches += 1
     return p_out, ap, dparts.view(-1)
@@ -641,7 +660,8 @@ cg_kernel_a_deferred.launches = 0
 
 
 def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
-                        plan: DSSPlan):
+                        plan: DSSPlan, *,
+                        factors: AffineFactors | None = None):
     """:func:`cg_kernel_a` for a (k * n, E) stack of k right-hand sides:
     ``r``, ``p``, ``x`` are stacks, ``inv`` (n, E) is shared, ``beta`` and
     ``alpha_prev`` are (k,) float32 device tensors, the partials (G, k)."""
@@ -649,11 +669,12 @@ def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
         _check_plan(plan, None)
         return cg_kernel_a_batched_plain(r, p, inv, x, beta, alpha_prev,
                                          Kst, aT, plan)
+    tables = _require_factors(factors, Kst, "cg_kernel_a_batched")
     dev = _cuda_device(r)
     k = _n_rhs(r.shape[0], Kst.shape[-1])
     out = _launch_a(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
                     _per_rhs(alpha_prev, k, "alpha_prev", dev), Kst, aT,
-                    plan, k, "cg_kernel_a_batched")
+                    plan, k, tables, "cg_kernel_a_batched")
     cg_kernel_a_batched.launches += 1
     return out
 
@@ -661,17 +682,19 @@ def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
 cg_kernel_a_batched.launches = 0
 
 
-def cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan):
+def cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
+                                 factors: AffineFactors | None = None):
     """``(p', Ap', dparts)``: :func:`cg_kernel_a_batched` without x."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_batched_deferred_plain(r, p, inv, beta, Kst, aT,
                                                   plan)
+    tables = _require_factors(factors, Kst, "cg_kernel_a_batched_deferred")
     dev = _cuda_device(r)
     k = _n_rhs(r.shape[0], Kst.shape[-1])
     p_out, ap, _, dparts = _launch_a(
         r, p, inv, None, _per_rhs(beta, k, "beta", dev), None, Kst, aT, plan,
-        k, "cg_kernel_a_batched_deferred")
+        k, tables, "cg_kernel_a_batched_deferred")
     cg_kernel_a_batched_deferred.launches += 1
     return p_out, ap, dparts
 
@@ -760,41 +783,48 @@ cg_kernel_b_batched.launches = 0
 
 
 def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
-                          plan: DSSPlan, *, defer_x: bool = False):
+                          plan: DSSPlan, *, defer_x: bool = False,
+                          factors: AffineFactors | None = None):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused`: kernel A bound to one
-    affine operator (``Kst``, ``aT``, ``plan``), and kernel B.
+    affine operator (``Kst``, ``aT``, ``plan`` and ``factors``, the
+    :class:`AffineFactors` its kernel reads on a CUDA device), and kernel
+    B.
 
     ``defer_x=True``: ``kA(r, p, inv, beta) -> (p', Ap', dparts)`` without
     the x update, for ``cg_fused(defer_x=m)``; otherwise
     ``kA(r, p, inv, x, beta, alpha_prev) -> (p', Ap', x', dparts)``.
-    ``kA.defer_x`` records which."""
+    ``kA.defer_x`` records which, ``kA.factors`` the factors."""
     if defer_x:
         def kA(r, p, inv, beta):
-            return cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan)
+            return cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan,
+                                        factors=factors)
     else:
         def kA(r, p, inv, x, beta, alpha_prev):
-            return cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan)
-    kA.defer_x, kA.n_rhs = bool(defer_x), 1
+            return cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan,
+                               factors=factors)
+    kA.defer_x, kA.n_rhs, kA.factors = bool(defer_x), 1, factors
     return kA, cg_kernel_b
 
 
 def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
                                   plan: DSSPlan, n_rhs: int, *,
-                                  defer_x: bool = False):
+                                  defer_x: bool = False,
+                                  factors: AffineFactors | None = None):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused_batched` on (k * n, E)
     stacks of ``n_rhs`` right-hand sides (per-RHS scalars (k,), partials
-    (G, k)); ``defer_x`` as in :func:`make_fused_cg_kernels`."""
+    (G, k)); ``defer_x`` and ``factors`` as in
+    :func:`make_fused_cg_kernels`."""
     if n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     if defer_x:
         def kA(r, p, inv, beta):
             return cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT,
-                                                plan)
+                                                plan, factors=factors)
     else:
         def kA(r, p, inv, x, beta, alpha_prev):
             return cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst,
-                                       aT, plan)
-    kA.defer_x, kA.n_rhs = bool(defer_x), int(n_rhs)
+                                       aT, plan, factors=factors)
+    kA.defer_x, kA.n_rhs, kA.factors = bool(defer_x), int(n_rhs), factors
     return kA, cg_kernel_b_batched
 
 
@@ -1136,9 +1166,11 @@ def cg_kernel_single_deferred_plain(r, Ap, p, inv, w_free, alpha_prev, beta,
 
 
 def _launch_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
-                   plan, what):
+                   plan, tables, what):
     """The single kernel on CUDA tensors: (r', p', Ap', x' or None, parts
-    (2G, 5), or (G, 5) when the plan exchanges nothing)."""
+    (G_tile + G_gather, 5)): a row per tile of :data:`AFFINE_TILE`
+    elements, then, when the plan exchanges rows, a row per gather block of
+    :data:`THREADS` elements (c1 and c2 of the exchanged rows)."""
     dev = _cuda_device(r)
     _check_plan(plan, dev)
     n, E = Kst.shape[-1], r.shape[-1]
@@ -1155,13 +1187,13 @@ def _launch_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
     r_out, p_out, ap = (torch.empty_like(r), torch.empty_like(p),
                         torch.empty_like(r))
     B = torch.empty((max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    G = -(-E // THREADS)
-    parts = torch.empty(((2 if plan.nb else 1) * G, len(SINGLE_PARTS)),
-                        dtype=torch.float32, device=dev)
+    rows = -(-E // AFFINE_TILE) + (-(-E // THREADS) if plan.nb else 0)
+    parts = torch.empty((rows, len(SINGLE_PARTS)), dtype=torch.float32,
+                        device=dev)
     lib = _lib(_SINGLE)
     bf16 = p.dtype == torch.bfloat16
     head = (_ptr(r), _ptr(Ap), _ptr(p))
-    ops = (_ptr(inv), _ptr(w_free), _ptr(Kst), _ptr(aT), _ptr(alpha_prev),
+    ops = (_ptr(inv), _ptr(w_free), tables, _ptr(aT), _ptr(alpha_prev),
            _ptr(beta))
     tail = (_ptr(B), _ptr(parts), _ptr(plan.row_ptr), _ptr(plan.entries),
             _ptr(plan.masks), n, E, plan.nb, _stream(dev))
@@ -1182,7 +1214,7 @@ def _launch_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
 
 
 def cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
-                     plan: DSSPlan):
+                     plan: DSSPlan, *, factors: AffineFactors | None = None):
     """``(r', p', Ap', x', parts)``: one whole PCG iteration (affine mesh).
 
     ``r' = r - alpha_prev Ap`` (the previous iteration's residual update,
@@ -1193,15 +1225,18 @@ def cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
     ``<Ap', inv Ap'>_w``, ``<r', inv r'>_w``, ``<r', r'>_w]``
     (:data:`SINGLE_PARTS`).  ``r``, ``Ap`` and ``x`` are float32; ``p``,
     ``inv`` and ``w_free`` float32 or all bfloat16; ``alpha_prev`` and
-    ``beta`` floats or float32 scalars on the device.
+    ``beta`` floats or float32 scalars on the device.  ``factors`` as in
+    :func:`cg_kernel_a` (required on CUDA tensors: ``Ap'`` is then
+    :func:`affine_apply_dss` of the stored ``p'`` bit for bit).
     """
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_single_plain(r, Ap, p, x, inv, w_free, alpha_prev,
                                       beta, Kst, aT, plan)
+    tables = _require_factors(factors, Kst, "cg_kernel_single")
     dev = _cuda_device(r)
     out = _launch_single(r, Ap, p, x, inv, w_free, _scalar(alpha_prev, dev),
-                         _scalar(beta, dev), Kst, aT, plan,
+                         _scalar(beta, dev), Kst, aT, plan, tables,
                          "cg_kernel_single")
     cg_kernel_single.launches += 1
     return out
@@ -1211,7 +1246,8 @@ cg_kernel_single.launches = 0
 
 
 def cg_kernel_single_deferred(r, Ap, p, inv, w_free, alpha_prev, beta, Kst,
-                              aT, plan: DSSPlan):
+                              aT, plan: DSSPlan, *,
+                              factors: AffineFactors | None = None):
     """``(r', p', Ap', parts)``: :func:`cg_kernel_single` without the x
     update (``defer_x``: the CG driver catches x up once per m
     iterations)."""
@@ -1220,10 +1256,12 @@ def cg_kernel_single_deferred(r, Ap, p, inv, w_free, alpha_prev, beta, Kst,
         return cg_kernel_single_deferred_plain(r, Ap, p, inv, w_free,
                                                alpha_prev, beta, Kst, aT,
                                                plan)
+    tables = _require_factors(factors, Kst, "cg_kernel_single_deferred")
     dev = _cuda_device(r)
     r_out, p_out, ap, _, parts = _launch_single(
         r, Ap, p, None, inv, w_free, _scalar(alpha_prev, dev),
-        _scalar(beta, dev), Kst, aT, plan, "cg_kernel_single_deferred")
+        _scalar(beta, dev), Kst, aT, plan, tables,
+        "cg_kernel_single_deferred")
     cg_kernel_single_deferred.launches += 1
     return r_out, p_out, ap, parts
 
@@ -1232,23 +1270,27 @@ cg_kernel_single_deferred.launches = 0
 
 
 def make_fused_cg_kernel_single(Kst: torch.Tensor, aT: torch.Tensor,
-                                plan: DSSPlan, *, defer_x: bool = False):
+                                plan: DSSPlan, *, defer_x: bool = False,
+                                factors: AffineFactors | None = None):
     """``kAB`` for :func:`..solver.cg.cg_fused` with ``kB=None``: the single
-    kernel bound to one affine operator (``Kst``, ``aT``, ``plan``).
+    kernel bound to one affine operator (``Kst``, ``aT``, ``plan`` and
+    ``factors``, as in :func:`make_fused_cg_kernels`).
 
     ``kAB(r, Ap, p, x, inv, w_free, alpha_prev, beta) -> (r', p', Ap', x',
     parts)``; with ``defer_x=True``, ``kAB(r, Ap, p, inv, w_free,
     alpha_prev, beta) -> (r', p', Ap', parts)`` for ``cg_fused(defer_x=m)``.
-    ``kAB.single`` is True and ``kAB.defer_x`` records which."""
+    ``kAB.single`` is True, ``kAB.defer_x`` records which and
+    ``kAB.factors`` the factors."""
     if defer_x:
         def kAB(r, Ap, p, inv, w_free, alpha_prev, beta):
             return cg_kernel_single_deferred(r, Ap, p, inv, w_free,
-                                             alpha_prev, beta, Kst, aT, plan)
+                                             alpha_prev, beta, Kst, aT, plan,
+                                             factors=factors)
     else:
         def kAB(r, Ap, p, x, inv, w_free, alpha_prev, beta):
             return cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev,
-                                    beta, Kst, aT, plan)
-    kAB.single, kAB.defer_x = True, bool(defer_x)
+                                    beta, Kst, aT, plan, factors=factors)
+    kAB.single, kAB.defer_x, kAB.factors = True, bool(defer_x), factors
     return kAB
 
 

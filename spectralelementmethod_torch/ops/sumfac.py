@@ -394,18 +394,21 @@ class AffineLaplacianT(LaplacianT):
         batched for ``n_rhs`` right-hand sides.  A split operator raises."""
         self._refuse_split(_FUSED_SPLIT)
         if n_rhs is None:
-            return kernels.make_fused_cg_kernels(self.Kst, self.aT, self.plan,
-                                                 defer_x=defer_x)
+            return kernels.make_fused_cg_kernels(
+                self.Kst, self.aT, self.plan, defer_x=defer_x,
+                factors=self.factors)
         return kernels.make_fused_cg_kernels_batched(
-            self.Kst, self.aT, self.plan, n_rhs, defer_x=defer_x)
+            self.Kst, self.aT, self.plan, n_rhs, defer_x=defer_x,
+            factors=self.factors)
 
     def fused_cg_kernel_single(self, defer_x: bool = False):
         """``kAB`` of the single-kernel CG iteration on this operator
         (:func:`.kernels.make_fused_cg_kernel_single`; ``cg_fused`` with
         ``kB=None``).  A split operator raises."""
         self._refuse_split(_FUSED_SPLIT)
-        return kernels.make_fused_cg_kernel_single(self.Kst, self.aT,
-                                                   self.plan, defer_x=defer_x)
+        return kernels.make_fused_cg_kernel_single(
+            self.Kst, self.aT, self.plan, defer_x=defer_x,
+            factors=self.factors)
 
 
 class GeneralLaplacianT(LaplacianT):
