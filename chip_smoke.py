@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
    same E; the single-kernel iteration (f32 and bf16, with x and
    deferred), bit for bit on r', p' and x'; the Ap' of every affine
    kernel A and single-kernel variant bit for bit against the affine
-   apply of its own stored p'; time the deferred-x
+   apply of its own stored p', and of every general kernel A variant
+   against the general apply of its own stored p'; time the deferred-x
    catch-up; the element-local Laplacian of the row-major (E, n) layout
    (one array, K packed components, a stack of K) on the annulus factors
    of the Helmholtz problem below; the element-sharded operator on S_SH = 4
@@ -29,7 +30,9 @@ Phases (any failure exits non-zero and prints no result line):
    then hold every kernel against its plain version at the other compiled
    orders (p = 2..7) on a small rectangle (the block kernel on 2 shards,
    the far update at ``max_halo=1``; kernel A's and the single kernel's
-   Ap' against the apply of their own p' bit for bit) and a small annulus;
+   Ap' against the apply of their own p' bit for bit) and a small annulus
+   (the general kernel A's Ap' against the general apply of its own p'
+   bit for bit);
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
    deferred x (``defer_x=8``), with the general apply forced
@@ -332,17 +335,17 @@ def main() -> int:
         """Kernel A variant ``fn`` on a k-stack against its plain version:
         checks, times and the bound (k stacks of r, p, p', Ap' and, with
         x, x and x'; inv once).  ``op``: (operator arguments, element-local
-        product, plan, bytes and flops per RHS of the product, operator
-        bytes) — the affine operator of the rectangle by default, whose
-        kernels take its factors: there p' and x' must equal the plain
-        version's bit for bit (p' within 1 bf16 ulp) and Ap' the affine
-        apply of the kernel's own stored p' bit for bit."""
-        affine = op is None
-        if affine:
-            fn = functools.partial(fn, factors=fac)
-        op_args, local, pl, flops_loc, op_bytes = op or (
-            (Kst, aT), lambda u: kernels._local_product(u, Kst, aT),
-            plan, tflops, small)
+        product, plan, flops per RHS of the product, operator bytes, the
+        factors the kernels take, (the apply of one RHS, of a stack), the
+        apply's name) — the affine operator of the rectangle by default.
+        p' and x' must equal the plain version's bit for bit (p' within 1
+        bf16 ulp) and Ap' the apply of the kernel's own stored p' bit for
+        bit."""
+        op_args, local, pl, flops_loc, op_bytes, facs, own_apply, what = \
+            op or ((Kst, aT), lambda u: kernels._local_product(u, Kst, aT),
+                   plan, tflops, small, fac,
+                   (affine_apply, affine_apply_batched), "affine apply")
+        fn = functools.partial(fn, factors=facs)
         ne = pl.E * n
 
         def rnd(k_, dtype=torch.float32):
@@ -360,11 +363,8 @@ def main() -> int:
         gp, gAp, gd = got[0], got[1], got[-1]
         rp, rAp, rd = ref[0], ref[1], ref[-1]
         if with_x:
-            err_x, rel_x = rel_err(got[2], ref[2])
-            if affine:
-                check(err_x == 0, f"{name} x' bit for bit")
-            else:
-                check(rel_x <= 1e-5, f"{name} x' (1e-5)")
+            err_x, _ = rel_err(got[2], ref[2])
+            check(err_x == 0, f"{name} x' bit for bit")
         if pdt == torch.bfloat16:
             check(bf16_ulp_ok(gp, rp), f"{name} p' within 1 bf16 ulp")
             # Ap' and the partials from the kernel's own stored p'
@@ -372,22 +372,18 @@ def main() -> int:
             S = local(p3)
             rAp, rd = roll_dss_T(S, pl).view(gAp.shape), (p3 * S).sum(1).T
         else:
-            err_p, rel_p = rel_err(gp, rp)
-            if affine:
-                check(err_p == 0, f"{name} p' bit for bit")
-            else:
-                check(rel_p <= 1e-5, f"{name} p' (1e-5)")
+            err_p, _ = rel_err(gp, rp)
+            check(err_p == 0, f"{name} p' bit for bit")
         err, rel = rel_err(gAp, rAp)
         check(rel <= 1e-5, f"{name} Ap' (1e-5 of max)")
         d_rel = rhs_rel(gd, rd, k)
         check(d_rel <= 1e-5, f"{name} <p', Ap'> partials ({d_rel:.2e} <= "
               "1e-5)")
-        if affine:
-            own = (affine_apply if k == 1 else affine_apply_batched)(
-                gp.float().contiguous(), Kst, aT, pl)
-            d_own = (gAp - own).abs().max().item()
-            check(d_own == 0, f"{name} Ap' equals the affine apply of its "
-                  f"own stored p' bit for bit ({d_own:.1e})")
+        own = own_apply[0 if k == 1 else 1](gp.float().contiguous(),
+                                             *op_args, pl)
+        d_own = (gAp - own).abs().max().item()
+        check(d_own == 0, f"{name} Ap' equals the {what} of its own stored "
+              f"p' bit for bit ({d_own:.1e})")
         log(f"  {name}: max abs err Ap' {err:.3e}, rel {rel:.3e}")
         ms = gpu_ms(fn, sets)
         plain_ms = gpu_ms(plain, sets)
@@ -540,7 +536,11 @@ def main() -> int:
     check(gA.structure == "general" and adisc.E == E,
           f"the annulus (E={adisc.E}) takes the general apply")
     gop = (gA.gT, gA.Dh, gA.hier)
-    gplan = gA.plan
+    gplan, gfac = gA.plan, gA.factors
+    # the curved kernels take the derivative's tensor-product tables
+    gen_apply = functools.partial(kernels.general_apply_dss, factors=gfac)
+    gen_apply_batched = functools.partial(kernels.general_apply_dss_batched,
+                                          factors=gfac)
     ginv32, _ = aprob._fused_cg_operands(actx["ex"], actx["free_np"], None,
                                          dev)
     ginv16, _ = aprob._fused_cg_operands(actx["ex"], actx["free_np"],
@@ -558,10 +558,9 @@ def main() -> int:
         return torch.matmul(gA.Dh, u), torch.matmul(DhT, flux)
 
     for name, k, fn, plain in (
-            ("general_apply_dss", 1, kernels.general_apply_dss,
+            ("general_apply_dss", 1, gen_apply,
              kernels.general_apply_dss_plain),
-            ("general_apply_dss_batched", K,
-             kernels.general_apply_dss_batched,
+            ("general_apply_dss_batched", K, gen_apply_batched,
              kernels.general_apply_dss_batched_plain)):
         sets = [(randn(k), *gop, gplan) for _ in range(3 if k == 1 else 2)]
         got = fn(*sets[0])
@@ -582,7 +581,8 @@ def main() -> int:
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
     gen_op = (gop, lambda u: kernels._general_local(u, *gop[:2]), gplan,
-              tflops, gbytes)
+              tflops, gbytes, gfac, (gen_apply, gen_apply_batched),
+              "general apply")
     for base, k in (("cg_kernel_a_general", 1),
                     ("cg_kernel_a_general_batched", K)):
         fn, plain = kernels.WRAPPERS[base], getattr(kernels, base + "_plain")
@@ -756,7 +756,7 @@ def main() -> int:
     # the far update on the general apply's raw rows (the annulus's op)
     near_a, far_a = op._split
     o_a, x_a = kernels.general_apply_dss(u_f, op.gT, op.Dh, op.hier, near_a,
-                                         aux=True)
+                                         aux=True, factors=op.factors)
     d_a = (kernels.far_update(o_a.clone(), x_a, far_a)
            - kernels.far_update_plain(o_a.clone(), x_a, far_a)).abs().max()
     check(d_a.item() == 0, f"far_update on the annulus's general apply "
@@ -807,7 +807,7 @@ def main() -> int:
         cdisc = Discretization(annulus_mesh(p, **SMALL_ANNULUS),
                                gll_basis_2d(p))
         cA = Poisson(cdisc, dtype=np.float32)._local_setup(dev)["A"]
-        cop = (cA.gT, cA.Dh, cA.hier, cA.plan)
+        cop, cfac = (cA.gT, cA.Dh, cA.hier, cA.plan), cA.factors
         # the (E, n) element-local kernel on the same factors
         lop_s = (cA.gT.transpose(1, 2).contiguous(), cA.Dh, cA.hier)
         ne_ = (cdisc.E, sdisc.n_loc)
@@ -828,7 +828,8 @@ def main() -> int:
             # (kernel, arguments, the kernel's keywords)
             cases = [("affine_apply_dss" + b_, (u, sK, saT, splan),
                       dict(factors=sfac)),
-                     ("general_apply_dss" + b_, (cu, *cop), {}),
+                     ("general_apply_dss" + b_, (cu, *cop),
+                      dict(factors=cfac)),
                      ("laplacian_local" + b_,
                       (rnd((k, *ne_) if k > 1 else ne_), *lop_s), {})]
             if k > 1:
@@ -850,7 +851,7 @@ def main() -> int:
                     ("cg_kernel_b" + b_, (u, x_, inv, w_, sc[1]), {}),
                     ("cg_kernel_a_general" + b_,
                      (cu, rnd(cshp, pdt), cinv, rnd(cshp), *sc, *cop),
-                     {})]
+                     dict(factors=cfac))]
                 if k == 1:
                     single = (u, x_, p_, rnd(), inv, w_, *sc[::-1], sK, saT,
                               splan)
@@ -876,10 +877,14 @@ def main() -> int:
                 ref = getattr(kernels, name + "_plain")(*args)
                 if isinstance(got, torch.Tensor):
                     got, ref = (got,), (ref,)
-                elif name.startswith("cg_kernel_a") and "general" not in name:
-                    own = kernels.WRAPPERS["affine_apply_dss" + b_](
-                        got[0].float().contiguous(), sK, saT, splan,
-                        factors=sfac)
+                elif name.startswith("cg_kernel_a"):
+                    # Ap' against the apply of the kernel's own stored p'
+                    own = (kernels.WRAPPERS["general_apply_dss" + b_](
+                        got[0].float().contiguous(), *cop, factors=cfac)
+                        if "general" in name else
+                        kernels.WRAPPERS["affine_apply_dss" + b_](
+                            got[0].float().contiguous(), sK, saT, splan,
+                            factors=sfac))
                     own_err = max(own_err, (got[1] - own).abs().max().item())
                 # outputs of the stack's shape elementwise; partials as
                 # per-RHS totals
@@ -920,8 +925,8 @@ def main() -> int:
         check(single_err == 0 and own_err == 0,
               f"p={p}: the single kernel's r', p', x' bit for bit against "
               f"its plain version ({single_err}); its Ap' and every kernel "
-              f"A's equal the affine apply of their own stored p' bit for "
-              f"bit ({own_err})")
+              f"A's (affine and general) equal the apply of their own "
+              f"stored p' bit for bit ({own_err})")
 
     # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "

@@ -1,5 +1,6 @@
-// Shared device code of the general (curved-mesh) kernels: the element-local
-// weak Laplacian with full geometric-factor slabs,
+// Shared device code of the element-local curved-mesh kernel in the
+// row-major (E, n) layout (laplacian_local.cu): the weak Laplacian with full
+// geometric factors,
 //
 //   [ur; us] = Dhat u,   flux = [g0 ur + g1 us; g1 ur + g2 us],
 //   S = Dhat^T flux,
@@ -11,28 +12,26 @@
 //   S[m, c]  = sum_a D0[a, m] fr[a, c] + sum_b D1[b, c] fs[m, b].
 //
 // That is 8 N M + 6 N flops per element (6,318 at p = 8) instead of the
-// 8 N^2 of the dense stacked derivative.
+// 8 N^2 of the dense stacked derivative.  (The (n, E) curved kernels use
+// the tile of sem_curved.cuh instead.)
 //
 // Node orders: the L-vector rows are in the exchange's hierarchical order
-// (edges first), row j holding lex node hier[j]; the factor slabs gT (3, N, E)
-// and the derivative's tensor factors are in lex order.  A block reads row j
-// of u into lex slot hier[j] of shared memory, forms the gradients and the
-// flux in lex order, and computes row j of S from lex node hier[j], so S
-// comes out in hier order.  D0 and D1 are read from the hier-permuted dense
+// (edges first), row j holding lex node hier[j]; the factors and the
+// derivative's tensor factors are in lex order.  A block reads row j of u
+// into lex slot hier[j] of shared memory, forms the gradients and the flux
+// in lex order, and computes row j of S from lex node hier[j], so S comes
+// out in hier order.  D0 and D1 are read from the hier-permuted dense
 // Dhat_h = Dhat[:, hier] the plain version uses: D0[a, m] = Dhat[a M, m M],
 // D1[b, c] = Dhat[N + b, c], each column through the inverse of hier.
 //
 // Layout: a block takes a tile of kGenTile = 32 elements, one per lane, and
-// its 8 warps split the nodes (warp w takes rows w, w + 8, ...), so every
-// global load and store is one 128-byte row segment of a (rows, E) array.
-// The tile's values and its flux sit in shared memory (3 N x 32 floats,
-// 31 KB at p = 8); the tensor factors D0 and D1 are read as broadcasts.
-// The row pitch P of those arrays is 32 floats for the kernels above; a
-// kernel that stages its tile element by element (laplacian_local.cu) pads
-// it to 33, so that a warp's stores to one column fall in distinct banks.
-// gen_flux_by reads the factors through an accessor g(c, q) (factor c of lex
-// node q of this lane's element), so a kernel may keep them in global
-// memory (SlabFactors, the (3, N, E) slabs) or stage them.
+// its 8 warps split the nodes (warp w takes nodes w, w + 8, ...).  The
+// tile's values and its flux sit in shared memory (3 N x P floats); the
+// tensor factors D0 and D1 are read as broadcasts.  The row pitch P is
+// padded to 33 floats, so that a warp's element-by-element stores to one
+// column fall in distinct banks.  gen_flux_by reads the factors through an
+// accessor g(c, q) (factor c of lex node q of this lane's element), so the
+// kernel may stage them in shared memory.
 #pragma once
 
 #include "sem_kernels.cuh"
@@ -80,16 +79,6 @@ __device__ __forceinline__ void gen_load_tables(GenSmem<N, P>& s,
   __syncthreads();
 }
 
-// The factors of element e as (3, N, E) slabs in global memory.
-template <int N>
-struct SlabFactors {
-  const float* __restrict__ gT;
-  int E, e;
-  __device__ __forceinline__ float operator()(int c, int q) const {
-    return gT[(size_t)(c * N + q) * E + e];
-  }
-};
-
 // Gradients and flux of the tile in s.u, into s.f.  g(c, q): factor c of
 // lex node q of this lane's element, read only when valid (the other lanes
 // get a zero flux).  Each thread reads g(., q) for its own (q, lane) before
@@ -116,15 +105,6 @@ __device__ __forceinline__ void gen_flux_by(GenSmem<N, P>& s, const G& g,
     s.f[q][lane] = fmaf(g0, ur, g1 * us);
     s.f[N + q][lane] = fmaf(g1, ur, g2 * us);
   }
-}
-
-// gen_flux_by with the factors read from the (3, N, E) slabs gT; e is this
-// lane's element (valid when e < E).
-template <int N>
-__device__ __forceinline__ void gen_flux(GenSmem<N>& s,
-                                         const float* __restrict__ gT, int E,
-                                         int e, bool valid) {
-  gen_flux_by(s, SlabFactors<N>{gT, E, e}, valid);
 }
 
 // Row j (hier order) of S = Dhat^T flux for this lane's element.

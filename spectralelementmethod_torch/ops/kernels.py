@@ -17,8 +17,10 @@ launches one variant:
 * :func:`general_apply_dss` / :func:`general_apply_dss_batched` — the
   apply on curved meshes, ``DSS(Dhat^T [g0 ur + g1 us; g1 ur + g2 us])``
   with ``[ur; us] = Dhat u`` and full (3, n, E) factor slabs
-  (``make_fused_general_laplacian_T``); with ``aux=True`` each also returns
-  the raw exchanged rows it summed from, for :func:`far_update`;
+  (``make_fused_general_laplacian_T``), computed on the card on the same
+  tensor-product tile from the :class:`GeneralFactors` of ``Dhat``; with
+  ``aux=True`` each also returns the raw exchanged rows it summed from, for
+  :func:`far_update`;
 * :func:`affine_block_apply_dss` — the affine apply on one shard's
   halo-extended element block, its scales and class masks runtime operands
   (``make_fused_affine_block_kernel``);
@@ -32,7 +34,7 @@ launches one variant:
   affine apply's tensor-product tile, from the same :class:`AffineFactors`;
   :func:`cg_kernel_a_general` / :func:`cg_kernel_a_general_batched` — the
   direction half on curved meshes (kernel A of
-  ``make_fused_cg_kernels_general``);
+  ``make_fused_cg_kernels_general``), around the curved apply's product;
 * :func:`cg_kernel_b` / :func:`cg_kernel_b_batched` — the residual half
   (``_build_cg_kernel_b``, ``_build_cg_kernel_b_batched``);
 * :func:`cg_kernel_single` / :func:`cg_kernel_single_deferred` — one whole
@@ -50,7 +52,9 @@ Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and for CUDA tensors launches the kernel or raises: there is no
 fallback.  The affine kernels (the applies, kernel A and the single
 kernel) take ``factors=`` on CUDA tensors and read no assembled ``Kst``;
-their plain versions multiply by ``Kst`` and ignore the factors.  Each
+their plain versions multiply by ``Kst`` and ignore the factors.  The
+curved kernels (the general apply and its kernel A) take ``factors=`` too,
+a :class:`GeneralFactors`, and read no dense ``Dh``.  Each
 wrapper keeps a launch count (``wrapper.launches``), incremented only
 where the kernel is launched.  Per-RHS scalars of the batched kernels
 are (k,) float32 tensors on the device; their partial sums are (G, k).
@@ -80,7 +84,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("sem_kernels.cuh", "sem_general.cuh", "sem_affine.cuh")
+_HEADERS = ("sem_kernels.cuh", "sem_general.cuh", "sem_affine.cuh",
+            "sem_curved.cuh")
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
@@ -121,8 +126,8 @@ THREADS = 256
 #: elements per tile of the affine product kernels (``kAffTile`` in
 #: csrc/sem_affine.cuh; one denominator partial row each)
 AFFINE_TILE = 32
-#: elements per block of the general kernels (``kGenTile`` in
-#: csrc/sem_general.cuh; one denominator partial each)
+#: elements per tile of the curved (n, E) kernels (``kAffTile``, the tile
+#: of csrc/sem_curved.cuh; one denominator partial row each)
 GENERAL_TILE = 32
 #: nodes per element with a compiled instantiation: (p + 1)^2 for p = 2..8
 #: (``SEM_FOR_EACH_N`` in csrc/sem_kernels.cuh)
@@ -138,9 +143,9 @@ _SIGNATURES = {
     "sem_cg_kernel_a_defer_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
     "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
-    "sem_general_apply_dss": [_P] * 9 + [_I] * 4 + [_P],
-    "sem_cg_kernel_a_general_f32": [_P] * 17 + [_I] * 4 + [_P],
-    "sem_cg_kernel_a_general_bf16": [_P] * 17 + [_I] * 4 + [_P],
+    "sem_general_apply_dss": [_P] * 8 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_general_f32": [_P] * 16 + [_I] * 4 + [_P],
+    "sem_cg_kernel_a_general_bf16": [_P] * 16 + [_I] * 4 + [_P],
     "sem_cg_kernel_single_f32": [_P] * 19 + [_I] * 3 + [_P],
     "sem_cg_kernel_single_bf16": [_P] * 19 + [_I] * 3 + [_P],
     "sem_cg_kernel_single_defer_f32": [_P] * 17 + [_I] * 3 + [_P],
@@ -150,6 +155,7 @@ _SIGNATURES = {
     "sem_affine_block_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
     "sem_far_update": [_P] * 5 + [_I] * 2 + [_P],
     "sem_affine_tables_size": [],
+    "sem_general_tables_size": [],
 }
 #: the partial sums of the single-kernel iteration, their columns in order
 SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
@@ -217,10 +223,14 @@ def _lib(source: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
         lib.sem_error_string.argtypes = [ctypes.c_int]
         lib.sem_error_string.restype = ctypes.c_char_p
-        if (hasattr(lib, "sem_affine_tables_size")
-                and lib.sem_affine_tables_size() != _AFFINE_TABLES.itemsize):
-            raise RuntimeError("AffineTables layout differs between "
-                               "csrc/sem_affine.cuh and ops/kernels.py")
+        for fn, dt, what in (
+                ("sem_affine_tables_size", _AFFINE_TABLES,
+                 "AffineTables (csrc/sem_affine.cuh)"),
+                ("sem_general_tables_size", _GENERAL_TABLES,
+                 "GeneralTables (csrc/sem_curved.cuh)")):
+            if hasattr(lib, fn) and getattr(lib, fn)() != dt.itemsize:
+                raise RuntimeError(f"the layout of {what} differs from "
+                                   "ops/kernels.py's")
         _LIBS[source] = lib
     return lib
 
@@ -410,6 +420,81 @@ def _require_factors(factors, Kst: torch.Tensor, what: str) -> int:
             raise ValueError(f"{what}: Kst is not the blocks K_c of the "
                              "given factors")
         Kst._affine_factors_checked = key
+    return factors.tables.ctypes.data
+
+
+# -- the curved kernels' operand: Dhat in tensor-product form ----------------
+
+#: the by-value table operand of the curved kernels (``GeneralTables`` in
+#: csrc/sem_curved.cuh): D0, D1 and their transposes as float32, the
+#: lex-to-row map as uint8, each padded to the largest compiled n
+_GENERAL_TABLES = np.dtype([("D0", "<f4", (max(SUPPORTED_N),)),
+                            ("D1", "<f4", (max(SUPPORTED_N),)),
+                            ("D0t", "<f4", (max(SUPPORTED_N),)),
+                            ("D1t", "<f4", (max(SUPPORTED_N),)),
+                            ("row", "u1", (max(SUPPORTED_N),))], align=True)
+
+
+class GeneralFactors:
+    """The curved kernels' operand: the stacked derivative in tensor-product
+    form (``Dh = [D0 (x) I; I (x) D1]`` with its columns permuted by
+    ``hier``, see csrc/sem_curved.cuh).
+
+    ``Dh`` (2n, n): the stacked derivative with its columns in the L-vector
+    order ``hier`` ((n,), L-vector row -> lex node), as the plain versions
+    take it.  Host arrays: the kernels take D0, D1, their transposes and
+    the inverse of ``hier`` by value (:attr:`tables`, float32).  Raises
+    ``ValueError`` unless ``Dh`` has that form for an n up to the largest
+    compiled one: the kernels read nothing else of ``Dh``.
+    """
+
+    def __init__(self, Dh, hier):
+        Dh = np.asarray(Dh, np.float64)
+        hier = np.asarray(hier, np.int64).reshape(-1)
+        fac = (_tensor_factors(Dh, hier)
+               if Dh.ndim == 2 and hier.shape == Dh.shape[1:] else None)
+        if fac is None or Dh.shape[1] > max(SUPPORTED_N):
+            raise ValueError(
+                f"Dh ({Dh.shape}) is not [D0 (x) I; I (x) D1] with its "
+                f"columns permuted by hier for n <= {max(SUPPORTED_N)}: the "
+                "curved kernels compute the product in tensor-product form "
+                "and take no other Dh")
+        n = self.n = Dh.shape[1]
+        self.Dh = Dh
+        self.hier = hier
+        # the 1D derivatives (M, M), lex: D0[a, m] along r, D1[b, c] along s
+        D0, D1 = fac
+        self.tables = np.zeros((), _GENERAL_TABLES)
+        self.tables["D0"][:n] = D0.ravel()
+        self.tables["D1"][:n] = D1.ravel()
+        self.tables["D0t"][:n] = D0.T.ravel()
+        self.tables["D1t"][:n] = D1.T.ravel()
+        self.tables["row"][:n] = np.argsort(hier)
+
+
+def _require_general_factors(factors, Dh: torch.Tensor, hier: torch.Tensor,
+                             what: str) -> int:
+    """The host pointer of ``factors``' tables, after checking (once per
+    ``Dh`` and ``hier`` state) that they are the ``Dh`` (to 1e-6 of its
+    max: ``Dh`` is float32) and the ``hier`` the plain version uses."""
+    n = Dh.shape[-1]
+    if not isinstance(factors, GeneralFactors) or factors.n != n:
+        raise ValueError(
+            f"{what} on CUDA tensors computes the product in tensor-product "
+            "form: pass factors= (the GeneralFactors of Dh and hier, as "
+            f"GeneralLaplacianT.factors gives them for n={n}); got "
+            f"{factors!r}")
+    key = (Dh.data_ptr(), Dh._version, hier.data_ptr(), hier._version,
+           id(factors))
+    if getattr(Dh, "_general_factors_checked", None) != key:
+        D = Dh.detach().double().cpu().numpy()
+        h = hier.detach().cpu().numpy()
+        ref = factors.Dh
+        if (D.shape != ref.shape or not np.array_equal(h, factors.hier)
+                or np.abs(D - ref).max() > 1e-6 * np.abs(ref).max()):
+            raise ValueError(f"{what}: Dh and hier are not those of the "
+                             "given factors")
+        Dh._general_factors_checked = key
     return factors.tables.ctypes.data
 
 
@@ -844,26 +929,22 @@ def general_apply_dss_batched_plain(uT, gT, Dh, hier, plan: DSSPlan):
     return general_apply_dss_plain(u3, gT, Dh, hier, plan).reshape(uT.shape)
 
 
-def _require_general(gT, Dh, hier, n, E, dev) -> None:
-    _require(gT, "gT", (torch.float32,), (3, n, E), dev)
-    _require(Dh, "Dh", (torch.float32,), (2 * n, n), dev)
-    _require(hier, "hier", (torch.int32,), (n,), dev)
-
-
-def _launch_general_apply(uT, gT, Dh, hier, plan, k: int):
+def _launch_general_apply(uT, gT, Dh, plan, k: int, tables: int):
     """The general apply on CUDA tensors: (out, B) as in
-    :func:`_launch_apply`."""
+    :func:`_launch_apply`; ``tables`` the host pointer
+    :func:`_require_general_factors` gave."""
     dev = _cuda_device(uT)
     _check_plan(plan, dev)
     n, E = Dh.shape[1], uT.shape[-1]
     _check_n(n)
-    _require(uT, "uT", (torch.float32,), (k * n, E), dev)
-    _require_general(gT, Dh, hier, n, E, dev)
+    f32 = (torch.float32,)
+    _require(uT, "uT", f32, (k * n, E), dev)
+    _require(gT, "gT", f32, (3, n, E), dev)
     out = torch.empty_like(uT)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
     lib = _lib(_GEN_APPLY)
     rc = lib.sem_general_apply_dss(
-        _ptr(uT), _ptr(gT), _ptr(Dh), _ptr(hier), _ptr(out), _ptr(B),
+        _ptr(uT), tables, _ptr(gT), _ptr(out), _ptr(B),
         _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
         n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"general_apply_dss (n={n}, E={E}, k={k})")
@@ -872,24 +953,29 @@ def _launch_general_apply(uT, gT, Dh, hier, plan, k: int):
 
 def general_apply_dss(uT: torch.Tensor, gT: torch.Tensor, Dh: torch.Tensor,
                       hier: torch.Tensor, plan: DSSPlan, *,
-                      aux: bool = False):
+                      aux: bool = False,
+                      factors: GeneralFactors | None = None):
     """``out = DSS(Dh^T [g0 ur + g1 us; g1 ur + g2 us])``, ``[ur; us] =
     Dh u``, on an (n, E) L-vector of a curved mesh.
 
     ``gT`` (3, n, E): the geometric-factor slabs in lex node order; ``Dh``
     (2n, n): the stacked derivative ``[D0 (x) I; I (x) D1]`` with its
     columns in the L-vector order ``hier`` ((n,) int32, L-vector row ->
-    lex node), which the kernel reads for its tensor-product form;
-    ``plan``: the exchange's :class:`.DSSPlan` on the tensors' device.
-    CUDA tensors must be float32.  ``aux`` as in :func:`affine_apply_dss`.
+    lex node); ``plan``: the exchange's :class:`.DSSPlan` on the tensors'
+    device.  CUDA tensors must be float32, and the kernel computes the
+    product in tensor-product form from ``factors``, the
+    :class:`GeneralFactors` of ``Dh`` and ``hier`` (required there:
+    checked once against them; the plain version reads ``Dh``).  ``aux``
+    as in :func:`affine_apply_dss`.
     """
     if uT.device.type == "cpu":
         _check_plan(plan, None)
         return general_apply_dss_plain(uT, gT, Dh, hier, plan, aux=aux)
+    tables = _require_general_factors(factors, Dh, hier, "general_apply_dss")
     if uT.dim() != 2 or uT.shape[0] != Dh.shape[1]:
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Dh.shape[1]}, E)")
-    out, B = _launch_general_apply(uT, gT, Dh, hier, plan, 1)
+    out, B = _launch_general_apply(uT, gT, Dh, plan, 1, tables)
     general_apply_dss.launches += 1
     return (out, B[0, :plan.nb]) if aux else out
 
@@ -899,15 +985,19 @@ general_apply_dss.launches = 0
 
 def general_apply_dss_batched(uT: torch.Tensor, gT: torch.Tensor,
                               Dh: torch.Tensor, hier: torch.Tensor,
-                              plan: DSSPlan) -> torch.Tensor:
+                              plan: DSSPlan, *,
+                              factors: GeneralFactors | None = None
+                              ) -> torch.Tensor:
     """:func:`general_apply_dss` of each (n, E) block of a (k * n, E)
-    stack: the k right-hand sides share the slabs, ``Dh`` and the class
-    tables."""
+    stack: the k right-hand sides share the slabs, ``Dh`` (``factors``)
+    and the class tables."""
     k = _n_rhs(uT.shape[0], Dh.shape[1])
     if uT.device.type == "cpu":
         _check_plan(plan, None)
         return general_apply_dss_batched_plain(uT, gT, Dh, hier, plan)
-    out, _ = _launch_general_apply(uT, gT, Dh, hier, plan, k)
+    tables = _require_general_factors(factors, Dh, hier,
+                                      "general_apply_dss_batched")
+    out, _ = _launch_general_apply(uT, gT, Dh, plan, k, tables)
     general_apply_dss_batched.launches += 1
     return out
 
@@ -931,9 +1021,11 @@ def cg_kernel_a_general_batched_plain(r, p, inv, x, beta, alpha_prev, gT,
                                lambda u: _general_local(u, gT, Dh), plan)
 
 
-def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan, k,
-                      what):
-    """General kernel A on CUDA tensors: (p', Ap', x', (G, k) partials)."""
+def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, plan, k,
+                      tables, what):
+    """General kernel A on CUDA tensors: (p', Ap', x', (G, k) partials, G
+    the tiles of :data:`GENERAL_TILE` elements); ``tables`` the host
+    pointer :func:`_require_general_factors` gave."""
     dev = _cuda_device(r)
     _check_plan(plan, dev)
     n, E = Dh.shape[1], r.shape[-1]
@@ -944,7 +1036,7 @@ def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan, k,
     _require(p, "p", (torch.float32, torch.bfloat16), shape, dev)
     _require(inv, "inv", (p.dtype,), (n, E), dev)
     _require(x, "x", f32, shape, dev)
-    _require_general(gT, Dh, hier, n, E, dev)
+    _require(gT, "gT", f32, (3, n, E), dev)
     p_out, ap, x_out = torch.empty_like(p), torch.empty_like(r), \
         torch.empty_like(x)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
@@ -953,29 +1045,32 @@ def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan, k,
     lib = _lib(_GEN_CG_A)
     fn = (lib.sem_cg_kernel_a_general_bf16 if p.dtype == torch.bfloat16
           else lib.sem_cg_kernel_a_general_f32)
-    rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), _ptr(gT), _ptr(Dh),
-            _ptr(hier), _ptr(beta), _ptr(alpha_prev), _ptr(p_out),
-            _ptr(x_out), _ptr(ap), _ptr(B), _ptr(dparts), _ptr(plan.row_ptr),
-            _ptr(plan.entries), _ptr(plan.masks), n, E, plan.nb, k,
-            _stream(dev))
+    rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), tables, _ptr(gT),
+            _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out), _ptr(ap),
+            _ptr(B), _ptr(dparts), _ptr(plan.row_ptr), _ptr(plan.entries),
+            _ptr(plan.masks), n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
     return p_out, ap, x_out, dparts
 
 
 def cg_kernel_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
-                        plan: DSSPlan):
+                        plan: DSSPlan, *,
+                        factors: GeneralFactors | None = None):
     """``(p', Ap', x', dparts)`` of one fused PCG iteration on a curved
     mesh: :func:`cg_kernel_a` with the apply of :func:`general_apply_dss`
-    (``gT``, ``Dh``, ``hier`` as there).  There is no deferred-x variant,
-    as in the reference."""
+    (``gT``, ``Dh``, ``hier`` and, on CUDA tensors, ``factors`` as
+    there), so ``Ap'`` is that apply of the stored ``p'`` bit for bit.
+    There is no deferred-x variant, as in the reference."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_general_plain(r, p, inv, x, beta, alpha_prev, gT,
                                          Dh, hier, plan)
+    tables = _require_general_factors(factors, Dh, hier,
+                                      "cg_kernel_a_general")
     dev = _cuda_device(r)
     p_out, ap, x_out, dparts = _launch_a_general(
         r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), gT, Dh,
-        hier, plan, 1, "cg_kernel_a_general")
+        plan, 1, tables, "cg_kernel_a_general")
     cg_kernel_a_general.launches += 1
     return p_out, ap, x_out, dparts.view(-1)
 
@@ -984,7 +1079,8 @@ cg_kernel_a_general.launches = 0
 
 
 def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
-                                plan: DSSPlan):
+                                plan: DSSPlan, *,
+                                factors: GeneralFactors | None = None):
     """:func:`cg_kernel_a_general` for a (k * n, E) stack of k right-hand
     sides (``inv`` (n, E) shared, ``beta`` and ``alpha_prev`` (k,) float32
     device tensors, the partials (G, k))."""
@@ -993,11 +1089,14 @@ def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
         return cg_kernel_a_general_batched_plain(r, p, inv, x, beta,
                                                  alpha_prev, gT, Dh, hier,
                                                  plan)
+    tables = _require_general_factors(factors, Dh, hier,
+                                      "cg_kernel_a_general_batched")
     dev = _cuda_device(r)
     k = _n_rhs(r.shape[0], Dh.shape[1])
     out = _launch_a_general(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
                             _per_rhs(alpha_prev, k, "alpha_prev", dev), gT,
-                            Dh, hier, plan, k, "cg_kernel_a_general_batched")
+                            Dh, plan, k, tables,
+                            "cg_kernel_a_general_batched")
     cg_kernel_a_general_batched.launches += 1
     return out
 
@@ -1007,27 +1106,32 @@ cg_kernel_a_general_batched.launches = 0
 
 def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
                                   hier: torch.Tensor, plan: DSSPlan,
-                                  n_rhs: int | None = None):
+                                  n_rhs: int | None = None, *,
+                                  factors: GeneralFactors | None = None):
     """``(kA, kB)`` on a curved mesh: the general kernel A bound to one
-    operator (``gT``, ``Dh``, ``hier``, ``plan``) and the shared kernel B,
-    for :func:`..solver.cg.cg_fused` (``n_rhs=None``) or, for a stack of
-    ``n_rhs`` right-hand sides (1 included), for
+    operator (``gT``, ``Dh``, ``hier``, ``plan`` and ``factors``, the
+    :class:`GeneralFactors` its kernel reads on a CUDA device) and the
+    shared kernel B, for :func:`..solver.cg.cg_fused` (``n_rhs=None``) or,
+    for a stack of ``n_rhs`` right-hand sides (1 included), for
     :func:`..solver.cg.cg_fused_batched`.
 
     ``kA(r, p, inv, x, beta, alpha_prev) -> (p', Ap', x', dparts)``.  The
     general kernels have no deferred-x mode: ``kA.defer_x`` is False and
     ``kA.offers_defer_x`` makes :func:`..solver.cg.cg_fused` and
-    ``cg_fused_batched`` refuse ``defer_x``."""
+    ``cg_fused_batched`` refuse ``defer_x``.  ``kA.factors`` records the
+    factors."""
     if n_rhs is not None and n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     fn = (cg_kernel_a_general if n_rhs is None
           else cg_kernel_a_general_batched)
 
     def kA(r, p, inv, x, beta, alpha_prev):
-        return fn(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan)
+        return fn(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan,
+                  factors=factors)
 
     kA.defer_x, kA.offers_defer_x = False, False
     kA.n_rhs = 1 if n_rhs is None else int(n_rhs)
+    kA.factors = factors
     return kA, cg_kernel_b if n_rhs is None else cg_kernel_b_batched
 
 

@@ -223,19 +223,34 @@ def affine_tensor_factors(Kcat) -> kernels.AffineFactors:
         "that basis's derivative and weights, and takes no other Kcat")
 
 
-def _operator_factors(Kcat, device) -> kernels.AffineFactors | None:
-    """:func:`affine_tensor_factors` of an operator on ``device``.  On a
-    CUDA device a ``Kcat`` without them raises where a kernel is compiled
-    for its n: the kernels take no other.  Otherwise a ``Kcat`` without
-    them gives None: the plain version reads ``Kcat`` alone, and the
-    apply raises for an n without a kernel."""
+def _kernel_factors(make, n: int, device):
+    """``make()``, the tables an operator's kernels read, on ``device``.  On
+    a CUDA device an operator without them (``make`` raises
+    ``ValueError``) raises where a kernel is compiled for its n: the
+    kernels take no other.  Otherwise it gets None: the plain version
+    reads the operator's dense arrays alone, and the apply raises for an n
+    without a kernel."""
     try:
-        return affine_tensor_factors(Kcat)
+        return make()
     except ValueError:
-        if (torch.device(device).type == "cuda"
-                and np.shape(Kcat)[0] in kernels.SUPPORTED_N):
+        if torch.device(device).type == "cuda" and n in kernels.SUPPORTED_N:
             raise
         return None
+
+
+def _operator_factors(Kcat, device) -> kernels.AffineFactors | None:
+    """:func:`affine_tensor_factors` of an affine operator on ``device``
+    (None or a raise as :func:`_kernel_factors` says)."""
+    return _kernel_factors(lambda: affine_tensor_factors(Kcat),
+                           np.shape(Kcat)[0], device)
+
+
+def _general_factors(Dh, hier, device) -> kernels.GeneralFactors | None:
+    """The :class:`.kernels.GeneralFactors` of a curved operator's ``Dh``
+    (columns in the L-vector order ``hier``) on ``device`` (None or a
+    raise as :func:`_kernel_factors` says)."""
+    return _kernel_factors(lambda: kernels.GeneralFactors(Dh, hier),
+                           np.shape(Dh)[-1], device)
 
 
 class LaplacianT(torch.nn.Module):
@@ -421,7 +436,11 @@ class GeneralLaplacianT(LaplacianT):
     columns permuted into the L-vector order); ``hier`` (n,): the exchange's
     local node order (L-vector row -> lex node); the rest as in
     :class:`LaplacianT`.  The apply is :func:`.kernels.general_apply_dss`
-    (``general_apply_dss_batched`` on stacks).
+    (``general_apply_dss_batched`` on stacks) — the CUDA kernel on a CUDA
+    tensor, computing the product in tensor-product form from
+    :attr:`factors` (the :class:`.kernels.GeneralFactors` of ``Dh`` as
+    stored, built once here: on a CUDA device a ``Dhat`` without them
+    raises), its plain PyTorch version on the CPU.
     """
 
     structure = "general"
@@ -440,19 +459,24 @@ class GeneralLaplacianT(LaplacianT):
         gT = np.ascontiguousarray(Gf.transpose(1, 2, 0))
         self.register_buffer("gT", torch.as_tensor(gT, device=dev).to(dtype))
         hier = np.asarray(hier, dtype=np.int64)
-        Dh = np.ascontiguousarray(np.asarray(Dhat, np.float64)[:, hier])
-        self.register_buffer("Dh", torch.as_tensor(Dh, device=dev).to(dtype))
+        Dh = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(Dhat, np.float64)[:, hier])).to(dtype)
+        #: the tensor-product tables of ``Dh`` as stored (host arrays;
+        #: None on the CPU for a Dhat that has none)
+        self.factors = _general_factors(Dh.double().numpy(), hier, dev)
+        self.register_buffer("Dh", Dh.to(dev))
         self.register_buffer(
             "hier", torch.as_tensor(hier.astype(np.int32), device=dev))
 
     def _apply(self, uT):
         return self._split_apply(
             lambda u, pl, aux: kernels.general_apply_dss(
-                u, self.gT, self.Dh, self.hier, pl, aux=aux), uT)
+                u, self.gT, self.Dh, self.hier, pl, aux=aux,
+                factors=self.factors), uT)
 
     def _apply_batched(self, uT):
-        return kernels.general_apply_dss_batched(uT, self.gT, self.Dh,
-                                                 self.hier, self.plan)
+        return kernels.general_apply_dss_batched(
+            uT, self.gT, self.Dh, self.hier, self.plan, factors=self.factors)
 
     def fused_cg_kernels(self, n_rhs=None, defer_x: bool = False):
         """``(kA, kB)`` of the fused CG on this operator
@@ -466,7 +490,8 @@ class GeneralLaplacianT(LaplacianT):
                              "CG (curved meshes): its kernels carry no "
                              "deferred-x mode")
         return kernels.make_fused_cg_kernels_general(
-            self.gT, self.Dh, self.hier, self.plan, n_rhs)
+            self.gT, self.Dh, self.hier, self.plan, n_rhs,
+            factors=self.factors)
 
     def fused_cg_kernel_single(self, defer_x: bool = False):
         """Raises: the single-kernel iteration exists for affine meshes
