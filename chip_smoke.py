@@ -21,18 +21,19 @@ Phases (any failure exits non-zero and prints no result line):
    against the general apply of its own stored p'; time the deferred-x
    catch-up; the element-local Laplacian of the row-major (E, n) layout
    (one array, K packed components, a stack of K) on the annulus factors
-   of the Helmholtz problem below; the element-sharded operator on S_SH = 4
-   shards of the rectangle (each shard's block kernel against its plain
+   of the Helmholtz problem below; the element-sharded operator on S_SH =
+   4 shards of the rectangle (each shard's block kernel against its plain
    version, the assembled centres against the global apply, the whole
    sharded apply and one block launch timed) and the far split at
    ``max_halo=FAR_HALO`` (the far update against its plain version, the
    split applies of the rectangle and the annulus against the unsplit);
    then hold every kernel against its plain version at the other compiled
    orders (p = 2..7) on a small rectangle (the block kernel on 2 shards,
-   the far update at ``max_halo=1``; kernel A's and the single kernel's
-   Ap' against the apply of their own p' bit for bit) and a small annulus
-   (the general kernel A's Ap' against the general apply of its own p'
-   bit for bit);
+   the far update at ``max_halo=1`` bit for bit, there and on the small
+   annulus; the element-local kernel with 16-byte and 4-byte staging;
+   kernel A's and the single kernel's Ap' against the apply of their own
+   p' bit for bit) and a small annulus (the general kernel A's Ap' against
+   the general apply of its own p' bit for bit);
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
    deferred x (``defer_x=8``), with the general apply forced
@@ -280,7 +281,8 @@ def main() -> int:
     for name, text in logs.items():
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            if "Function properties" in line and "Li81E" in line:
+            if "Function properties" in line and ("Li81E" in line
+                                                  or "far_update" in line):
                 log(f"  {name}: {line.split('for ')[-1][:60]} "
                     f"{lines[i + 1].strip()} | {lines[i + 2].strip()}")
 
@@ -635,6 +637,12 @@ def main() -> int:
         rows.append(dict(name=name, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
+    log("  the element-local kernel's dynamic shared memory (bytes) and "
+        f"blocks per SM at n={n}, 16-byte / 4-byte staging: one array "
+        f"{kernels.local_occupancy(n, True, 1)} / "
+        f"{kernels.local_occupancy(n, False, 1)}, K components (a second u "
+        f"buffer) {kernels.local_occupancy(n, True, K)} / "
+        f"{kernels.local_occupancy(n, False, K)}")
 
     # -- the element-sharded operator: S_SH shards of the rectangle, each
     # an (n, Eb + 2H) halo-extended block through the block kernel
@@ -808,9 +816,21 @@ def main() -> int:
                                gll_basis_2d(p))
         cA = Poisson(cdisc, dtype=np.float32)._local_setup(dev)["A"]
         cop, cfac = (cA.gT, cA.Dh, cA.hier, cA.plan), cA.factors
-        # the (E, n) element-local kernel on the same factors
+        # the (E, n) element-local kernel on the same factors (E = 475:
+        # 4-byte staging) and on their first 472 elements (16-byte staging
+        # for odd n), one array and a stack
         lop_s = (cA.gT.transpose(1, 2).contiguous(), cA.Dh, cA.hier)
         ne_ = (cdisc.E, sdisc.n_loc)
+        g472 = lop_s[0][:, :472].contiguous()
+        for shape in ((472, sdisc.n_loc), (3, 472, sdisc.n_loc)):
+            u_l = torch.randn(shape, generator=g, device=dev)
+            fn_l = (kernels.laplacian_local if len(shape) == 2
+                    else kernels.laplacian_local_batched)
+            rel_l = rel_err(fn_l(u_l, g472, *lop_s[1:]),
+                            kernels.laplacian_local_plain(u_l, g472,
+                                                          *lop_s[1:]))[1]
+            check(rel_l <= 1e-6, f"p={p}: {fn_l.__name__} at E=472 matches "
+                  f"its plain version ({rel_l:.1e} <= 1e-6 of max)")
         nl = (sdisc.n_loc, sdisc.E)
         # the single kernel: r', p', x' (pointwise) against the plain
         # version; its Ap' and kernel A's against the hand-written apply of
@@ -915,12 +935,22 @@ def main() -> int:
         snear, sfar = splan.split(1)
         o_, x_ = kernels.affine_apply_dss(su, sK, saT, snear, aux=True,
                                           factors=sfac)
-        rels.append(rel_err(kernels.far_update(o_.clone(), x_, sfar),
-                            kernels.far_update_plain(o_.clone(), x_,
-                                                     sfar))[1])
+        d_far = rel_err(kernels.far_update(o_.clone(), x_, sfar),
+                        kernels.far_update_plain(o_.clone(), x_, sfar))[0]
+        # and on the small annulus's general apply (E = 475: 4-byte rows)
+        cnear, cfar = cop[3].split(1)
+        o_c, x_c = kernels.general_apply_dss(
+            torch.randn(nl[:1] + (cdisc.E,), generator=g, device=dev),
+            *cop[:3], cnear, aux=True, factors=cfac)
+        d_far = max(d_far, rel_err(
+            kernels.far_update(o_c.clone(), x_c, cfar),
+            kernels.far_update_plain(o_c.clone(), x_c, cfar))[0])
+        check(d_far == 0, f"p={p}: the far update at max_halo=1 matches "
+              f"its plain version bit for bit ({sfar.n_entries} and "
+              f"{cfar.n_entries} far entries, rectangle and annulus)")
         check(max(rels) <= 1e-5, f"p={p} (n={sdisc.n_loc}, E={sdisc.E}): "
-              f"every kernel, one RHS and three, the block kernel on 2 "
-              f"shards and the far update, matches its plain version "
+              f"every kernel, one RHS and three, and the block kernel on 2 "
+              f"shards match their plain versions "
               f"({max(rels):.1e} <= 1e-5)")
         check(single_err == 0 and own_err == 0,
               f"p={p}: the single kernel's r', p', x' bit for bit against "

@@ -5,8 +5,8 @@
 //   K0 = Dr^T W Dr,   K1 = Dr^T W Ds + Ds^T W Dr,   K2 = Ds^T W Ds,
 //
 // so sum_c a_c K_c u = Dr^T fr + Ds^T fs with [ur; us] = [Dr; Ds] u,
-// fr = W (a0 ur + a1 us) and fs = W (a1 ur + a2 us): the general kernels'
-// flux (sem_general.cuh) with g_c = a_c(e) W, three scalars per element
+// fr = W (a0 ur + a1 us) and fs = W (a1 ur + a2 us): the curved kernels'
+// flux (sem_curved.cuh) with g_c = a_c(e) W, three scalars per element
 // instead of (3, n) factor slabs.  With lex node (a, b) of the M x M grid,
 // Dr = D (x) I and Ds = I (x) D for the 1D GLL derivative D, so
 //
@@ -44,9 +44,16 @@
 // function, so their Ap' equals the apply of their stored p' bit for bit.
 #pragma once
 
-#include "sem_general.cuh"
+#include "sem_kernels.cuh"
 
 namespace sem {
+
+// M for n = M^2 nodes per element (the grid side)
+__host__ __device__ constexpr int grid_side(int n) {
+  int m = 0;
+  while ((m + 1) * (m + 1) <= n) ++m;
+  return m;
+}
 
 constexpr int kAffTile = 32;     // elements per block, one per lane
 constexpr int kAffMaxN = 81;     // the largest compiled n (p = 8)

@@ -5,10 +5,10 @@
 // consecutive elements reads 32 consecutive words of one row.
 //
 // The element-local products live in sem_affine.cuh (affine meshes: the
-// tensor-product tile of 32 elements and one warp per grid line),
-// sem_curved.cuh (curved meshes, the same tile) and sem_general.cuh (the
-// row-major (E, n) element-local kernel); no kernel reads an assembled
-// stiffness block.  The direct stiffness summation (DSS) is a second pass,
+// tensor-product tile of 32 elements and one warp per grid line) and
+// sem_curved.cuh (curved meshes, the same tile, which the row-major (E, n)
+// element-local kernel, laplacian_local.cu, runs too); no kernel reads an
+// assembled stiffness block.  The direct stiffness summation (DSS) is a second pass,
 // dss_gather_kernel: the product kernels write the exchanged rows [0, nb)
 // of S to a scratch array B, and the gather sums them per roll class from
 // B[src, e + delta] under the class mask.  Masks are false wherever

@@ -46,7 +46,8 @@ launches one variant:
   row-major (E, n) L-vectors without DSS, on one array, a (k, E, n) stack
   and k components packed as (E, k n) (``fused_laplacian_local`` and
   ``fused_vector_laplacian_local``): one kernel that takes the element and
-  component strides.
+  component strides and runs the curved product's tile from the
+  :class:`GeneralFactors` of ``Dh``.
 
 Each wrapper runs its plain PyTorch version when the tensors lie on the
 CPU, and for CUDA tensors launches the kernel or raises: there is no
@@ -54,8 +55,9 @@ fallback.  The affine kernels (the applies, kernel A and the single
 kernel) take ``factors=`` on CUDA tensors and read no assembled ``Kst``;
 their plain versions multiply by ``Kst`` and ignore the factors.  The
 curved kernels (the general apply and its kernel A) take ``factors=`` too,
-a :class:`GeneralFactors`, and read no dense ``Dh``.  Each
-wrapper keeps a launch count (``wrapper.launches``), incremented only
+a :class:`GeneralFactors`, and read no dense ``Dh``; so does the
+element-local kernel, which builds them from ``Dh`` when none are given.
+Each wrapper keeps a launch count (``wrapper.launches``), incremented only
 where the kernel is launched.  Per-RHS scalars of the batched kernels
 are (k,) float32 tensors on the device; their partial sums are (G, k).
 
@@ -84,8 +86,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("sem_kernels.cuh", "sem_general.cuh", "sem_affine.cuh",
-            "sem_curved.cuh")
+_HEADERS = ("sem_kernels.cuh", "sem_affine.cuh", "sem_curved.cuh")
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
@@ -150,12 +151,14 @@ _SIGNATURES = {
     "sem_cg_kernel_single_bf16": [_P] * 19 + [_I] * 3 + [_P],
     "sem_cg_kernel_single_defer_f32": [_P] * 17 + [_I] * 3 + [_P],
     "sem_cg_kernel_single_defer_bf16": [_P] * 17 + [_I] * 3 + [_P],
-    "sem_laplacian_local": [_P] * 5 + [_I] * 3 + [ctypes.c_longlong] * 2
-    + [_P],
+    "sem_laplacian_local": [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] * 2
+    + [_I, _P],
+    "sem_laplacian_local_occupancy": [_I] * 3 + [_P],
     "sem_affine_block_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
-    "sem_far_update": [_P] * 5 + [_I] * 2 + [_P],
+    "sem_far_update": [_P] * 4 + [_I, _P],
     "sem_affine_tables_size": [],
     "sem_general_tables_size": [],
+    "sem_far_tables_size": [],
 }
 #: the partial sums of the single-kernel iteration, their columns in order
 SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
@@ -227,7 +230,9 @@ def _lib(source: str) -> ctypes.CDLL:
                 ("sem_affine_tables_size", _AFFINE_TABLES,
                  "AffineTables (csrc/sem_affine.cuh)"),
                 ("sem_general_tables_size", _GENERAL_TABLES,
-                 "GeneralTables (csrc/sem_curved.cuh)")):
+                 "GeneralTables (csrc/sem_curved.cuh)"),
+                ("sem_far_tables_size", _FAR_TABLES,
+                 "FarTables (csrc/far_update.cu)")):
             if hasattr(lib, fn) and getattr(lib, fn)() != dt.itemsize:
                 raise RuntimeError(f"the layout of {what} differs from "
                                    "ops/kernels.py's")
@@ -1199,6 +1204,51 @@ affine_block_apply_dss.launches = 0
 
 # -- the far-class update of a split DSS --------------------------------------
 
+#: the most far entries (and destination rows) a plan may have
+#: (``kFarMaxEntries`` in csrc/far_update.cu)
+FAR_MAX_ENTRIES = 128
+#: the by-value table operand of the far update (``FarTables`` in
+#: csrc/far_update.cu): the destination rows, their first entries, and per
+#: entry its source row, class mask and element offset
+_FAR_TABLES = np.dtype([("n_rows", "<i4"),
+                        ("dst", "u1", (FAR_MAX_ENTRIES,)),
+                        ("first", "u1", (FAR_MAX_ENTRIES + 1,)),
+                        ("src", "u1", (FAR_MAX_ENTRIES,)),
+                        ("mask", "u1", (FAR_MAX_ENTRIES,)),
+                        ("delta", "<i4", (FAR_MAX_ENTRIES,))], align=True)
+
+
+def far_tables(far_plan: DSSPlan) -> np.ndarray:
+    """The far update's by-value operand of ``far_plan`` (built once per
+    plan and kept on it): the rows with entries in order, each row's
+    entries in the plan's order (class order within a row).  Raises
+    ``ValueError`` beyond :data:`FAR_MAX_ENTRIES` entries or for a row or
+    class index past 255."""
+    t = getattr(far_plan, "_far_tables", None)
+    if t is not None:
+        return t
+    ent = far_plan.entries.cpu().numpy()[:far_plan.n_entries]
+    if len(ent) > FAR_MAX_ENTRIES:
+        raise ValueError(f"the far plan has {len(ent)} entries; the far "
+                         f"update takes at most {FAR_MAX_ENTRIES}")
+    if len(ent) and (ent[:, [0, 2, 3]].max() > 255
+                     or ent[:, [0, 2, 3]].min() < 0):
+        raise ValueError("the far update takes rows and class masks below "
+                         "256")
+    # DSSPlan sorts its entries by row, stably: class order within a row
+    src, delta, mask, dst = ent.T if len(ent) else (np.zeros(0, int),) * 4
+    rows, first = np.unique(dst, return_index=True)
+    t = np.zeros((), _FAR_TABLES)
+    t["n_rows"] = len(rows)
+    t["dst"][:len(rows)] = rows
+    t["first"][:len(rows) + 1] = np.append(first, len(ent))
+    t["src"][:len(ent)] = src
+    t["mask"][:len(ent)] = mask
+    t["delta"][:len(ent)] = delta
+    far_plan._far_tables = t
+    return t
+
+
 def far_update_plain(out, aux, far_plan: DSSPlan):
     """Plain version of :func:`far_update`: per far class, ``out[dst rows]
     += where(mask, roll(aux[src rows], -delta), 0)``, in place."""
@@ -1213,7 +1263,9 @@ def far_update(out: torch.Tensor, aux: torch.Tensor,
     ``out`` (n, E): an apply's output whose DSS gathered the near classes
     only; ``aux`` (nb, E): the raw exchanged rows of its product (the
     applies' ``aux=True``); ``far_plan``: the far half of
-    :meth:`.DSSPlan.split`.  CUDA tensors must be float32.
+    :meth:`.DSSPlan.split`, at most :data:`FAR_MAX_ENTRIES` entries (the
+    kernel takes them by value, :func:`far_tables`).  CUDA tensors must be
+    float32.
     """
     if out.device.type == "cpu":
         _check_plan(far_plan, None)
@@ -1227,10 +1279,10 @@ def far_update(out: torch.Tensor, aux: torch.Tensor,
     if out.shape[0] < far_plan.nb:
         raise ValueError(f"out has {out.shape[0]} rows; the plan exchanges "
                          f"{far_plan.nb}")
+    tables = far_tables(far_plan)
     lib = _lib(_FAR)
-    rc = lib.sem_far_update(_ptr(out), _ptr(aux), _ptr(far_plan.row_ptr),
-                            _ptr(far_plan.entries), _ptr(far_plan.masks), E,
-                            far_plan.nb, _stream(dev))
+    rc = lib.sem_far_update(_ptr(out), _ptr(aux), _ptr(far_plan.masks),
+                            tables.ctypes.data, E, _stream(dev))
     _check(lib, rc, f"far_update (E={E}, {far_plan.n_entries} entries)")
     far_update.launches += 1
     return out
@@ -1427,24 +1479,44 @@ def vector_laplacian_local_plain(uL, g, Dh, hier):
     return out.transpose(0, 1).reshape(E, kn)
 
 
-def _check_tensor_product(Dh: torch.Tensor, hier: torch.Tensor) -> None:
-    """Raise unless ``Dh`` is ``[D0 (x) I; I (x) D1]`` with its columns
-    permuted by ``hier``, the form the kernel reads its tensor factors D0
-    and D1 from (csrc/sem_general.cuh).  Checked once on the host per
-    (``Dh``, ``hier``) state, and remembered on ``Dh``."""
+def _local_factors(Dh: torch.Tensor, hier: torch.Tensor) -> GeneralFactors:
+    """The :class:`GeneralFactors` of ``Dh`` and ``hier``, built once per
+    (``Dh``, ``hier``) state and remembered on ``Dh``; raises
+    ``ValueError`` unless ``Dh`` is ``[D0 (x) I; I (x) D1]`` with its
+    columns permuted by ``hier``, the only form the kernel computes."""
     key = (Dh._version, hier.data_ptr(), hier._version)
-    if getattr(Dh, "_tensor_product_checked", None) == key:
-        return
-    D = Dh.detach().double().cpu().numpy()
-    h = hier.detach().cpu().numpy().astype(np.int64)
-    if _tensor_factors(D, h) is None:
-        raise ValueError("Dh is not a hier-permuted tensor-product stacked "
-                         "derivative [D0 (x) I; I (x) D1]; the kernel takes "
-                         "only that form")
-    Dh._tensor_product_checked = key
+    got = getattr(Dh, "_local_factors", None)
+    if got is not None and got[0] == key:
+        return got[1]
+    f = GeneralFactors(Dh.detach().double().cpu().numpy(),
+                       hier.detach().cpu().numpy())
+    Dh._local_factors = (key, f)
+    return f
 
 
-def _launch_local(uL, g, Dh, hier, k: int, estride: int, cstride: int):
+def local_pitch(n: int) -> int:
+    """Floats per element in the element-local kernel's staging (odd, so
+    that the 32 elements of a tile fall in 32 banks)."""
+    return n if n % 2 else n + 1
+
+
+def local_vec(n: int, E: int, estride: int, cstride: int, ptrs) -> bool:
+    """Whether the element-local kernel stages its tiles by 16-byte copies:
+    each tile's u, factor arrays and output are then contiguous runs at
+    16-byte aligned addresses (n odd, the elements contiguous, E n, the
+    component stride and the pointers ``ptrs`` multiples of 16 bytes);
+    else it copies 4 bytes at a time at the pitch :func:`local_pitch`."""
+    return (n % 2 == 1 and estride == n and (E * n) % 4 == 0
+            and cstride % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+
+
+def _launch_local(uL, g, Dh, hier, k: int, estride: int, cstride: int,
+                  factors, what: str):
+    """The element-local kernel on CUDA tensors: k components, element e's
+    component c at ``e * estride + c * cstride``."""
+    tables = _require_general_factors(
+        _local_factors(Dh, hier) if factors is None else factors, Dh, hier,
+        what)
     dev = _cuda_device(uL)
     n, E = Dh.shape[1], g.shape[1]
     _check_n(n)
@@ -1453,14 +1525,24 @@ def _launch_local(uL, g, Dh, hier, k: int, estride: int, cstride: int):
     _require(g, "g", f32, (3, E, n), dev)
     _require(Dh, "Dh", f32, (2 * n, n), dev)
     _require(hier, "hier", (torch.int32,), (n,), dev)
-    _check_tensor_product(Dh, hier)
     out = torch.empty_like(uL)
+    vec = local_vec(n, E, estride, cstride, (_ptr(uL), _ptr(g), _ptr(out)))
     lib = _lib(_LOCAL)
-    rc = lib.sem_laplacian_local(_ptr(uL), _ptr(g), _ptr(Dh), _ptr(hier),
-                                 _ptr(out), n, E, k, estride, cstride,
-                                 _stream(dev))
-    _check(lib, rc, f"laplacian_local (n={n}, E={E}, k={k})")
+    rc = lib.sem_laplacian_local(_ptr(uL), _ptr(g), tables, _ptr(out), n, E,
+                                 k, estride, cstride, int(vec), _stream(dev))
+    _check(lib, rc, f"{what} (n={n}, E={E}, k={k})")
     return out
+
+
+def local_occupancy(n: int, vec: bool = True, k: int = 1):
+    """``(shared memory bytes, blocks per SM)`` of the element-local kernel
+    for k components at n on the current card (the 16-byte staging with
+    ``vec``)."""
+    lib = _lib(_LOCAL)
+    smem = ctypes.c_int(0)
+    blocks = lib.sem_laplacian_local_occupancy(n, int(vec), k,
+                                               ctypes.byref(smem))
+    return smem.value, blocks
 
 
 def _local_shape(uL, g, Dh, shape, what: str) -> None:
@@ -1471,7 +1553,8 @@ def _local_shape(uL, g, Dh, shape, what: str) -> None:
 
 
 def laplacian_local(uL: torch.Tensor, g: torch.Tensor, Dh: torch.Tensor,
-                    hier: torch.Tensor) -> torch.Tensor:
+                    hier: torch.Tensor, *,
+                    factors: GeneralFactors | None = None) -> torch.Tensor:
     """``out = [fr fs] Dh`` with ``[fr fs] = [g0 ur + g1 us, g1 ur + g2 us]``
     and ``[ur us] = u Dh^T``, per element of a row-major (E, n) L-vector,
     without DSS.
@@ -1479,17 +1562,20 @@ def laplacian_local(uL: torch.Tensor, g: torch.Tensor, Dh: torch.Tensor,
     ``g`` (3, E, n): the geometric factors [G00, G01, G11] in lex node
     order; ``Dh`` (2n, n): the stacked derivative with its columns in the
     L-vector order ``hier`` ((n,) int32, L-vector column -> lex node).
-    The kernel applies ``Dh`` in tensor-product form, so ``Dh`` must be
-    ``[D0 (x) I; I (x) D1]`` with its columns permuted by ``hier`` (as
-    :func:`..ops.sumfac.make_stacked_derivative` builds it): the wrapper
-    checks this once on the host and raises otherwise.  CUDA tensors must
-    be float32.
+    The kernel applies ``Dh`` in tensor-product form from ``factors``, the
+    :class:`GeneralFactors` of ``Dh`` and ``hier`` (as
+    :class:`..ops.sumfac.LaplacianEN` builds them once; checked once
+    against ``Dh`` and ``hier``); without them the wrapper builds them from
+    ``Dh`` once per ``Dh`` state, and raises unless ``Dh`` is ``[D0 (x) I;
+    I (x) D1]`` with its columns permuted by ``hier`` (as
+    :func:`..ops.sumfac.make_stacked_derivative` builds it).  CUDA tensors
+    must be float32.
     """
     if uL.device.type == "cpu":
         return laplacian_local_plain(uL, g, Dh, hier)
     _local_shape(uL, g, Dh, g.shape[1:], "laplacian_local")
     n = Dh.shape[1]
-    out = _launch_local(uL, g, Dh, hier, 1, n, 0)
+    out = _launch_local(uL, g, Dh, hier, 1, n, 0, factors, "laplacian_local")
     laplacian_local.launches += 1
     return out
 
@@ -1498,8 +1584,9 @@ laplacian_local.launches = 0
 
 
 def laplacian_local_batched(uL: torch.Tensor, g: torch.Tensor,
-                            Dh: torch.Tensor,
-                            hier: torch.Tensor) -> torch.Tensor:
+                            Dh: torch.Tensor, hier: torch.Tensor, *,
+                            factors: GeneralFactors | None = None
+                            ) -> torch.Tensor:
     """:func:`laplacian_local` of each (E, n) array of a (k, E, n) stack,
     in one launch: the k arrays share ``g`` and ``Dh``."""
     if uL.device.type == "cpu":
@@ -1509,7 +1596,8 @@ def laplacian_local_batched(uL: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"uL has shape {tuple(uL.shape)}; expected "
                          f"(k, {E}, {n})")
     _local_shape(uL, g, Dh, (uL.shape[0], E, n), "laplacian_local_batched")
-    out = _launch_local(uL, g, Dh, hier, uL.shape[0], n, E * n)
+    out = _launch_local(uL, g, Dh, hier, uL.shape[0], n, E * n, factors,
+                        "laplacian_local_batched")
     laplacian_local_batched.launches += 1
     return out
 
@@ -1518,8 +1606,9 @@ laplacian_local_batched.launches = 0
 
 
 def vector_laplacian_local(uL: torch.Tensor, g: torch.Tensor,
-                           Dh: torch.Tensor,
-                           hier: torch.Tensor) -> torch.Tensor:
+                           Dh: torch.Tensor, hier: torch.Tensor, *,
+                           factors: GeneralFactors | None = None
+                           ) -> torch.Tensor:
     """:func:`laplacian_local` of each of k components packed side by side
     as an (E, k n) array (component c of element e in columns
     [c n, (c + 1) n)), in one launch; the components share ``g`` and
@@ -1532,7 +1621,8 @@ def vector_laplacian_local(uL: torch.Tensor, g: torch.Tensor,
                          f"({E}, k * {n})")
     k = uL.shape[1] // n
     _local_shape(uL, g, Dh, (E, k * n), "vector_laplacian_local")
-    out = _launch_local(uL, g, Dh, hier, k, k * n, n)
+    out = _launch_local(uL, g, Dh, hier, k, k * n, n, factors,
+                        "vector_laplacian_local")
     vector_laplacian_local.launches += 1
     return out
 

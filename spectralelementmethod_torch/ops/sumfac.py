@@ -517,7 +517,10 @@ class LaplacianEN(torch.nn.Module):
     * ``"pallas"`` — the hand-written element-local kernel,
       :func:`.kernels.laplacian_local` (:func:`.kernels.
       laplacian_local_batched` on a stack, one launch for all k), which on
-      CPU tensors runs its plain version.  float32 only.
+      CPU tensors runs its plain version.  float32 only.  The kernel reads
+      ``Dhat`` in tensor-product form from :attr:`factors`, the
+      :class:`.kernels.GeneralFactors` built here once (None on the CPU
+      when ``Dhat`` has no such form; on a CUDA device that raises).
 
     ``free_local`` (optional (E, n) bool) masks input and output, as in
     :class:`LaplacianT`.  ``_structure`` and ``_backend`` name the resolved
@@ -541,6 +544,9 @@ class LaplacianEN(torch.nn.Module):
                              .to(dtype))
         self.register_buffer(
             "hier", torch.as_tensor(hier.astype(np.int32), device=device))
+        #: the element-local kernel's tables (backend "pallas")
+        self.factors = (_general_factors(Dh, hier, device)
+                        if backend == "pallas" else None)
         if backend == "pallas" or affine is None:
             g = np.ascontiguousarray(Gf.transpose(1, 0, 2))   # (3, E, n)
             self.register_buffer("g", torch.as_tensor(g, device=device)
@@ -559,9 +565,11 @@ class LaplacianEN(torch.nn.Module):
         """The element-local product, without the DSS."""
         if self._backend == "pallas":
             if uL.dim() == 2:
-                return kernels.laplacian_local(uL, self.g, self.Dh, self.hier)
+                return kernels.laplacian_local(uL, self.g, self.Dh, self.hier,
+                                               factors=self.factors)
             return kernels.laplacian_local_batched(uL, self.g, self.Dh,
-                                                   self.hier)
+                                                   self.hier,
+                                                   factors=self.factors)
         if self._structure == "affine":
             n = self.Kcat.shape[0]
             V = torch.matmul(uL, self.Kcat)                   # (..., E, 3n)
