@@ -33,7 +33,11 @@ Phases (any failure exits non-zero and prints no result line):
    annulus; the element-local kernel with 16-byte and 4-byte staging;
    kernel A's and the single kernel's Ap' against the apply of their own
    p' bit for bit) and a small annulus (the general kernel A's Ap' against
-   the general apply of its own p' bit for bit);
+   the general apply of its own p' bit for bit); at p = 1 (n = 4, the
+   p-multigrid coarse level, which only the apply kernels are compiled
+   for) the affine and the general apply, one RHS and three, and the block
+   apply on 2 shards there, and the four apply rows timed at the coarse
+   level's full shapes (the rectangle and the annulus at p = 1);
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
    deferred x (``defer_x=8``), with the general apply forced
@@ -63,7 +67,21 @@ Phases (any failure exits non-zero and prints no result line):
    with ``torch.matmul`` (``"xla"``, the comparison), in the default
    transposed layout, and ``solve_local_batch`` on K forcings with the
    kernel; iterations, reported and true residuals, seconds, steady state,
-   and one profile;
+   and one profile; (3f) the backend of every f32 operator of the main
+   path is "fused"; a float64 model and a Morton-ordered mesh take the
+   "xla" operator, launch no kernel, solve, and refuse
+   ``backend="fused"``; a float32 operator at p = 9 (no apply kernel)
+   raises ``NotImplementedError`` under "auto" and "fused", and its
+   explicit "xla" operator agrees with the float64 one; (3p) ``precond="pmg"`` (the two-level p-multigrid
+   V-cycle) to 1e-6: on the rectangle (GridFDM coarse solve; the
+   iterations beside the reference's 18, ``_lmax_f`` within 3% of its
+   2.4329, lambda_max(M A) beside its 0.998, the reported and the
+   float64-evaluated true residual, ms per V-cycle and per iteration, one
+   profile, the setup stages), with the Chebyshev coarse level, on the
+   annulus, Helmholtz config 3, the k = 4 batches of both meshes, every
+   level of each V-cycle on the apply kernels; and a float64 model with
+   the float32 cycle to 1e-10 against its manufactured solution through
+   the "xla" outer apply;
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -133,6 +151,15 @@ ITER_RATIO = 1.3
 # apply kernel since PR 1 (the assembled-K and the tensor-product ones);
 # plain CG with either apply must stay within 2 of them
 PLAIN_ITS = 392
+# the pmg cells' tolerance, and the reference's hardware-free numbers of
+# its converged arm on the rectangle with f32 V-cycle matmuls
+# (BASELINE.md round-5a): 18 iterations to the claimed 1e-6, the
+# 30-iteration lmax estimate 2.4329 (before the 1.05 safety factor), and
+# lambda_max(M A) 0.998
+TOL_PMG = 1e-6
+PMG_ITS = 18
+PMG_LMAX30 = 2.4329
+PMG_LAM_MA = 0.998
 # kernels that no solve of the system calls, so that no path launches them
 # (their rows report the launches they got, 0)
 OFF_PATH = {"vector_laplacian_local": (
@@ -259,8 +286,9 @@ def main() -> int:
         from spectralelementmethod_torch.ops import kernels, sumfac
         from spectralelementmethod_torch.ops.exchange import roll_dss_T
         from spectralelementmethod_torch.parallel import (
-            device_mesh, make_sharded_fused_operator,
+            device_mesh, make_sharded_fused_operator, partition,
             sharded_local_poisson_problem)
+        from spectralelementmethod_torch.utils import stages
         from spectralelementmethod_torch.solver.cg import _catch_up, cg
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
@@ -783,6 +811,65 @@ def main() -> int:
     log(f"  the split apply (near gather + far_update): {split_ms:.4f} ms, "
         f"the unsplit {glob['ms']:.4f} ms")
 
+    # the p = 1 apply kernels (n = 4) at the shapes the main path's
+    # p-multigrid coarse level gives them: the rectangle and the annulus at
+    # p = 1, same E (the coarse operators' factors differ, their shapes do
+    # not); one RHS and a K-stack, against their plain versions at the bar
+    # of the p = 8 rows
+    t0 = time.perf_counter()
+    p1 = {}
+    for pk, mesh_ in (("rect", rectangle_mesh(NX, NY, 1)),
+                      ("annulus", annulus_mesh(1, **ANNULUS))):
+        p1[pk] = Poisson(Discretization(mesh_, gll_basis_2d(1)),
+                         dtype=np.float32)._local_setup(dev)["A"]
+    check(p1["rect"].structure == "affine"
+          and p1["annulus"].structure == "general"
+          and all(A1._backend == "fused" and A1.n_loc == 4 and A1.E == E
+                  for A1 in p1.values()),
+          f"the p = 1 operators (n = 4, E = {E}) take the apply kernels "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for pk, name, k in (("rect", "affine_apply_dss", 1),
+                        ("rect", "affine_apply_dss_batched", K),
+                        ("annulus", "general_apply_dss", 1),
+                        ("annulus", "general_apply_dss_batched", K)):
+        A1 = p1[pk]
+        n1, pl1 = A1.n_loc, A1.plan
+        ops1 = ((A1.Kst, A1.aT) if pk == "rect"
+                else (A1.gT, A1.Dh, A1.hier))
+        fn = functools.partial(kernels.WRAPPERS[name], factors=A1.factors)
+        plain = getattr(kernels, name + "_plain")
+        # (k n, E) f32 is 1.6 MB per RHS: enough sets to rotate past the L2
+        sets = [(torch.randn((k * n1, E), generator=g, device=dev), *ops1,
+                 pl1) for _ in range(24 // k)]
+        got, ref = fn(*sets[0]), plain(*sets[0])
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        check(rel <= 1e-5, f"{name} at p = 1 (n = 4) matches its plain "
+              f"version (1e-5; rel {rel:.1e})")
+        ms = gpu_ms(fn, sets)
+        plain_ms = gpu_ms(plain, sets)
+        if pk == "rect":
+            K1 = A1.Kst.reshape(3 * n1, n1)
+            lib_ms = gpu_ms(torch.matmul, [
+                (K1, s_[0].view(k, n1, E) if k > 1 else s_[0])
+                for s_ in sets])
+            op_bytes = A1.aT.numel() * 4 + A1.Kst.numel() * 4
+        else:
+            Dh1, Dh1T = A1.Dh, A1.Dh.T.contiguous()
+            lib_ms = gpu_ms(lambda u, fl: (torch.matmul(Dh1, u),
+                                           torch.matmul(Dh1T, fl)), [
+                (s_[0].view(k, n1, E) if k > 1 else s_[0],
+                 torch.randn((k, 2 * n1, E) if k > 1 else (2 * n1, E),
+                             generator=g, device=dev)) for s_ in sets])
+            op_bytes = A1.gT.numel() * 4 + A1.Dh.numel() * 4
+        m1 = int(round(n1 ** 0.5))
+        b_ms, b_by = bound(8 * k * n1 * E + op_bytes + pl1.masks.numel(),
+                           k * ((8 * n1 * m1 + 6 * n1) * E
+                                + pl1.n_entries * E))
+        rows.append(dict(name=f"{name}[p1]", max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
+
     for r in rows:
         asm = r.pop("assembled_bound_ms", None)
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -958,6 +1045,50 @@ def main() -> int:
               f"A's (affine and general) equal the apply of their own "
               f"stored p' bit for bit ({own_err})")
 
+    # p = 1 (n = 4, the p-multigrid coarse level): the apply kernels, the
+    # only ones with a p = 1 instantiation (kernels.APPLY_N), against their
+    # plain versions at the bar above, one RHS and three, on the small
+    # rectangle and annulus, and the block apply (the same product) on 2
+    # shards with its centres against the global apply
+    sdisc = Discretization(rectangle_mesh(24, 20, 1), gll_basis_2d(1))
+    sprob = Poisson(sdisc, dtype=np.float32)
+    sA = sprob._local_setup(dev)["A"]
+    cA = Poisson(Discretization(annulus_mesh(1, **SMALL_ANNULUS),
+                                gll_basis_2d(1)),
+                 dtype=np.float32)._local_setup(dev)["A"]
+    rels = []
+    for k, b_ in ((1, ""), (3, "_batched")):
+        for name, A_, ops_ in (("affine_apply_dss", sA, (sA.Kst, sA.aT)),
+                               ("general_apply_dss", cA,
+                                (cA.gT, cA.Dh, cA.hier))):
+            args = (torch.randn((k * 4, A_.E), generator=g, device=dev),
+                    *ops_, A_.plan)
+            rels.append(rel_err(
+                kernels.WRAPPERS[name + b_](*args, factors=A_.factors),
+                getattr(kernels, name + b_ + "_plain")(*args))[1])
+    sex = sprob._local_setup(dev)["ex"]
+    sGf = sprob._G_host.reshape(sdisc.E, 3, -1)
+    sD = sumfac.make_stacked_derivative(sprob._D0_host, sprob._D1_host)
+    sW = sdisc.basis.weight_grid().reshape(-1)
+    s_a, _ = sumfac.affine_factorization(sGf, sW)
+    sAsh = make_sharded_fused_operator(
+        sex, sumfac.make_affine_element_matrices(sD, sW, order=sex.hier),
+        s_a, device_mesh(2))
+    sKb, sab, smb, sfb = sAsh._block_operands
+    su = torch.randn((4, sdisc.E), generator=g, device=dev)
+    sbl = su.split(sdisc.E // 2, dim=1)
+    for s in range(2):
+        args = (sAsh._extended(sbl, s), sKb, sab[s], smb[s], sAsh._block_plan)
+        rels.append(rel_err(kernels.affine_block_apply_dss(
+            *args, factors=sfb), kernels.affine_block_apply_dss_plain(
+                *args))[1])
+    rels.append(rel_err(sAsh(su), kernels.affine_apply_dss(
+        su, sA.Kst, sA.aT, sA.plan, factors=sA.factors))[1])
+    check(max(rels) <= 1e-5, f"p=1 (n=4; nb={sA.plan.nb}, "
+          f"{sA.plan.n_entries} DSS entries): the affine and the general "
+          f"apply, one RHS and three, and the block apply on 2 shards match "
+          f"their plain versions ({max(rels):.1e} <= 1e-5)")
+
     # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "
         f"polar annulus, f32, max_iter={MAX_ITER} {at()}")
@@ -1066,8 +1197,13 @@ def main() -> int:
             + [(m, TOL_ALL) for m in all_modes if "batch-" in m]
             + [(f"batch-fused-m{DEFER}", TOL_F32),
                (f"batch-fused-bf16p-m{DEFER}", TOL_F32)])
-    solves, launches = {}, {m: dict.fromkeys(kernels.WRAPPERS, 0)
-                            for m in all_modes}
+    # mode -> wrapper -> n -> launches
+    solves, launches = {}, {}
+
+    def totals(name):
+        """wrapper -> launches of the runs of mode ``name``, over every n."""
+        return {w: sum(launches.get(name, {}).get(w, {}).values())
+                for w in kernels.WRAPPERS}
 
     def drive(name, fn):
         """Run one solve with the launch counts set to 0 just before it and
@@ -1078,8 +1214,10 @@ def main() -> int:
         sol = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        for k_, c in kernels.launch_counts().items():
-            launches[name][k_] += c
+        for k_, by_n in kernels.launch_counts_by_n().items():
+            slot = launches.setdefault(name, {}).setdefault(k_, {})
+            for n_, c in by_n.items():
+                slot[n_] = slot.get(n_, 0) + c
         return sol, dt
 
     for name, tol in runs:
@@ -1183,13 +1321,12 @@ def main() -> int:
                      "sharded-shardmap": (sharded_run("shardmap"), None, 0),
                      "far-split": (far_split_run, "far_update", 1)}
     for name, (run, want, per_apply) in sharded_modes.items():
-        launches[name] = dict.fromkeys(kernels.WRAPPERS, 0)
         (res, t_cg, ex_, u_dL_), dt = drive(name, run)
         u_ = ex_.global_from_local_T((u_dL_ + res.x).cpu().numpy())
         its, issued = int(res.iterations), res.issued
         true_rel = true_residual(u_, bLs[0]) / r0s[0]
         rec_rel = float(res.residual_norm) / r0s[0]
-        c_ = {k_: v for k_, v in launches[name].items() if v}
+        c_ = {k_: v for k_, v in totals(name).items() if v}
         key = f"{name}@{TOL_ALL:g}"
         solves[key] = dict(iterations=[its], issued=issued, seconds=dt,
                            cg_seconds=t_cg,
@@ -1206,17 +1343,17 @@ def main() -> int:
         check(abs(its - p_its) <= 2, f"{key}: iterations ({its}) within 2 "
               f"of plain solve_local ({p_its})")
         if want:
-            got_l = launches[name][want]
+            got_l = totals(name)[want]
             check(got_l >= per_apply * issued and got_l % per_apply == 0,
                   f"{key}: {got_l} launches of {want} ({per_apply} per "
                   f"apply, {got_l / per_apply:.0f} applies for {issued} "
                   "issued iterations)")
         else:
-            check(launches[name]["affine_block_apply_dss"] == 0,
+            check(totals(name)["affine_block_apply_dss"] == 0,
                   f"{key}: the plain-PyTorch halo path launches no block "
                   "kernel")
     log("  launches on the main path: " + str(
-        {m: {k_: c for k_, c in d.items() if c} for m, d in launches.items()}))
+        {m: {k_: c for k_, c in totals(m).items() if c} for m in launches}))
 
     # steady-state ms per issued iteration (per RHS): two runs of
     # STEADY[0] and STEADY[1] iterations at tol = 0, whose difference
@@ -1281,8 +1418,6 @@ def main() -> int:
         "helm-ne": (1, {}),
         "helm-batch-en-pallas": (K, dict(vector_layout="en",
                                          backend="pallas"))}
-    launches.update({m: dict.fromkeys(kernels.WRAPPERS, 0)
-                     for m in helm_modes})
     HF = np.concatenate([np.ones((1, adisc.n_nodes)),
                          np.random.RandomState(7).standard_normal(
                              (K - 1, adisc.n_nodes))])
@@ -1326,7 +1461,7 @@ def main() -> int:
                            recurrence_rel=res.tolist(),
                            true_rel=true_rel.tolist(), converged=conv,
                            launches={k2: c for k2, c in
-                                     launches[name].items() if c})
+                                     totals(name).items() if c})
         log(f"  {key}: its {its} / {issued} issued, {dt:.3f} s, "
             f"{1e3 * dt / issued / k_:.4f} ms/iteration issued per RHS, "
             f"residual {np.array2string(res, precision=3)} relative (true "
@@ -1336,7 +1471,7 @@ def main() -> int:
               and sol.u.size == k_ * adisc.n_nodes,
               f"{key}: finite solutions of the mesh's shape")
         check(all(conv), f"{key}: every RHS converged")
-        c_ = launches[name]
+        c_ = totals(name)
         want = {"helm-en-pallas": "laplacian_local",
                 "helm-batch-en-pallas": "laplacian_local_batched",
                 "helm-ne": "general_apply_dss"}.get(name)
@@ -1396,6 +1531,280 @@ def main() -> int:
     profile_solve("helm-en-pallas", functools.partial(hsolve, "helm-en-pallas"),
                   HELM_PROFILE_ITERS)
 
+    # -- 3f. the (n, E) operators' backends -----------------------------------
+    # every f32 operator of the main path takes the apply kernels; the
+    # float64 model and the Morton order (exchange tails) take the "xla"
+    # operator on the card, launch no kernel and solve, and backend="fused"
+    # raises for each; a float32 operator at p = 9 is "fused" by the
+    # reference's rule and has no apply kernel: it raises at build time
+    # under "auto" and "fused", and backend="xla" builds it
+    log(f"[3f] the (n, E) operators' backends {at()}")
+    for what, A_ in (("rectangle A", ctx["A"]), ("rectangle A_raw",
+                                                 ctx["A_raw"]),
+                     ("annulus A", actx["A"]), ("annulus A_raw",
+                                                actx["A_raw"]),
+                     ("Helmholtz ne Laplacian", hne["A"].lap)):
+        check(A_._backend == "fused", f"{what}: backend 'fused'")
+    mort = rectangle_mesh(8, 8, 3)
+    mort = partition.reorder_elements(mort, partition.morton_order(
+        mort.centroids))
+    xla_cases = {"xla-f64": (rectangle_mesh(16, 16, ORDER), ORDER,
+                             np.float64, 1e-10),
+                 "xla-morton": (mort, 3, np.float32, 1e-5)}
+    for name, (mesh_, p_, dt_, tol_) in xla_cases.items():
+        xp = Poisson(Discretization(mesh_, gll_basis_2d(p_)), dtype=dt_)
+        xp.set_dirichlet("ebc", lambda x, y: 0.1 * (x + y))
+        xc = xp._local_setup(dev)
+        sol, dt = drive(name, lambda: xp.solve_local(tol=tol_,
+                                                     max_iter=MAX_ITER))
+        n_l = sum(totals(name).values())
+        log(f"  {name}: {xc['A'].structure}, backend {xc['A']._backend}, "
+            f"tails {xc['ex'].n_edge_tail} + {xc['ex'].n_vert_tail}, "
+            f"{int(sol.cg.iterations)} its to {tol_:g} in {dt:.2f} s, "
+            f"{n_l} kernel launches")
+        check(xc["A"]._backend == xc["A_raw"]._backend == "xla"
+              and bool(sol.cg.converged) and n_l == 0
+              and bool(np.isfinite(sol.u).all()),
+              f"{name}: the 'xla' operator solves on the card and launches "
+              "no kernel")
+        try:
+            sumfac.make_local_laplacian_operator(
+                xc["ex"], xp._G_host.reshape(xp.disc.E, 3, -1), xc["Dhat"],
+                device=dev, backend="fused")
+        except ValueError as exc:
+            check("requires" in str(exc), f"{name}: backend='fused' raises "
+                  f"({str(exc)[:90]}...)")
+        else:
+            raise AssertionError(f"{name}: backend='fused' did not raise")
+    xp = Poisson(Discretization(rectangle_mesh(8, 8, 9), gll_basis_2d(9)),
+                 dtype=np.float64)
+    xc = xp._local_setup(dev)
+    G9 = xp._G_host.reshape(xp.disc.E, 3, -1)
+    for be in ("auto", "fused"):
+        try:
+            sumfac.make_local_laplacian_operator(
+                xc["ex"], G9.astype(np.float32), xc["Dhat"], device=dev,
+                backend=be)
+        except NotImplementedError as exc:
+            check("n=100" in str(exc), f"p = 9, float32, backend={be!r}: "
+                  f"raises at build time ({str(exc)[:70]}...)")
+        else:
+            raise AssertionError(f"p = 9, float32, backend={be!r}: no raise")
+    A9 = sumfac.make_local_laplacian_operator(
+        xc["ex"], G9.astype(np.float32), xc["Dhat"], device=dev,
+        backend="xla")
+    u9 = torch.randn((A9.n_loc, A9.E), dtype=torch.float64, device=dev)
+    kernels.reset_launch_counts()
+    y9 = A9(u9.float())
+    n_l = sum(kernels.launch_counts().values())
+    y64 = xc["A_raw"](u9)
+    err9 = float((y9.double() - y64).abs().max() / y64.abs().max())
+    log(f"  p = 9, float32, backend 'xla': {A9._backend}, relative max "
+        f"difference from the float64 operator {err9:.2e}, {n_l} launches")
+    check(A9._backend == "xla" and xc["A_raw"]._backend == "xla"
+          and err9 <= 1e-5 and n_l == 0,
+          "p = 9: the float32 'xla' operator agrees with the float64 one "
+          "to 1e-5 and launches no kernel")
+
+    # -- 3p. the two-level p-multigrid preconditioner --------------------------
+    # the reference's converged arm without certify: pmg-CG to 1e-6 on the
+    # rectangle (GridFDM coarse solve), the Chebyshev coarse level on the
+    # rectangle (the affine p = 1 apply) and on the annulus (the curved one,
+    # rediscretized), Helmholtz config 3, the k = 4 batches; then a float64
+    # model with the float32 cycle to 1e-10
+    log(f"[3p] precond='pmg' (two-level p-multigrid), f32, tol {TOL_PMG:g} "
+        f"{at()}")
+    CHEB = {"pmg": {"coarse": "chebyshev"}}
+    pmg_modes = {"pmg-rect": ("rect", 1, "pmg"),
+                 "pmg-rect-cheb": ("rect", 1, CHEB),
+                 "pmg-batch": ("rect", K, "pmg"),
+                 "pmg-batch-cheb": ("rect", K, CHEB),
+                 "pmg-annulus": ("annulus", 1, "pmg"),
+                 "pmg-annulus-batch": ("annulus", K, "pmg"),
+                 "pmg-helm": ("helm", 1, "pmg")}
+
+    def pmg_solve(name, **opts):
+        pk, k_, pre = pmg_modes[name]
+        if pk == "helm":
+            return hprob.solve_local(precond=pre, **opts)
+        p_ = problems[pk][0]
+        if k_ > 1:
+            return p_.solve_local_batch(F_of[pk], precond=pre, **opts)
+        return p_.solve_local(precond=pre, **opts)
+
+    pmg_info = {}
+    for name, (pk, k_, pre) in pmg_modes.items():
+        stages.snapshot(reset=True)
+        sol, dt = drive(name, lambda: pmg_solve(name, tol=TOL_PMG,
+                                                max_iter=MAX_ITER))
+        setup = {st: round(v, 3) for st, v in stages.snapshot(reset=True)
+                 .items() if v >= 0.005}
+        if pk == "helm":
+            tr_fn, bl, r0 = h_true_residual, hbLs, h_r0s
+            M_ = hprob._op_cache[("M", "pmg", "ne", (), str(dev))]
+            nn = adisc.n_nodes
+        else:
+            tr_fn, _, bl, r0 = checks_of[pk]
+            prob_, ctx_ = problems[pk]
+            M_ = prob_._pmg(ctx_, pre, dev)
+            nn = prob_.disc.n_nodes
+        U = sol.u.reshape(k_, nn)
+        its = np.atleast_1d(sol.cg.iterations.cpu().numpy()).tolist()
+        conv = np.atleast_1d(sol.cg.converged.cpu().numpy()).tolist()
+        res = np.atleast_1d(sol.cg.residual_norm.cpu().numpy()) / r0[:k_]
+        true_rel = np.array([tr_fn(U[j], bl[j]) for j in range(k_)]) \
+            / r0[:k_]
+        issued = sol.cg.issued
+        by_n = {w: c for w, c in launches[name].items() if c}
+        key = f"{name}@{TOL_PMG:g}"
+        pmg_info[name] = M_
+        solves[key] = dict(iterations=its, issued=issued, seconds=dt,
+                           recurrence_rel=res.tolist(),
+                           true_rel_f32=true_rel.tolist(), converged=conv,
+                           coarse_kind=M_._coarse_kind,
+                           lmax_f=M_._lmax_f, setup_stages_s=setup,
+                           launches_by_n={w: {str(n_): c for n_, c in
+                                              d.items()}
+                                          for w, d in by_n.items()})
+        log(f"  {key}: its {its} / {issued} issued, {dt:.3f} s (setup "
+            f"stages {setup}), residual {np.array2string(res, precision=3)}"
+            f" relative (true, f32-evaluated "
+            f"{np.array2string(true_rel, precision=3)}), coarse "
+            f"{M_._coarse_kind}, lmax_f {M_._lmax_f:.4f}, launches {by_n}")
+        check(bool(np.isfinite(sol.u).all()) and sol.u.size == k_ * nn
+              and all(conv), f"{key}: every RHS converged, finite solutions "
+              "of the mesh's shape")
+        check(all(op._backend == "fused" for op in M_._ops.values()),
+              f"{key}: the V-cycle's f32 levels take the apply kernels "
+              f"(n = {M_._ops['fine'].n_loc} and "
+              f"{M_._ops['coarse'].n_loc})")
+
+    # the headline cell against the reference's hardware-free numbers
+    M = pmg_info["pmg-rect"]
+    its = solves[f"pmg-rect@{TOL_PMG:g}"]["iterations"][0]
+    lmax30 = M._lmax_f / 1.05          # the estimate before the safety
+    check(M._coarse_kind == "fdm", "pmg-rect: the coarse solve is GridFDM")
+    check(abs(lmax30 - PMG_LMAX30) <= 0.03 * PMG_LMAX30,
+          f"pmg-rect: the 30-iteration lmax estimate {lmax30:.4f} (lmax_f "
+          f"{M._lmax_f:.4f} / 1.05) within 3% of the reference's "
+          f"{PMG_LMAX30}")
+    check(abs(its - PMG_ITS) <= 2, f"pmg-rect: {its} iterations to the "
+          f"claimed {TOL_PMG:g}, the reference's {PMG_ITS}")
+    # lambda_max(M A) by 20 power iterations, as the Rayleigh quotient of
+    # M A in the A-inner product (M A is A-self-adjoint)
+    A_m, free_m = ctx["A"], ctx["free_local"]
+    w_m = ctx["ex"].weights_T(torch.float32, dev)
+    v = torch.where(free_m, torch.randn((n, E), generator=g, device=dev),
+                    0.0)
+    for _ in range(20):
+        v = M(A_m(v))
+        v = v / torch.sqrt(torch.sum(v * v * w_m))
+    Av = A_m(v)
+    lam_ma = float(torch.sum(M(Av) * Av * w_m) / torch.sum(Av * v * w_m))
+    check(0.9 < lam_ma < 1.05, f"pmg-rect: lambda_max(M A) by 20 power "
+          f"iterations {lam_ma:.4f} (the reference's {PMG_LAM_MA} with f32 "
+          "V-cycle matmuls; 1.566 with bf16 ones)")
+    # the true residual evaluated in float64, through the "xla" operator
+    # of the float64 factors on the card (an f32-evaluated one floors near
+    # 1e-5 relative at this size)
+    A64 = sumfac.make_local_laplacian_operator(
+        ctx["ex"], prob._G_host.astype(np.float64).reshape(E, 3, -1),
+        ctx["Dhat"], None, device=dev)
+    gih = torch.as_tensor(ctx["ex"].gather_hier, device=dev)
+
+    def tl64(u):
+        return torch.as_tensor(np.asarray(u, np.float64),
+                               device=dev)[gih].T.contiguous()
+
+    w64 = ctx["ex"].weights_T(torch.float64, dev)
+    b64 = tl64(np.asarray(prob._b, np.float64) + prob._neumann)
+    u_d64 = np.where(prob._dirichlet_mask, prob._dirichlet_vals, 0.0)
+
+    def true64(u):
+        rt = torch.where(free_m, b64 - A64(tl64(u)), 0.0)
+        return float(torch.sqrt(torch.sum(rt * rt * w64)))
+
+    sol = pmg_solve("pmg-rect", tol=TOL_PMG, max_iter=MAX_ITER)
+    r0_64 = true64(u_d64)
+    rep_rel = float(sol.cg.residual_norm) / r0_64
+    true_rel64 = true64(sol.u) / r0_64
+    check(A64._backend == "xla", "the float64 residual operator is 'xla'")
+    log(f"  pmg-rect: {its} iterations (reference {PMG_ITS}), reported "
+        f"relative residual {rep_rel:.3e}, true (float64-evaluated) "
+        f"{true_rel64:.3e}; lmax_f {M._lmax_f:.4f} = 1.05 x {lmax30:.4f} "
+        f"(reference {PMG_LMAX30}); lambda_max(M A) {lam_ma:.4f} (reference "
+        f"{PMG_LAM_MA})")
+    # ms per V-cycle (device: CUDA events after a sleep kernel; host
+    # clock) and per pmg iteration (one 64-iteration block of cg, called
+    # directly: frozen iterations do the same work), launches per
+    # iteration
+    rs = [torch.where(free_m, torch.randn((n, E), generator=g, device=dev),
+                      0.0) for _ in range(4)]
+    vc_dev = gpu_ms(M, [(r_,) for r_ in rs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(20):
+        M(rs[i % 4])
+    torch.cuda.synchronize()
+    vc_host = 1e3 * (time.perf_counter() - t0) / 20
+    cg_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_ = cg(A_m, r_r, M=M, tol=0.0, max_iter=64, dot_weight=w_m)
+        torch.cuda.synchronize()
+        cg_ms.append(1e3 * (time.perf_counter() - t0) / res_.issued)
+    per_it = launches["pmg-rect"]["affine_apply_dss"].get(n, 0) / \
+        solves[f"pmg-rect@{TOL_PMG:g}"]["issued"]
+    log(f"  pmg-rect: V-cycle {vc_dev:.4f} ms device, {vc_host:.4f} ms host "
+        f"clock; pmg-CG {cg_ms[0]:.4f} / {cg_ms[1]:.4f} ms per issued "
+        f"iteration (host clock, one 64-iteration block); "
+        f"{per_it:.2f} affine_apply_dss launches per issued iteration of the "
+        f"solve (7 per iteration, the lift and the two lmax estimates)")
+    solves["pmg_rect_headline"] = dict(
+        iterations=its, reference_iterations=PMG_ITS,
+        reported_rel=rep_rel, true_rel_f64=true_rel64, lmax_f=M._lmax_f,
+        lmax30=lmax30, reference_lmax30=PMG_LMAX30, lambda_max_MA=lam_ma,
+        reference_lambda_max_MA=PMG_LAM_MA, vcycle_ms_device=vc_dev,
+        vcycle_ms_host=vc_host, cg_ms_per_issued=cg_ms)
+    profile_solve("pmg-rect", functools.partial(pmg_solve, "pmg-rect"), 64)
+
+    # a float64 model with the float32 V-cycle, to 1e-10 against its
+    # manufactured solution (the reference's tests/test_pmg.py case at
+    # p = 8): the outer apply is the "xla" operator on the card, the cycle
+    # the apply kernels
+    def u_mms(x, y):
+        return np.sin(np.pi * x) * np.sin(np.pi * y)
+
+    fp = Poisson(Discretization(rectangle_mesh(32, 32, ORDER, x0=(0, 0),
+                                               x1=(1, 1)),
+                                gll_basis_2d(ORDER)),
+                 forcing=lambda x, y: 2 * np.pi ** 2 * u_mms(x, y),
+                 dtype=np.float64)
+    fp.set_dirichlet("ebc", 0.0)
+    fp.set_dirichlet("nbc", 0.0)
+    sol, dt = drive("pmg-f64", lambda: fp.solve_local(tol=1e-10,
+                                                      precond="pmg"))
+    fctx = fp._local_setup(dev)
+    fM = fp._pmg(fctx, "pmg", dev)
+    l2 = fp.l2_error(sol.u, u_mms)
+    log(f"  pmg-f64@1e-10: {int(sol.cg.iterations)} its / {sol.cg.issued} "
+        f"issued, {dt:.3f} s, outer apply {fctx['A']._backend}, cycle "
+        f"{fM._cycle_dtype} ({fM._ops['fine']._backend}, "
+        f"{fM._ops['coarse']._backend}), reported residual "
+        f"{float(sol.cg.residual_norm):.3e}, l2 error {l2:.3e}, max "
+        f"{np.abs(sol.u - u_mms(*fp.x_nodes)).max():.3e}")
+    check(fctx["A"]._backend == "xla" and fM._cycle_dtype == np.float32
+          and fM._ops["fine"]._backend == "fused"
+          and bool(sol.cg.converged) and l2 < 1e-10,
+          "pmg-f64: the float64 model reaches 1e-10 through the 'xla' outer "
+          "apply with the float32 cycle on the kernels, l2 error below "
+          "1e-10")
+    solves["pmg-f64@1e-10"] = dict(iterations=int(sol.cg.iterations),
+                                   issued=sol.cg.issued, seconds=dt,
+                                   l2_error=l2)
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
     # -- 4. manufactured solutions --------------------------------------------
     # 32x32 p=8: the f32 recurrence reaches tol=1e-7 there, and the error
     # bar is the reference's f32 bar (tests/test_cg_fused.py: 1e-4)
@@ -1451,13 +1860,17 @@ def main() -> int:
     # -- 5. report ------------------------------------------------------------
     # launches per row: over the phase-3 solves that run the row's variant
     # (the applies: all solves; plain CG calls them every iteration, the
-    # fused modes for their true-residual restarts and checks)
+    # fused modes for their true-residual restarts and checks), at the
+    # row's order: the p = 1 rows count the n = 4 launches (the pmg coarse
+    # levels), the others the main n's
     row_launches = {}
     for r in rows:
         base, _, t = r["name"].partition("[")
+        n_row = 4 if t == "p1]" else disc.n_loc
         row_launches[r["name"]] = sum(
-            launches[m][base] for m in launches
-            if not t or (m in all_modes and tag(all_modes[m][2]) == t[:-1]))
+            launches[m].get(base, {}).get(n_row, 0) for m in launches
+            if t in ("", "p1]")
+            or (m in all_modes and tag(all_modes[m][2]) == t[:-1]))
     out = []
     for r in rows:
         base = r["name"].split("[")[0]

@@ -114,7 +114,7 @@ inline cudaError_t affine_local(const void* u, const void* tables,
 #define SEM_CASE(NN) \
   case NN:           \
     return launch_affine_local<NN>(uf, t, af, of, Bf, E, nb, k, s);
-    SEM_FOR_EACH_N(SEM_CASE)
+    SEM_APPLY_FOR_EACH_N(SEM_CASE)
 #undef SEM_CASE
     default:
       return cudaErrorInvalidValue;

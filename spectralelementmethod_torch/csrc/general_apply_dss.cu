@@ -117,7 +117,7 @@ extern "C" int sem_general_apply_dss(const void* u, const void* tables,
   case NN:                                                                  \
     err = sem::launch_general_local<NN>(uf, t, gf, of, Bf, E, nb, k, s);    \
     break;
-    SEM_FOR_EACH_N(SEM_CASE)
+    SEM_APPLY_FOR_EACH_N(SEM_CASE)
 #undef SEM_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);

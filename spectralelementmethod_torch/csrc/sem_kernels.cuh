@@ -143,6 +143,12 @@ inline cudaError_t launch_dss_gather(const float* B, float* out,
 
 // Element counts n = (p + 1)^2 with a compiled instantiation (p = 2 .. 8).
 #define SEM_FOR_EACH_N(X) X(9) X(16) X(25) X(36) X(49) X(64) X(81)
+// The apply kernels' (affine_apply_dss.cu, general_apply_dss.cu): p = 1 as
+// well, n = 4, the p-multigrid coarse level.  The tile then has M = 2 warps
+// and every node is a vertex: all four rows are exchanged (nb = 4 on a
+// mesh with more than one element), so the product writes only the scratch
+// B and the gather writes every row of out.
+#define SEM_APPLY_FOR_EACH_N(X) X(4) SEM_FOR_EACH_N(X)
 
 extern "C" const char* sem_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,7 +1,8 @@
 """Mesh layer: reference-element topology, mesh container, generators.
 
 Numpy copies of the JAX package's mesh modules (the port imports nothing
-of that package); Gmsh import and p-order remapping are not ported yet.
+of that package), p-order remapping (:func:`.porder.mesh_with_order`, the
+p-multigrid coarse level) among them; Gmsh import is not ported yet.
 
 Covers reference layers L2/L4 and the mesh half of L3 (SURVEY.md §1):
 ``sem/geometry.py``, ``sem/discrete.py:777-1127``, ``sem/grid_importers.py``.
@@ -26,6 +27,7 @@ from .geometry import (
     subface_slice,
 )
 from .mesh import Cell, CellBase, Mesh, SubCell
+from .porder import mesh_with_order
 
 __all__ = [
     "Geometry",
@@ -46,4 +48,5 @@ __all__ = [
     "structured_patch_mesh",
     "mapped_mesh",
     "geometric_progression",
+    "mesh_with_order",
 ]

@@ -24,7 +24,9 @@ every kernel runs its plain PyTorch version):
   ``torch.matmul`` or, ``backend="pallas"``, by the hand-written
   element-local kernel :func:`..ops.kernels.laplacian_local`).
 
-Not ported: the p-multigrid preconditioner (ROADMAP Queue 1 item 3).
+``solve_local`` takes the Jacobi or, on the ``"ne"`` layout, the two-level
+p-multigrid preconditioner (:mod:`..solver.pmg`, with the reaction in its
+coarse and fine operators).
 """
 
 from __future__ import annotations
@@ -37,42 +39,16 @@ import torch
 from ..config import resolve_device, torch_dtype
 from ..core.discretization import Discretization
 from ..ops import sumfac
+from ..ops.sumfac import LocalHelmholtzOperator
 from ..solver.cg import (CGResult, cg, cg_batched, cg_host,
                          jacobi_preconditioner)
-from .poisson import BoundaryConditionMixin, _as_callable
+from .poisson import (BoundaryConditionMixin, _as_callable, _is_pmg,
+                      _pmg_kwargs)
 
 
 class HelmholtzSolution(NamedTuple):
     u: np.ndarray          # (n_nodes,) nodal solution, or (k, n_nodes)
     cg: CGResult
-
-
-class LocalHelmholtzOperator:
-    """``A u = mask(lap(u) + dss(kM u))`` on L-vectors of one layout.
-
-    ``lap``: the unmasked weak Laplacian (its own DSS included);
-    ``dss``: the exchange's DSS of the layout; ``kM`` and ``free``: the
-    mass-weighted reaction and the free mask in the layout.  ``_raw`` is the
-    unmasked operator (residual seeds), as in the reference.
-    """
-
-    def __init__(self, lap, dss, kM: torch.Tensor, free: torch.Tensor):
-        self.lap, self.dss, self.kM, self.free = lap, dss, kM, free
-
-    def _raw(self, uL: torch.Tensor) -> torch.Tensor:
-        return self.lap(uL) + self.dss(self.kM * uL)
-
-    def __call__(self, uL: torch.Tensor) -> torch.Tensor:
-        return torch.where(self.free, self._raw(uL), 0.0)
-
-    def stacked(self, k: int) -> "LocalHelmholtzOperator":
-        """This operator on (k, ...) stacks of L-vectors: the (n, E)
-        Laplacian takes its stacked form (one launch for the stack); the
-        (E, n) one takes stacks as it is."""
-        if not isinstance(self.lap, sumfac.LaplacianT):
-            return self
-        return LocalHelmholtzOperator(self.lap.stacked(k), self.dss, self.kM,
-                                      self.free)
 
 
 class Helmholtz(BoundaryConditionMixin):
@@ -216,7 +192,11 @@ class Helmholtz(BoundaryConditionMixin):
         on ``"en"``, ``"xla"`` (``torch.matmul``), ``"pallas"`` (the
         element-local kernel, float32 models only) or ``"auto"`` (xla).
         ``structure``: ``"auto"``, ``"general"`` or ``"affine"``, as there.
-        ``precond``: ``"jacobi"``; ``"pmg"`` is not ported yet.
+        ``precond``: ``"jacobi"``, or ``"pmg"`` / ``{"pmg": {...}}`` — the
+        two-level p-multigrid V-cycle with ``coeff_fn`` = c and
+        ``reaction_fn`` = k (:func:`..solver.pmg.make_pmg_preconditioner`),
+        on the ``"ne"`` layout only (another raises ``ValueError``, as in
+        the reference).
         ``device``: ``None`` is the CUDA card (raises without one),
         ``"cpu"`` runs the kernels' plain versions.
         """
@@ -249,10 +229,8 @@ class Helmholtz(BoundaryConditionMixin):
         cached in ``_op_cache`` (cleared by set_dirichlet)."""
         from ..ops.exchange import RollExchange, make_exchange
 
-        if precond == "pmg" or isinstance(precond, dict):
-            raise NotImplementedError(
-                "precond='pmg' is not ported yet (ROADMAP Queue 1 item 3)")
-        if precond != "jacobi":
+        pmg = _is_pmg(precond)
+        if not pmg and precond != "jacobi":
             raise ValueError(f"precond must be 'jacobi' or 'pmg', got "
                              f"{precond!r}")
         disc = self.disc
@@ -266,6 +244,8 @@ class Helmholtz(BoundaryConditionMixin):
         if vector_layout not in sumfac.LAYOUTS:
             raise ValueError(f"unknown vector_layout {vector_layout!r}")
         transposed = vector_layout == "ne"
+        if pmg and not transposed:
+            raise ValueError("precond='pmg' requires the 'ne' layout")
         dt = torch_dtype(self.dtype)
         gih = torch.as_tensor(ex.gather_hier, device=device)
 
@@ -290,11 +270,27 @@ class Helmholtz(BoundaryConditionMixin):
                 vector_layout=vector_layout, backend=backend)
             A = self._op_cache[key] = LocalHelmholtzOperator(
                 lap, ex.dss_T if transposed else ex.dss, kM, free)
-        Mk = ("M", vector_layout, str(device))
-        M = self._op_cache.get(Mk)
-        if M is None:
-            M = self._op_cache[Mk] = jacobi_preconditioner(
-                to_local(self.operator_diagonal(device)), free)
+        if pmg:
+            from ..solver.pmg import make_pmg_preconditioner
+
+            pmg_kw = _pmg_kwargs(precond)
+            Mk = ("M", "pmg", vector_layout, tuple(sorted(pmg_kw.items())),
+                  str(device))
+            M = self._op_cache.get(Mk)
+            if M is None:
+                pmg_kw.setdefault("coeff_fn", self._coeff_fn)
+                pmg_kw.setdefault("reaction_fn", self._reaction_fn)
+                M = self._op_cache[Mk] = make_pmg_preconditioner(
+                    disc, ex, self._G_host.reshape(disc.E, 3, -1), A,
+                    ~self._dirichlet_mask,
+                    self.operator_diagonal("cpu").numpy(),
+                    dtype=self.dtype, device=device, **pmg_kw)
+        else:
+            Mk = ("M", vector_layout, str(device))
+            M = self._op_cache.get(Mk)
+            if M is None:
+                M = self._op_cache[Mk] = jacobi_preconditioner(
+                    to_local(self.operator_diagonal(device)), free)
         return {"ex": ex, "transposed": transposed,
                 "vector_layout": vector_layout, "to_local": to_local,
                 "free": free, "A": A, "M": M}

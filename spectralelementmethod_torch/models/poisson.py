@@ -8,18 +8,18 @@ Port of the 2D main path of the JAX package's ``models/poisson.py``:
 
 The model and its boundary data are host numpy (as in the reference);
 :meth:`Poisson.solve_local` (one forcing) and :meth:`Poisson.
-solve_local_batch` (k forcings, one operator) run Jacobi-preconditioned CG
-on transposed (n, E) L-vectors on a device: the CUDA card by default, or
-the CPU with ``device="cpu"``, where every kernel runs its plain PyTorch
+solve_local_batch` (k forcings, one operator) run preconditioned CG on
+transposed (n, E) L-vectors on a device: the CUDA card by default, or the
+CPU with ``device="cpu"``, where every kernel runs its plain PyTorch
 version.  Ported: affine and curved (or variable-coefficient) 2D meshes
-with ``structure`` in {``auto``, ``general``, ``affine``}, the Jacobi
-preconditioner, ``cg_kernel`` in {``auto``, ``plain``, ``fused``,
-``fused1``},
-``p_dtype`` in {None, ``torch.bfloat16``}, ``defer_x`` (affine meshes), the
-transposed (n, E) layout.  Not yet: 3D, fdm/pmg preconditioners,
-``certify``, ``host_loop``, ``compute_dtype``, the ``en`` layout (ROADMAP
-queues); the signatures are the reference's all the same, and those
-options raise.
+with ``structure`` in {``auto``, ``general``, ``affine``}, the Jacobi and
+the two-level p-multigrid (``precond="pmg"`` or ``{"pmg": {...}}``,
+:mod:`..solver.pmg`) preconditioners, ``cg_kernel`` in {``auto``,
+``plain``, ``fused``, ``fused1``}, ``p_dtype`` in {None,
+``torch.bfloat16``}, ``defer_x`` (affine meshes), the transposed (n, E)
+layout.  Not yet: 3D, the fdm preconditioner, ``certify``, ``host_loop``,
+``compute_dtype``, the ``en`` layout (ROADMAP queues); the signatures are
+the reference's all the same, and those options raise.
 """
 
 from __future__ import annotations
@@ -80,12 +80,10 @@ def _check_unported(host_loop=False, precond="jacobi", compute_dtype=None,
         raise NotImplementedError(
             "host_loop=True is not ported for Poisson yet (ROADMAP Queue 1 "
             "item 15)")
-    if isinstance(precond, dict) or precond in ("pmg", "fdm"):
-        item = 8 if precond == "fdm" else 3
+    if isinstance(precond, str) and precond == "fdm":
         raise NotImplementedError(
-            f"precond={precond!r} is not ported yet (ROADMAP Queue 1 item "
-            f"{item})")
-    if precond != "jacobi":
+            "precond='fdm' is not ported yet (ROADMAP Queue 1 item 8)")
+    if not _is_pmg(precond) and precond != "jacobi":
         raise ValueError(f"unknown precond {precond!r}")
     if compute_dtype is not None:
         raise NotImplementedError(
@@ -100,6 +98,17 @@ def _check_unported(host_loop=False, precond="jacobi", compute_dtype=None,
     if certify:
         raise NotImplementedError(
             "certify=True is not ported yet (ROADMAP Queue 1 item 2)")
+
+
+def _is_pmg(precond) -> bool:
+    """``precond`` asks for the p-multigrid preconditioner: ``"pmg"`` or a
+    ``{"pmg": {...options}}`` dict, as in the reference."""
+    return isinstance(precond, dict) or precond == "pmg"
+
+
+def _pmg_kwargs(precond) -> dict:
+    """The options of a pmg ``precond`` (the dict's ``"pmg"`` entry)."""
+    return dict(precond.get("pmg", {})) if isinstance(precond, dict) else {}
 
 
 def _check_p_dtype(p_dtype) -> None:
@@ -212,8 +221,11 @@ class Poisson(BoundaryConditionMixin):
         ndim = disc.mesh.ndim
         coords = [disc.x_coeffs[:, d] for d in range(ndim)]
         coeff = None
+        #: the coefficient as a callable (pmg's coarse rediscretization)
+        self._coeff_fn = None
         if coefficient is not None:
-            coeff = _as_callable(coefficient)(*coords)
+            self._coeff_fn = _as_callable(coefficient)
+            coeff = self._coeff_fn(*coords)
         with stage("model/factors"):
             self._G_host = np.asarray(disc.laplacian_factors(coeff),
                                       dtype=dtype)
@@ -307,6 +319,25 @@ class Poisson(BoundaryConditionMixin):
         self._op_cache[key] = ctx
         return ctx
 
+    def _pmg(self, ctx, precond, device):
+        """The p-multigrid preconditioner of ``precond`` for the solve
+        context ``ctx``, cached under the reference's key (``"M", "pmg",
+        layout, sorted options``) and the device; ``coeff_fn`` defaults to
+        the model's coefficient, as in the reference."""
+        from ..solver.pmg import make_pmg_preconditioner
+
+        pmg_kw = _pmg_kwargs(precond)
+        key = ("M", "pmg", "ne", tuple(sorted(pmg_kw.items())), str(device))
+        M = self._op_cache.get(key)
+        if M is None:
+            pmg_kw.setdefault("coeff_fn", self._coeff_fn)
+            M = self._op_cache[key] = make_pmg_preconditioner(
+                self.disc, ctx["ex"], self._G_host.reshape(self.disc.E, 3, -1),
+                ctx["A"], ~self._dirichlet_mask,
+                np.asarray(self.operator_diagonal()), dtype=self.dtype,
+                device=device, **pmg_kw)
+        return M
+
     def solve_local(self, tol: float = 1e-12, max_iter: int | None = None,
                     host_loop: bool = False,
                     precond: str = "jacobi",
@@ -318,13 +349,20 @@ class Poisson(BoundaryConditionMixin):
                     defer_x: int | str = 0,
                     certify: bool = False,
                     device=None) -> PoissonSolution:
-        """Solve with Jacobi PCG on element-local (n, E) L-vectors.
+        """Solve with PCG on element-local (n, E) L-vectors.
 
         The parameters are the reference's, in its order, with ``device``
         last.  Not ported yet, and raising ``NotImplementedError`` with
-        their ROADMAP item: ``host_loop=True``, ``precond`` ``"pmg"`` or
-        ``"fdm"``, ``compute_dtype``, ``vector_layout="en"`` and
-        ``certify=True``; ``vector_layout`` ``"auto"`` is ``"ne"``.
+        their ROADMAP item: ``host_loop=True``, ``precond="fdm"``,
+        ``compute_dtype``, ``vector_layout="en"`` and ``certify=True``;
+        ``vector_layout`` ``"auto"`` is ``"ne"``.
+        ``precond``: ``"jacobi"``, or ``"pmg"`` / ``{"pmg": {...}}`` — the
+        two-level p-multigrid V-cycle
+        (:func:`..solver.pmg.make_pmg_preconditioner`, with the dict's
+        options), built once per option set and cached; pmg runs plain
+        ``cg`` (the fused kernels hard-code Jacobi: ``cg_kernel`` ``"fused"``
+        or ``"fused1"`` with pmg raises ``ValueError``, ``"auto"`` takes
+        plain CG), as in the reference.
         ``device``: where the solve runs — ``None`` is the CUDA card (and
         raises when there is none), ``"cpu"`` runs the plain PyTorch
         versions of the kernels.
@@ -334,6 +372,14 @@ class Poisson(BoundaryConditionMixin):
         takes the full-factor apply otherwise
         (:func:`..ops.kernels.general_apply_dss`), ``"general"`` forces
         the latter, ``"affine"`` requires an affine mesh.
+        The operator's backend follows the reference's rule
+        (:func:`..ops.sumfac.ne_backend`): the apply kernels for a float32
+        model on a tail-free roll-class exchange (on the card,
+        ``NotImplementedError`` for an order without an apply kernel),
+        else the ``"xla"`` operator (float64 models, exchanges with
+        tails); the fused CG
+        kernels take the former only, and ``cg_kernel="auto"`` then runs
+        plain CG.
         ``cg_kernel``: ``"plain"`` — one apply per iteration plus PyTorch
         vector ops; ``"fused"`` — each iteration is a kernel pair, kernel
         A (:func:`..ops.kernels.cg_kernel_a`, or on a curved mesh
@@ -397,14 +443,16 @@ class Poisson(BoundaryConditionMixin):
         want_fused = cg_kernel in ("fused", "fused1") or (
             cg_kernel == "auto" and p_dtype is not None
             and dev.type == "cuda")
-        if cg_kernel in ("fused", "fused1") and not f32:
-            raise ValueError(f"cg_kernel={cg_kernel!r} requires a float32 "
-                             "model")
+        pmg = _is_pmg(precond)
+        if cg_kernel in ("fused", "fused1") and (pmg or not f32):
+            raise ValueError(f"cg_kernel={cg_kernel!r} requires "
+                             "precond='jacobi', vector_layout='ne' and a "
+                             "float32 model")
         # the fused pair follows the mesh, not ``structure`` (the
         # reference's _build_fused_cg)
         fop = self._local_setup(dev)["A"]
-        if (want_fused and cg_kernel == "auto" and defer_x
-                and fop.structure == "general"):
+        if cg_kernel == "auto" and (pmg or fop._backend != "fused" or (
+                defer_x and fop.structure == "general")):
             want_fused = False
         if want_fused and f32:
             key = ("cg_fused1" if single else "cg_fused", str(p_dtype),
@@ -425,6 +473,8 @@ class Poisson(BoundaryConditionMixin):
                            max_iter=max_iter, p_dtype=p_dtype,
                            defer_x=defer_x, A=A)
         else:
+            if pmg:
+                M = self._pmg(ctx, precond, dev)
             w = ex.weights_T(self.dtype, dev)
             res = cg(A, r, M=M, tol=tol, max_iter=max_iter, dot_weight=w)
         uL = u_dL + res.x.to(u_dL.dtype)
@@ -453,9 +503,11 @@ class Poisson(BoundaryConditionMixin):
         or scalars), or a (k, n_nodes) array of nodal forcing values (the
         weak RHS is formed here in either case).  The parameters are the
         reference's, in its order, with ``device`` last; ``device``,
-        ``structure`` and the unported options (``precond``,
-        ``compute_dtype``, ``vector_layout="en"``) as in
-        :meth:`solve_local`.
+        ``structure``, ``precond`` and the unported options
+        (``compute_dtype``, ``vector_layout="en"``) as in
+        :meth:`solve_local`.  pmg takes plain batched CG with the stacked
+        V-cycle (the reference's ``jax.vmap(M)``: one batched launch per
+        apply of each level for the whole stack).
         ``cg_kernel``: ``"plain"`` — :func:`..solver.cg.cg_batched` over the
         k-stack apply (:func:`..ops.kernels.affine_apply_dss_batched` or
         :func:`..ops.kernels.general_apply_dss_batched`); ``"fused"`` —
@@ -518,14 +570,16 @@ class Poisson(BoundaryConditionMixin):
         # reference's routing)
         fop = self._local_setup(dev)["A"]
         curved = fop.structure == "general"
+        pmg = _is_pmg(precond)
         if cg_kernel == "auto":
-            cg_kernel = ("fused" if p_dtype is not None and f32
-                         and dev.type == "cuda"
+            cg_kernel = ("fused" if p_dtype is not None and f32 and not pmg
+                         and dev.type == "cuda" and fop._backend == "fused"
                          and (curved or k >= 2
                               or hbm_residency_regime(ex.E, disc.n_loc))
                          else "plain")
-        if cg_kernel == "fused" and not f32:
-            raise ValueError("cg_kernel='fused' requires a float32 model")
+        if cg_kernel == "fused" and (pmg or not f32):
+            raise ValueError("batched fused CG requires the 'ne' layout, "
+                             "precond='jacobi' and float32")
         # the masked operator on the k-stack (buffers shared with ctx)
         A_wb = ctx["A"].stacked(k)
 
@@ -557,8 +611,9 @@ class Poisson(BoundaryConditionMixin):
                                    p_dtype=p_dtype, defer_x=defer_x,
                                    A=A_flat)
         else:
+            M = self._pmg(ctx, precond, dev) if pmg else ctx["M"]
             w = ex.weights_T(self.dtype, dev)
-            res = cg_batched(A_wb, R, M=ctx["M"], tol=tol, max_iter=max_iter,
+            res = cg_batched(A_wb, R, M=M, tol=tol, max_iter=max_iter,
                              dot_weight=w, whole_batch=True)
         # one device-to-host copy for the whole batch
         X = (res.x.to(u_dL.dtype) + u_dL).cpu().numpy()

@@ -57,9 +57,11 @@ their plain versions multiply by ``Kst`` and ignore the factors.  The
 curved kernels (the general apply and its kernel A) take ``factors=`` too,
 a :class:`GeneralFactors`, and read no dense ``Dh``; so does the
 element-local kernel, which builds them from ``Dh`` when none are given.
-Each wrapper keeps a launch count (``wrapper.launches``), incremented only
-where the kernel is launched.  Per-RHS scalars of the batched kernels
-are (k,) float32 tensors on the device; their partial sums are (G, k).
+Each wrapper keeps its launch counts by n (``wrapper.launches``, n ->
+launches), incremented only where the kernel is launched
+(:func:`launch_counts`, :func:`launch_counts_by_n`).  Per-RHS scalars of
+the batched kernels are (k,) float32 tensors on the device; their partial
+sums are (G, k).
 
 The libraries are compiled with ``nvcc`` for ``sm_90a`` on first use into
 ``../_build`` (keyed by a hash of the sources and flags), in parallel with
@@ -130,9 +132,14 @@ AFFINE_TILE = 32
 #: elements per tile of the curved (n, E) kernels (``kAffTile``, the tile
 #: of csrc/sem_curved.cuh; one denominator partial row each)
 GENERAL_TILE = 32
-#: nodes per element with a compiled instantiation: (p + 1)^2 for p = 2..8
-#: (``SEM_FOR_EACH_N`` in csrc/sem_kernels.cuh)
+#: nodes per element with a compiled instantiation of every kernel:
+#: (p + 1)^2 for p = 2..8 (``SEM_FOR_EACH_N`` in csrc/sem_kernels.cuh)
 SUPPORTED_N = (9, 16, 25, 36, 49, 64, 81)
+#: nodes per element with a compiled instantiation of the apply kernels
+#: (affine_apply_dss, general_apply_dss, their stacks and the block apply,
+#: which shares the affine product): p = 1 as well, the p-multigrid coarse
+#: level (``SEM_APPLY_FOR_EACH_N``)
+APPLY_N = (4,) + SUPPORTED_N
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -284,11 +291,11 @@ def _per_rhs(v, k: int, name: str, device) -> torch.Tensor:
     return v
 
 
-def _check_n(n: int) -> None:
-    if n not in SUPPORTED_N:
+def _check_n(n: int, compiled=SUPPORTED_N) -> None:
+    if n not in compiled:
         raise NotImplementedError(
             f"no kernel instantiation for n={n} nodes per element "
-            f"(compiled: {SUPPORTED_N})")
+            f"(compiled: {compiled})")
 
 
 def _check_plan(plan: DSSPlan, device) -> None:
@@ -530,7 +537,7 @@ def _launch_apply(uT, Kst, aT, plan, k: int, factors):
     dev = _cuda_device(uT)
     _check_plan(plan, dev)
     n, E = Kst.shape[-1], uT.shape[-1]
-    _check_n(n)
+    _check_n(n, APPLY_N)
     f32 = (torch.float32,)
     _require(uT, "uT", f32, (k * n, E), dev)
     _require(Kst, "Kst", f32, (3, n, n), dev)
@@ -568,11 +575,8 @@ def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Kst.shape[-1]}, E)")
     out, B = _launch_apply(uT, Kst, aT, plan, 1, factors)
-    affine_apply_dss.launches += 1
+    _count(affine_apply_dss, Kst.shape[-1])
     return (out, B[0, :plan.nb]) if aux else out
-
-
-affine_apply_dss.launches = 0
 
 
 def affine_apply_dss_batched(uT: torch.Tensor, Kst: torch.Tensor,
@@ -587,11 +591,8 @@ def affine_apply_dss_batched(uT: torch.Tensor, Kst: torch.Tensor,
         _check_plan(plan, None)
         return affine_apply_dss_batched_plain(uT, Kst, aT, plan)
     out, _ = _launch_apply(uT, Kst, aT, plan, k, factors)
-    affine_apply_dss_batched.launches += 1
+    _count(affine_apply_dss_batched, Kst.shape[-1])
     return out
-
-
-affine_apply_dss_batched.launches = 0
 
 
 # -- kernel A: direction update + apply + denominator partials ----------------
@@ -723,11 +724,8 @@ def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan, *,
     p_out, ap, x_out, dparts = _launch_a(
         r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), Kst, aT,
         plan, 1, tables, "cg_kernel_a")
-    cg_kernel_a.launches += 1
+    _count(cg_kernel_a, Kst.shape[-1])
     return p_out, ap, x_out, dparts.view(-1)
-
-
-cg_kernel_a.launches = 0
 
 
 def cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
@@ -742,11 +740,8 @@ def cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
     p_out, ap, _, dparts = _launch_a(r, p, inv, None, _scalar(beta, dev),
                                      None, Kst, aT, plan, 1, tables,
                                      "cg_kernel_a_deferred")
-    cg_kernel_a_deferred.launches += 1
+    _count(cg_kernel_a_deferred, Kst.shape[-1])
     return p_out, ap, dparts.view(-1)
-
-
-cg_kernel_a_deferred.launches = 0
 
 
 def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
@@ -765,11 +760,8 @@ def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
     out = _launch_a(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
                     _per_rhs(alpha_prev, k, "alpha_prev", dev), Kst, aT,
                     plan, k, tables, "cg_kernel_a_batched")
-    cg_kernel_a_batched.launches += 1
+    _count(cg_kernel_a_batched, Kst.shape[-1])
     return out
-
-
-cg_kernel_a_batched.launches = 0
 
 
 def cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
@@ -785,11 +777,8 @@ def cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
     p_out, ap, _, dparts = _launch_a(
         r, p, inv, None, _per_rhs(beta, k, "beta", dev), None, Kst, aT, plan,
         k, tables, "cg_kernel_a_batched_deferred")
-    cg_kernel_a_batched_deferred.launches += 1
+    _count(cg_kernel_a_batched_deferred, Kst.shape[-1])
     return p_out, ap, dparts
-
-
-cg_kernel_a_batched_deferred.launches = 0
 
 
 # -- kernel B: residual update + the two weighted reductions ------------------
@@ -848,11 +837,8 @@ def cg_kernel_b(r, Ap, inv, w_free, alpha):
                          f"{tuple(r.shape)}")
     r_out, rz, rn = _launch_b(r, Ap, inv, w_free, _scalar(alpha, dev), 1,
                               "cg_kernel_b")
-    cg_kernel_b.launches += 1
+    _count(cg_kernel_b, inv.shape[0])
     return r_out, rz.view(-1), rn.view(-1)
-
-
-cg_kernel_b.launches = 0
 
 
 def cg_kernel_b_batched(r, Ap, inv, w_free, alpha):
@@ -865,11 +851,8 @@ def cg_kernel_b_batched(r, Ap, inv, w_free, alpha):
     dev = _cuda_device(r)
     out = _launch_b(r, Ap, inv, w_free, _per_rhs(alpha, k, "alpha", dev), k,
                     "cg_kernel_b_batched")
-    cg_kernel_b_batched.launches += 1
+    _count(cg_kernel_b_batched, inv.shape[0])
     return out
-
-
-cg_kernel_b_batched.launches = 0
 
 
 def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
@@ -941,7 +924,7 @@ def _launch_general_apply(uT, gT, Dh, plan, k: int, tables: int):
     dev = _cuda_device(uT)
     _check_plan(plan, dev)
     n, E = Dh.shape[1], uT.shape[-1]
-    _check_n(n)
+    _check_n(n, APPLY_N)
     f32 = (torch.float32,)
     _require(uT, "uT", f32, (k * n, E), dev)
     _require(gT, "gT", f32, (3, n, E), dev)
@@ -981,11 +964,8 @@ def general_apply_dss(uT: torch.Tensor, gT: torch.Tensor, Dh: torch.Tensor,
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Dh.shape[1]}, E)")
     out, B = _launch_general_apply(uT, gT, Dh, plan, 1, tables)
-    general_apply_dss.launches += 1
+    _count(general_apply_dss, Dh.shape[1])
     return (out, B[0, :plan.nb]) if aux else out
-
-
-general_apply_dss.launches = 0
 
 
 def general_apply_dss_batched(uT: torch.Tensor, gT: torch.Tensor,
@@ -1003,11 +983,8 @@ def general_apply_dss_batched(uT: torch.Tensor, gT: torch.Tensor,
     tables = _require_general_factors(factors, Dh, hier,
                                       "general_apply_dss_batched")
     out, _ = _launch_general_apply(uT, gT, Dh, plan, k, tables)
-    general_apply_dss_batched.launches += 1
+    _count(general_apply_dss_batched, Dh.shape[1])
     return out
-
-
-general_apply_dss_batched.launches = 0
 
 
 def cg_kernel_a_general_plain(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
@@ -1076,11 +1053,8 @@ def cg_kernel_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
     p_out, ap, x_out, dparts = _launch_a_general(
         r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), gT, Dh,
         plan, 1, tables, "cg_kernel_a_general")
-    cg_kernel_a_general.launches += 1
+    _count(cg_kernel_a_general, Dh.shape[1])
     return p_out, ap, x_out, dparts.view(-1)
-
-
-cg_kernel_a_general.launches = 0
 
 
 def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
@@ -1102,11 +1076,8 @@ def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
                             _per_rhs(alpha_prev, k, "alpha_prev", dev), gT,
                             Dh, plan, k, tables,
                             "cg_kernel_a_general_batched")
-    cg_kernel_a_general_batched.launches += 1
+    _count(cg_kernel_a_general_batched, Dh.shape[1])
     return out
-
-
-cg_kernel_a_general_batched.launches = 0
 
 
 def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
@@ -1175,7 +1146,7 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
     dev = _cuda_device(uT_ext)
     _check_plan(block_plan, dev)
     n, E = Kst.shape[-1], uT_ext.shape[-1]
-    _check_n(n)
+    _check_n(n, APPLY_N)
     f32 = (torch.float32,)
     _require(uT_ext, "uT_ext", f32, (n, E), dev)
     _require(Kst, "Kst", f32, (3, n, n), dev)
@@ -1195,11 +1166,8 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
         _ptr(B), _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n, E,
         block_plan.nb, _stream(dev))
     _check(lib, rc, f"affine_block_apply_dss (n={n}, E={E})")
-    affine_block_apply_dss.launches += 1
+    _count(affine_block_apply_dss, Kst.shape[-1])
     return out
-
-
-affine_block_apply_dss.launches = 0
 
 
 # -- the far-class update of a split DSS --------------------------------------
@@ -1284,11 +1252,8 @@ def far_update(out: torch.Tensor, aux: torch.Tensor,
     rc = lib.sem_far_update(_ptr(out), _ptr(aux), _ptr(far_plan.masks),
                             tables.ctypes.data, E, _stream(dev))
     _check(lib, rc, f"far_update (E={E}, {far_plan.n_entries} entries)")
-    far_update.launches += 1
+    _count(far_update, out.shape[0])
     return out
-
-
-far_update.launches = 0
 
 
 # -- the single-kernel iteration: residual update + kernel A + all dots ------
@@ -1394,11 +1359,8 @@ def cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
     out = _launch_single(r, Ap, p, x, inv, w_free, _scalar(alpha_prev, dev),
                          _scalar(beta, dev), Kst, aT, plan, tables,
                          "cg_kernel_single")
-    cg_kernel_single.launches += 1
+    _count(cg_kernel_single, Kst.shape[-1])
     return out
-
-
-cg_kernel_single.launches = 0
 
 
 def cg_kernel_single_deferred(r, Ap, p, inv, w_free, alpha_prev, beta, Kst,
@@ -1418,11 +1380,8 @@ def cg_kernel_single_deferred(r, Ap, p, inv, w_free, alpha_prev, beta, Kst,
         r, Ap, p, None, inv, w_free, _scalar(alpha_prev, dev),
         _scalar(beta, dev), Kst, aT, plan, tables,
         "cg_kernel_single_deferred")
-    cg_kernel_single_deferred.launches += 1
+    _count(cg_kernel_single_deferred, Kst.shape[-1])
     return r_out, p_out, ap, parts
-
-
-cg_kernel_single_deferred.launches = 0
 
 
 def make_fused_cg_kernel_single(Kst: torch.Tensor, aT: torch.Tensor,
@@ -1576,11 +1535,8 @@ def laplacian_local(uL: torch.Tensor, g: torch.Tensor, Dh: torch.Tensor,
     _local_shape(uL, g, Dh, g.shape[1:], "laplacian_local")
     n = Dh.shape[1]
     out = _launch_local(uL, g, Dh, hier, 1, n, 0, factors, "laplacian_local")
-    laplacian_local.launches += 1
+    _count(laplacian_local, n)
     return out
-
-
-laplacian_local.launches = 0
 
 
 def laplacian_local_batched(uL: torch.Tensor, g: torch.Tensor,
@@ -1598,11 +1554,8 @@ def laplacian_local_batched(uL: torch.Tensor, g: torch.Tensor,
     _local_shape(uL, g, Dh, (uL.shape[0], E, n), "laplacian_local_batched")
     out = _launch_local(uL, g, Dh, hier, uL.shape[0], n, E * n, factors,
                         "laplacian_local_batched")
-    laplacian_local_batched.launches += 1
+    _count(laplacian_local_batched, n)
     return out
-
-
-laplacian_local_batched.launches = 0
 
 
 def vector_laplacian_local(uL: torch.Tensor, g: torch.Tensor,
@@ -1623,11 +1576,8 @@ def vector_laplacian_local(uL: torch.Tensor, g: torch.Tensor,
     _local_shape(uL, g, Dh, (E, k * n), "vector_laplacian_local")
     out = _launch_local(uL, g, Dh, hier, k, k * n, n, factors,
                         "vector_laplacian_local")
-    vector_laplacian_local.launches += 1
+    _count(vector_laplacian_local, n)
     return out
-
-
-vector_laplacian_local.launches = 0
 
 
 #: the wrappers, by kernel name
@@ -1652,10 +1602,24 @@ WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "far_update": far_update}
 
 
+def _count(fn, n: int) -> None:
+    """One launch of ``fn``'s kernel at n nodes per element."""
+    fn.launches[n] = fn.launches.get(n, 0) + 1
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
+        fn.launches = {}
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """The launches of each wrapper, over every n."""
+    return {name: sum(fn.launches.values()) for name, fn in WRAPPERS.items()}
+
+
+def launch_counts_by_n() -> dict[str, dict[int, int]]:
+    """The launches of each wrapper, by n."""
+    return {name: dict(fn.launches) for name, fn in WRAPPERS.items()}
+
+
+reset_launch_counts()

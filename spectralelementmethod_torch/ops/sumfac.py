@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..basis import gll_basis_2d
-from ..config import resolve_device, torch_dtype
+from ..config import canonical_device, resolve_device, torch_dtype
 from ..mesh.geometry import Quadrilateral
 from . import kernels
 from .exchange import DSSPlan, edges_first_order
@@ -233,7 +233,7 @@ def _kernel_factors(make, n: int, device):
     try:
         return make()
     except ValueError:
-        if torch.device(device).type == "cuda" and n in kernels.SUPPORTED_N:
+        if torch.device(device).type == "cuda" and n in kernels.APPLY_N:
             raise
         return None
 
@@ -258,6 +258,14 @@ class LaplacianT(torch.nn.Module):
     (:meth:`stacked`): the Dirichlet masking shared by the affine and the
     general operator around their apply kernels.
 
+    ``plan`` given: the ``"fused"`` operator, whose apply is the
+    hand-written apply+DSS kernel of the subclass (its plain version on the
+    CPU).  ``plan=None`` with ``exchange`` and ``device``: the ``"xla"``
+    operator, the element-local product as PyTorch tensor operations
+    followed by ``exchange.dss_T`` (the reference's XLA path: any dtype,
+    order or exchange, tails included; it launches no kernel).
+    :attr:`_backend` names which, as the reference's operator does.
+
     ``free_local`` (optional (n, E) bool) applies the symmetric Dirichlet
     elimination: the output is zeroed on Dirichlet rows, and so is the
     input unless ``assume_masked_input`` (true by induction for CG
@@ -279,13 +287,24 @@ class LaplacianT(torch.nn.Module):
     #: "affine" or "general" (the reference's ``_structure``)
     structure = None
 
-    def __init__(self, plan: DSSPlan, n: int, free_local=None,
+    def __init__(self, plan: DSSPlan | None, n: int, free_local=None,
                  assume_masked_input: bool = False, max_halo="auto",
-                 far_mode: str = "auto"):
+                 far_mode: str = "auto", *, exchange=None, device=None):
         super().__init__()
+        if plan is None:
+            if exchange is None:
+                raise ValueError("the 'xla' operator (plan=None) takes the "
+                                 "exchange whose dss_T it runs")
+            self._backend = "xla"
+            self._dss = exchange.dss_T
+            self.E = int(exchange.E)
+            self.device = canonical_device(resolve_device(device))
+        else:
+            self._backend = "fused"
+            self.E, self.device = plan.E, plan.device
         self.register_buffer(
             "free", None if free_local is None
-            else torch.as_tensor(free_local, device=plan.device))
+            else torch.as_tensor(free_local, device=self.device))
         self.plan = plan
         self.n_loc = int(n)
         self.assume_masked_input = bool(assume_masked_input)
@@ -294,6 +313,9 @@ class LaplacianT(torch.nn.Module):
         #: (near plan, far plan) of a split DSS, or None
         self._split = None
         if max_halo not in (None, "auto"):
+            if plan is None:
+                raise ValueError("max_halo splits the apply kernels' DSS; "
+                                 "the 'xla' operator has no split")
             near, far = plan.split(int(max_halo))
             if far.n_entries:
                 self._split = (near, far)
@@ -319,6 +341,15 @@ class LaplacianT(torch.nn.Module):
             raise ValueError(f"the far split (max_halo) {what} with "
                              "max_halo=None")
 
+    def _refuse_xla(self) -> None:
+        """The fused CG kernels take a ``"fused"`` operator only (the
+        reference's ``fused_ok``)."""
+        if self._backend != "fused":
+            raise ValueError(
+                "the fused CG kernels require the fused backend (float32 "
+                "factors, a tail-free roll-class exchange and an order with "
+                f"a kernel); this operator's backend is {self._backend!r}")
+
     def stacked(self, n_rhs: int) -> "LaplacianT":
         """This operator on (n_rhs, n, E) stacks (the buffers are
         shared)."""
@@ -335,20 +366,23 @@ class LaplacianT(torch.nn.Module):
         op = copy.copy(self)
         op._buffers = dict(self._buffers)
         op.free = (None if free_local is None
-                   else torch.as_tensor(free_local, device=self.plan.device))
+                   else torch.as_tensor(free_local, device=self.device))
         op.assume_masked_input = bool(assume_masked_input)
         return op
 
     def forward(self, uT: torch.Tensor) -> torch.Tensor:
         if self.free is not None and not self.assume_masked_input:
             uT = torch.where(self.free, uT, 0.0)
-        if self.n_rhs is None:
-            vT = self._apply(uT)
-        else:
-            n, E = self.n_loc, self.plan.E
+        if self.n_rhs is not None:
+            n, E = self.n_loc, self.E
             if tuple(uT.shape) != (self.n_rhs, n, E):
                 raise ValueError(f"expected ({self.n_rhs}, {n}, {E}) batched "
                                  f"L-vectors, got {tuple(uT.shape)}")
+        if self._backend == "xla":
+            vT = self._dss(self._local(uT))
+        elif self.n_rhs is None:
+            vT = self._apply(uT)
+        else:
             vT = self._apply_batched(
                 uT.reshape(self.n_rhs * n, E)).reshape(uT.shape)
         if self.free is not None:
@@ -376,22 +410,27 @@ class AffineLaplacianT(LaplacianT):
 
     structure = "affine"
 
-    def __init__(self, Kcat, a, plan: DSSPlan, free_local=None,
+    def __init__(self, Kcat, a, plan: DSSPlan | None, free_local=None,
                  assume_masked_input: bool = False, dtype=torch.float32,
-                 max_halo="auto", far_mode: str = "auto"):
+                 max_halo="auto", far_mode: str = "auto", *, exchange=None,
+                 device=None):
         Kcat = np.asarray(Kcat, dtype=np.float64)
         n = Kcat.shape[0]
         super().__init__(plan, n, free_local, assume_masked_input, max_halo,
-                         far_mode)
-        dev = plan.device
+                         far_mode, exchange=exchange, device=device)
+        dev = self.device
         Kst = np.stack([Kcat[:, c * n:(c + 1) * n] for c in range(3)])
         self.register_buffer(
             "Kst", torch.as_tensor(Kst, device=dev).to(dtype).contiguous())
         aT = np.ascontiguousarray(np.asarray(a, dtype=np.float64).T)
         self.register_buffer("aT", torch.as_tensor(aT, device=dev).to(dtype))
         #: the blocks' tensor-product factors (host arrays; None on the
-        #: CPU for a Kcat that has none)
-        self.factors = _operator_factors(Kcat, dev)
+        #: CPU for a Kcat that has none, and for the 'xla' operator)
+        self.factors = (_operator_factors(Kcat, dev)
+                        if self._backend == "fused" else None)
+
+    def _local(self, uT):
+        return kernels._local_product(uT, self.Kst, self.aT)
 
     def _apply(self, uT):
         return self._split_apply(
@@ -406,7 +445,9 @@ class AffineLaplacianT(LaplacianT):
     def fused_cg_kernels(self, n_rhs=None, defer_x: bool = False):
         """``(kA, kB)`` of the fused CG on this operator: single-RHS
         (:func:`.kernels.make_fused_cg_kernels`) for ``n_rhs=None``, else
-        batched for ``n_rhs`` right-hand sides.  A split operator raises."""
+        batched for ``n_rhs`` right-hand sides.  A split or an ``"xla"``
+        operator raises."""
+        self._refuse_xla()
         self._refuse_split(_FUSED_SPLIT)
         if n_rhs is None:
             return kernels.make_fused_cg_kernels(
@@ -419,7 +460,8 @@ class AffineLaplacianT(LaplacianT):
     def fused_cg_kernel_single(self, defer_x: bool = False):
         """``kAB`` of the single-kernel CG iteration on this operator
         (:func:`.kernels.make_fused_cg_kernel_single`; ``cg_fused`` with
-        ``kB=None``).  A split operator raises."""
+        ``kB=None``).  A split or an ``"xla"`` operator raises."""
+        self._refuse_xla()
         self._refuse_split(_FUSED_SPLIT)
         return kernels.make_fused_cg_kernel_single(
             self.Kst, self.aT, self.plan, defer_x=defer_x,
@@ -445,28 +487,34 @@ class GeneralLaplacianT(LaplacianT):
 
     structure = "general"
 
-    def __init__(self, Gf, Dhat, hier, plan: DSSPlan, free_local=None,
-                 assume_masked_input: bool = False, dtype=torch.float32,
-                 max_halo="auto", far_mode: str = "auto"):
+    def __init__(self, Gf, Dhat, hier, plan: DSSPlan | None,
+                 free_local=None, assume_masked_input: bool = False,
+                 dtype=torch.float32, max_halo="auto",
+                 far_mode: str = "auto", *, exchange=None, device=None):
         Gf = np.asarray(Gf)
         E, three, n = Gf.shape
-        if three != 3 or E != plan.E:
-            raise ValueError(f"factors of shape {Gf.shape}; expected "
-                             f"({plan.E}, 3, n)")
         super().__init__(plan, n, free_local, assume_masked_input, max_halo,
-                         far_mode)
-        dev = plan.device
+                         far_mode, exchange=exchange, device=device)
+        if three != 3 or E != self.E:
+            raise ValueError(f"factors of shape {Gf.shape}; expected "
+                             f"({self.E}, 3, n)")
+        dev = self.device
         gT = np.ascontiguousarray(Gf.transpose(1, 2, 0))
         self.register_buffer("gT", torch.as_tensor(gT, device=dev).to(dtype))
         hier = np.asarray(hier, dtype=np.int64)
         Dh = torch.as_tensor(np.ascontiguousarray(
             np.asarray(Dhat, np.float64)[:, hier])).to(dtype)
         #: the tensor-product tables of ``Dh`` as stored (host arrays;
-        #: None on the CPU for a Dhat that has none)
-        self.factors = _general_factors(Dh.double().numpy(), hier, dev)
+        #: None on the CPU for a Dhat that has none, and for the 'xla'
+        #: operator)
+        self.factors = (_general_factors(Dh.double().numpy(), hier, dev)
+                        if self._backend == "fused" else None)
         self.register_buffer("Dh", Dh.to(dev))
         self.register_buffer(
             "hier", torch.as_tensor(hier.astype(np.int32), device=dev))
+
+    def _local(self, uT):
+        return kernels._general_local(uT, self.gT, self.Dh)
 
     def _apply(self, uT):
         return self._split_apply(
@@ -483,7 +531,8 @@ class GeneralLaplacianT(LaplacianT):
         (:func:`.kernels.make_fused_cg_kernels_general`): single-RHS for
         ``n_rhs=None``, else batched.  ``defer_x`` raises: the general
         kernels carry no deferred-x mode, as in the reference, and so
-        does a split operator."""
+        does a split or an ``"xla"`` operator."""
+        self._refuse_xla()
         self._refuse_split(_FUSED_SPLIT)
         if defer_x:
             raise ValueError("defer_x is not offered on the general fused "
@@ -587,6 +636,34 @@ class LaplacianEN(torch.nn.Module):
         return vL
 
 
+class LocalHelmholtzOperator:
+    """``A u = mask(lap(u) + dss(kM u))`` on L-vectors of one layout.
+
+    ``lap``: the unmasked weak Laplacian (its own DSS included);
+    ``dss``: the exchange's DSS of the layout; ``kM`` and ``free``: the
+    mass-weighted reaction and the free mask in the layout.  ``_raw`` is the
+    unmasked operator (residual seeds), as in the reference.
+    """
+
+    def __init__(self, lap, dss, kM: torch.Tensor, free: torch.Tensor):
+        self.lap, self.dss, self.kM, self.free = lap, dss, kM, free
+
+    def _raw(self, uL: torch.Tensor) -> torch.Tensor:
+        return self.lap(uL) + self.dss(self.kM * uL)
+
+    def __call__(self, uL: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.free, self._raw(uL), 0.0)
+
+    def stacked(self, k: int) -> "LocalHelmholtzOperator":
+        """This operator on (k, ...) stacks of L-vectors: the (n, E)
+        Laplacian takes its stacked form (one launch for the stack); the
+        (E, n) one takes stacks as it is."""
+        if not isinstance(self.lap, LaplacianT):
+            return self
+        return LocalHelmholtzOperator(self.lap.stacked(k), self.dss, self.kM,
+                                      self.free)
+
+
 STRUCTURES = ("auto", "general", "affine")
 LAYOUTS = ("ne", "en")
 FAR_MODES = ("auto", "kernel", "xla")
@@ -611,10 +688,26 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
 
     ``vector_layout``: ``"ne"`` (the port's default; the reference's is
     ``"en"``) acts on transposed (n, E) L-vectors: the
-    :class:`AffineLaplacianT` or the :class:`GeneralLaplacianT`, whose
-    applies are the hand-written apply+DSS kernels (their plain versions on
-    the CPU) whatever ``backend`` says, except that ``"pallas"`` raises
-    there, as in the reference.  ``"en"`` acts on row-major (E, n)
+    :class:`AffineLaplacianT` or the :class:`GeneralLaplacianT`, with
+    ``backend`` as in the reference (:data:`NE_BACKENDS`):
+
+    * ``"fused"`` — the hand-written apply+DSS kernels (their plain
+      versions on the CPU); requires float32 factors and a tail-free
+      roll-class exchange (:class:`.RollExchange`), else ``ValueError``;
+      on a CUDA device an order without an apply kernel
+      (:data:`.kernels.APPLY_N`) raises ``NotImplementedError``;
+    * ``"xla"`` — the element-local product as PyTorch tensor operations
+      and the exchange's ``dss_T``, on any device and at any order:
+      float64, exchanges with tails and the generic
+      :class:`.LocalExchange`; no kernel is launched;
+    * ``"auto"`` — the reference's ``fused_ok`` rule: ``"fused"`` for
+      float32 factors on a tail-free roll-class exchange (raising as
+      ``"fused"`` does for an order without a kernel), else ``"xla"``.
+
+    The choice is made here, once, from the operator's static properties,
+    and recorded as the operator's ``_backend``; nothing retries another
+    path after an error.  ``"pallas"`` raises there, as in the reference.
+    ``"en"`` acts on row-major (E, n)
     L-vectors: the :class:`LaplacianEN` with ``backend`` ``"xla"``,
     ``"pallas"`` (float32 factors only: the kernel computes in f32, and the
     reference's would return f64-typed output of f32 accuracy) or
@@ -624,7 +717,8 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
     operators only, as in the reference) skips its input pass.
     ``compute_dtype`` (reduced-precision
     products) is not ported: anything but None raises.  ``max_halo`` and
-    ``far_mode`` (the (n, E) operators only) as in :class:`LaplacianT`.
+    ``far_mode`` (the fused (n, E) operators only) as in
+    :class:`LaplacianT`.
     """
     if compute_dtype is not None:
         raise NotImplementedError(
@@ -667,39 +761,83 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
         return LaplacianEN(Gf, Dhat, exchange.hier, exchange.dss,
                            backend=backend, affine=affine,
                            free_local=free_local, dtype=dtype, device=dev)
-    if backend not in ("auto", "fused", "xla"):
+    backend = ne_backend(exchange, dtype, Gf.shape[-1], dev, backend)
+    if backend == "fused":
+        where = dict(plan=exchange.plan(dev))
+    else:
+        where = dict(plan=None, exchange=exchange, device=dev)
+    kw = dict(assume_masked_input=assume_masked_input, dtype=dtype,
+              max_halo=max_halo, far_mode=far_mode)
+    if affine is not None:
+        return AffineLaplacianT(affine[1], affine[0],
+                                free_local=free_local, **where, **kw)
+    return GeneralLaplacianT(Gf, Dhat, exchange.hier, free_local=free_local,
+                             **where, **kw)
+
+
+#: the (n, E) operators' backends (the reference's, without its interpret
+#: modes)
+NE_BACKENDS = ("auto", "fused", "xla")
+
+
+def ne_backend(exchange, dtype, n: int, device,
+               backend: str = "auto") -> str:
+    """``backend`` of an (n, E) operator on ``device`` resolved to
+    ``"fused"`` or ``"xla"`` by the reference's ``fused_ok`` rule: the apply
+    kernels take float32 factors (``dtype``) and a tail-free roll-class
+    exchange.  ``"auto"`` takes ``"fused"`` where both hold, else
+    ``"xla"``; ``"fused"`` raises ``ValueError`` where one fails; ``"xla"``
+    stays.  A fused operator on a CUDA device also needs an apply kernel
+    compiled for its n (:data:`.kernels.APPLY_N`): without one it raises
+    ``NotImplementedError``, whichever of ``"auto"`` and ``"fused"`` chose
+    it (the reference's rule has no such limit, so ``"auto"`` does not
+    turn to ``"xla"`` for it)."""
+    if backend not in NE_BACKENDS:
         raise ValueError(f"unknown backend {backend!r} for the 'ne' layout")
+    if backend == "xla":
+        return backend
+    why = []
+    if torch_dtype(dtype) != torch.float32:
+        why.append(f"float32 factors, got {torch_dtype(dtype)}")
     if not hasattr(exchange, "plan") or exchange.n_edge_tail or \
             exchange.n_vert_tail:
+        why.append("a tail-free roll-class exchange (RollExchange), got "
+                   f"{type(exchange).__name__} with "
+                   f"{getattr(exchange, 'n_edge_tail', 0)} edge and "
+                   f"{getattr(exchange, 'n_vert_tail', 0)} vertex tails")
+    if why:
+        if backend == "fused":
+            raise ValueError("backend='fused' requires " + "; ".join(why)
+                             + ": the apply kernels take no other (backend="
+                             "'xla' runs the plain product)")
+        return "xla"
+    if torch.device(device).type == "cuda" and n not in kernels.APPLY_N:
         raise NotImplementedError(
-            "the apply kernels need a tail-free roll-class exchange "
-            "(RollExchange); the generic-gather DSS has no kernel yet")
-    plan = exchange.plan(dev)
-    split = dict(max_halo=max_halo, far_mode=far_mode)
-    if affine is not None:
-        return AffineLaplacianT(affine[1], affine[0], plan, free_local,
-                                assume_masked_input=assume_masked_input,
-                                dtype=dtype, **split)
-    return GeneralLaplacianT(Gf, Dhat, exchange.hier, plan, free_local,
-                             assume_masked_input=assume_masked_input,
-                             dtype=dtype, **split)
+            f"no apply kernel instantiation for n={n} nodes per element "
+            f"(compiled: {kernels.APPLY_N}); backend='xla' runs the plain "
+            "product")
+    return "fused"
 
 
 def make_multi_rhs_laplacian_T(exchange, Gf, Dhat, n_rhs: int,
                                free_local=None,
                                assume_masked_input: bool = False,
-                               device=None, structure: str = "auto"):
+                               device=None, structure: str = "auto",
+                               backend: str = "auto"):
     """Batched-RHS transposed weak Laplacian: (k, n, E) -> (k, n, E).
 
     The ``n_rhs`` right-hand sides share one operator (the affine blocks
-    and scales, or the general factor slabs, and the class tables), applied
-    by one launch of :func:`.kernels.affine_apply_dss_batched` or
+    and scales, or the general factor slabs, and the class tables).  The
+    ``"fused"`` operator applies them by one launch of
+    :func:`.kernels.affine_apply_dss_batched` or
     :func:`.kernels.general_apply_dss_batched` for the whole stack, which
-    reads the slabs once per element tile for all k; ``free_local`` masks
-    each RHS.  Arguments as in :func:`make_local_laplacian_operator`.
+    reads the slabs once per element tile for all k; the ``"xla"`` one by
+    batched tensor operations and ``dss_T``.  ``free_local`` masks each
+    RHS.  Arguments, ``backend`` among them, as in
+    :func:`make_local_laplacian_operator`.
     """
     if n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     return make_local_laplacian_operator(
         exchange, Gf, Dhat, free_local, assume_masked_input, device,
-        structure).stacked(n_rhs)
+        structure, backend=backend).stacked(n_rhs)

@@ -98,8 +98,10 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
     * ``"shardmap-fused"`` — transposed vectors, the block kernel per shard
       (:func:`.halo.make_sharded_fused_operator`; float32 affine meshes).
 
-    ``precond``: ``"jacobi"``; ``"pmg"`` (or a dict of its options) is not
-    ported yet and raises (ROADMAP Queue 1 item 3).
+    ``precond``: ``"jacobi"``; the sharded ``"pmg"`` (or a dict of its
+    options) is not ported yet and raises (ROADMAP Queue 1 item 12: the
+    reference composes the V-cycle with the sharded operator and a padded
+    coarse level).
 
     Returns ``(A, r, M, u_dL, exchange, mesh)``; solve with
     ``cg(A, r, M=M, dot=exchange.dot)`` (``dot_T`` for the transposed
@@ -114,7 +116,8 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
         raise ValueError(f"unknown comm {comm!r}")
     if precond == "pmg" or isinstance(precond, dict):
         raise NotImplementedError(
-            "precond='pmg' is not ported yet (ROADMAP Queue 1 item 3, pmg)")
+            "the sharded precond='pmg' is not ported yet (ROADMAP Queue 1 "
+            "item 12, sharding)")
     if precond != "jacobi":
         raise ValueError(f"unknown precond {precond!r}")
     transposed = comm != "propagation"

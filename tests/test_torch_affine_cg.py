@@ -195,10 +195,19 @@ def _single_lines(r, Ap, p, x, inv, wt, alpha_prev, beta, f, aT, plan,
 
 
 def _port_operator(nx, ny, p):
+    """The masked affine operator of a float64 rectangle, built by the
+    fused operator's class: the factory takes the "xla" operator for
+    float64 factors (the reference's rule), and these cases read the
+    kernels' tables and plain versions in float64."""
     prob = Poisson(Discretization(rectangle_mesh(nx, ny, p), gll_basis_2d(p)),
                    dtype=np.float64)
     prob.set_dirichlet("ebc", 0.0)
-    return prob._local_setup("cpu")["A"]
+    ctx = prob._local_setup("cpu")
+    A = ctx["A"]
+    Kcat = np.concatenate(list(A.Kst.numpy()), axis=1)
+    return sumfac.AffineLaplacianT(
+        Kcat, A.aT.numpy().T, ctx["ex"].plan("cpu"),
+        dtype=torch.float64).masked(ctx["free_local"], True)
 
 
 def _inputs(rng, shape, k=1):

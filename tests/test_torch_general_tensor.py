@@ -200,15 +200,16 @@ def _plain_operands(A):
     return A.gT.double(), torch.tensor(Dh), A.hier, A.plan
 
 
-@pytest.mark.parametrize("p", range(2, 9))
+@pytest.mark.parametrize("p", range(1, 9))
 def test_apply_lines_match_the_plain_version(p):
     """The apply's line mapping from the tables, one RHS and a stack of
     two: Ap and the raw exchanged rows of
     ``general_apply_dss[_batched]_plain`` on the derivative the tables
-    make, to 1e-12 of max in float64."""
+    make, to 1e-12 of max in float64.  At p = 1 (the p-multigrid coarse
+    level) every node is a vertex and every row is exchanged."""
     A = _operator(p)
     gT, Dh, hier, plan = _plain_operands(A)
-    assert 0 < plan.nb < A.factors.n
+    assert 0 < plan.nb < A.factors.n or (p == 1 and plan.nb == 4)
     rng = np.random.RandomState(p)
     n, E = A.factors.n, plan.E
     u = rng.standard_normal((2 * n, E))

@@ -265,14 +265,17 @@ def test_interop_matches_reference():
 def test_unported_and_refused_options_raise(what):
     """float64 factors with ``backend="pallas"`` raise (a deliberate
     divergence: the reference's kernel returns an f64-typed result of f32
-    accuracy), as do ``precond="pmg"`` and a ``compute_dtype``."""
+    accuracy), as do ``precond="pmg"`` on the ``"en"`` layout (as in the
+    reference; on ``"ne"`` it solves) and a ``compute_dtype``."""
     _, tp = _pair()
     if what == "pallas_f64":
         with pytest.raises(ValueError, match="float32"):
             tp.solve_local(vector_layout="en", backend="pallas", device="cpu")
     elif what == "pmg":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            tp.solve_local(precond="pmg", device="cpu")
+        with pytest.raises(ValueError, match="'ne' layout"):
+            tp.solve_local(precond="pmg", vector_layout="en", device="cpu")
+        assert bool(tp.solve_local(tol=1e-8, precond="pmg",
+                                   device="cpu").cg.converged)
     else:
         ex = exchange.make_exchange(tp.disc)
         Gf = tp._G_host.reshape(tp.disc.E, 3, -1)

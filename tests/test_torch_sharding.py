@@ -442,10 +442,10 @@ def test_unported_and_refused_options_raise():
     _, t64 = _pair(np.float64)
     _, t32 = _pair(np.float32)
     cpu = sh.device_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         sh.sharded_local_poisson_problem(t64, cpu, comm="shardmap",
                                          precond="pmg")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         sh.sharded_local_poisson_problem(t64, cpu, comm="shardmap",
                                          precond={"pmg": {}})
     with pytest.raises(ValueError, match="f32"):

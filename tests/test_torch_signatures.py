@@ -73,14 +73,16 @@ def _poisson():
     return prob
 
 
+# item None: ported since (pmg, item 3, is taken up now); the case checks
+# that the option solves
 UNPORTED = [
     ("solve_local", dict(host_loop=True), "item 15"),
-    ("solve_local", dict(precond="pmg"), "item 3"),
+    ("solve_local", dict(precond="pmg"), None),
     ("solve_local", dict(precond="fdm"), "item 8"),
     ("solve_local", dict(compute_dtype=np.float32), "item 15"),
     ("solve_local", dict(vector_layout="en"), "item 15"),
     ("solve_local", dict(certify=True), "item 2"),
-    ("solve_local_batch", dict(precond="pmg"), "item 3"),
+    ("solve_local_batch", dict(precond="pmg"), None),
     ("solve_local_batch", dict(compute_dtype=np.float32), "item 15"),
     ("solve_local_batch", dict(vector_layout="en"), "item 15"),
 ]
@@ -93,6 +95,13 @@ def test_unported_parameters_raise(method, kw, item):
     prob = _poisson()
     args = ([np.ones((2, prob.disc.n_nodes))]
             if method == "solve_local_batch" else [])
+    if item is None:
+        sol = getattr(prob, method)(*args, tol=1e-10, device="cpu", **kw)
+        assert np.all(sol.cg.converged.numpy())
+        ref = getattr(prob, method)(*args, tol=1e-10, device="cpu")
+        np.testing.assert_allclose(sol.u, ref.u, rtol=0,
+                                   atol=1e-8 * np.abs(ref.u).max())
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         getattr(prob, method)(*args, device="cpu", **kw)
 

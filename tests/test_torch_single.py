@@ -165,8 +165,8 @@ def test_cg_kernel_single_plain_matches_pallas(bf16, defer):
               np.sum(w64 * r64 * r64)]
     np.testing.assert_allclose(d_got, direct, rtol=1e-4)
     # on the CPU the wrapper runs the plain version: nothing launched
-    assert kernels.cg_kernel_single.launches == 0
-    assert kernels.cg_kernel_single_deferred.launches == 0
+    assert kernels.launch_counts()["cg_kernel_single"] == 0
+    assert kernels.launch_counts()["cg_kernel_single_deferred"] == 0
 
 
 def test_cg_kernel_single_frozen_iteration_pins_state():
