@@ -35,9 +35,11 @@ Phases (any failure exits non-zero and prints no result line):
    p' bit for bit) and a small annulus (the general kernel A's Ap' against
    the general apply of its own p' bit for bit); at p = 1 (n = 4, the
    p-multigrid coarse level, which only the apply kernels are compiled
-   for) the affine and the general apply, one RHS and three, and the block
-   apply on 2 shards there, and the four apply rows timed at the coarse
-   level's full shapes (the rectangle and the annulus at p = 1);
+   for, one launch each) the affine and the general apply, one RHS, three
+   and with ``aux``, and the block apply on 2 shards there, and the four
+   apply rows timed at the coarse level's full shapes (the rectangle and
+   the annulus at p = 1), each p = 1 apply and the block apply issuing
+   one device kernel per call (profiler count);
 3. run ``Poisson.solve_local`` on the rectangle in the three main-path
    modes (plain CG; fused CG; fused CG with bf16 directions), with
    deferred x (``defer_x=8``), with the general apply forced
@@ -78,8 +80,10 @@ Phases (any failure exits non-zero and prints no result line):
    2.4329, lambda_max(M A) beside its 0.998, the reported and the
    float64-evaluated true residual, ms per V-cycle and per iteration, one
    profile, the setup stages), with the Chebyshev coarse level, on the
-   annulus, Helmholtz config 3, the k = 4 batches of both meshes, every
-   level of each V-cycle on the apply kernels; and a float64 model with
+   annulus (these two with ms per V-cycle, the p = 1 launches per
+   iteration and one profile each), Helmholtz config 3, the k = 4
+   batches of both meshes, every level of each V-cycle on the apply
+   kernels; and a float64 model with
    the float32 cycle to 1e-10 against its manufactured solution through
    the "xla" outer apply;
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
@@ -225,6 +229,41 @@ def gpu_ms(fn, args_list, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_events(fn, args_list) -> list:
+    """The profiler's device events (by name: count, device time) of one
+    call of ``fn`` per entry of ``args_list``, after one warm-up pass."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in args_list:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for a in args_list:
+            fn(*a)
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_kernels(fn, args_list) -> dict[str, int]:
+    """Device kernels (copies and fills left out) that one call of ``fn``
+    per entry of ``args_list`` issues, by name."""
+    return {e.key: e.count for e in device_events(fn, args_list)
+            if not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def device_per_call(fn, args_list) -> tuple[float, float]:
+    """Device ms and device launches per call of ``fn`` (the profiler's
+    sum over the calls, so host gaps between the calls do not count)."""
+    ev = device_events(fn, args_list)
+    n = len(args_list)
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / n,
+            sum(e.count for e in ev) / n)
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     tb, tf = bytes_moved / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -309,8 +348,9 @@ def main() -> int:
     for name, text in logs.items():
         lines = text.splitlines()
         for i, line in enumerate(lines):
-            if "Function properties" in line and ("Li81E" in line
-                                                  or "far_update" in line):
+            if "Function properties" in line and (
+                    "Li81E" in line or "far_update" in line
+                    or "p1_apply" in line):
                 log(f"  {name}: {line.split('for ')[-1][:60]} "
                     f"{lines[i + 1].strip()} | {lines[i + 2].strip()}")
 
@@ -863,12 +903,22 @@ def main() -> int:
                              generator=g, device=dev)) for s_ in sets])
             op_bytes = A1.gT.numel() * 4 + A1.Dh.numel() * 4
         m1 = int(round(n1 ** 0.5))
-        b_ms, b_by = bound(8 * k * n1 * E + op_bytes + pl1.masks.numel(),
+        # the masks as the kernel reads them: one packed 32-bit word per
+        # element
+        mask1 = kernels.p1_mask_words(pl1).numel() * 4
+        b_ms, b_by = bound(8 * k * n1 * E + op_bytes + mask1,
                            k * ((8 * n1 * m1 + 6 * n1) * E
                                 + pl1.n_entries * E))
         rows.append(dict(name=f"{name}[p1]", max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
+        # one device kernel per apply at n = 4 (product and DSS together),
+        # counted by the profiler over a few applies
+        kern = device_kernels(fn, sets[:4])
+        check(sum(kern.values()) == 4
+              and all("p1_apply_dss_kernel" in kk for kk in kern),
+              f"{name} at p = 1 (k = {k}): 4 applies issue 4 device kernels "
+              f"({kern})")
 
     for r in rows:
         asm = r.pop("assembled_bound_ms", None)
@@ -1084,10 +1134,26 @@ def main() -> int:
                 *args))[1])
     rels.append(rel_err(sAsh(su), kernels.affine_apply_dss(
         su, sA.Kst, sA.aT, sA.plan, factors=sA.factors))[1])
+    # aux=True at n = 4: the same launch writes the raw rows
+    for name, A_, ops_ in (("affine_apply_dss", sA, (sA.Kst, sA.aT)),
+                           ("general_apply_dss", cA,
+                            (cA.gT, cA.Dh, cA.hier))):
+        args = (torch.randn((4, A_.E), generator=g, device=dev), *ops_,
+                A_.plan)
+        got = kernels.WRAPPERS[name](*args, aux=True, factors=A_.factors)
+        ref = getattr(kernels, name + "_plain")(*args, aux=True)
+        rels += [rel_err(got[0], ref[0])[1], rel_err(got[1], ref[1])[1]]
+    bargs = (sAsh._extended(sbl, 0), sKb, sab[0], smb[0], sAsh._block_plan)
+    kern = device_kernels(functools.partial(kernels.affine_block_apply_dss,
+                                            factors=sfb), [bargs] * 4)
+    check(sum(kern.values()) == 4
+          and all("p1_apply_dss_kernel" in kk for kk in kern),
+          f"affine_block_apply_dss at p = 1: 4 applies issue 4 device "
+          f"kernels ({kern})")
     check(max(rels) <= 1e-5, f"p=1 (n=4; nb={sA.plan.nb}, "
           f"{sA.plan.n_entries} DSS entries): the affine and the general "
-          f"apply, one RHS and three, and the block apply on 2 shards match "
-          f"their plain versions ({max(rels):.1e} <= 1e-5)")
+          f"apply, one RHS and three and with aux, and the block apply on 2 "
+          f"shards match their plain versions ({max(rels):.1e} <= 1e-5)")
 
     # -- 3. the main path: solve_local and solve_local_batch -----------------
     log(f"[3] solve_local on rectangle_mesh({NX}, {NY}, {ORDER}) and the "
@@ -1404,6 +1470,8 @@ def main() -> int:
         for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"    {e.self_device_time_total / 1e3 / iters:8.4f} "
                 f"ms/iter  x{e.count / iters:5.2f}  {e.key[:70]}")
+        return dict(device_ms_per_iter=per_it, launches_per_iter=n_launch,
+                    busy=busy / wall)
 
     for name in (*modes, "fused1-bf16p", f"batch-fused-bf16p-m{DEFER}",
                  "curved-fused-bf16p"):
@@ -1767,7 +1835,32 @@ def main() -> int:
         lmax30=lmax30, reference_lmax30=PMG_LMAX30, lambda_max_MA=lam_ma,
         reference_lambda_max_MA=PMG_LAM_MA, vcycle_ms_device=vc_dev,
         vcycle_ms_host=vc_host, cg_ms_per_issued=cg_ms)
-    profile_solve("pmg-rect", functools.partial(pmg_solve, "pmg-rect"), 64)
+    solves["pmg_rect_headline"]["profile"] = profile_solve(
+        "pmg-rect", functools.partial(pmg_solve, "pmg-rect"), 64)
+    # the Chebyshev coarse level's cells beside it: a V-cycle's device
+    # time and launches (the profiler's sum over 8 V-cycles, host gaps
+    # left out), the p = 1 apply's launches per issued iteration of the
+    # solve, and a profile (device ms and launches per pmg iteration)
+    for name, p1_name in (("pmg-rect", None),
+                          ("pmg-rect-cheb", "affine_apply_dss"),
+                          ("pmg-annulus", "general_apply_dss")):
+        M_, key = pmg_info[name], f"{name}@{TOL_PMG:g}"
+        free_ = problems[pmg_modes[name][0]][1]["free_local"]
+        vc_ms, vc_launch = device_per_call(M_, [(torch.where(
+            free_, torch.randn((n, E), generator=g, device=dev), 0.0),)
+            for _ in range(8)])
+        p1_per_it = launches[name].get(p1_name, {}).get(4, 0) \
+            / solves[key]["issued"]
+        log(f"  {name}: V-cycle {vc_ms:.4f} ms of device time, "
+            f"{vc_launch:.1f} launches" + (
+                f"; {p1_per_it:.2f} {p1_name} launches at n = 4 per issued "
+                "iteration of the solve" if p1_name else ""))
+        solves[key].update(vcycle_device_ms=vc_ms,
+                           vcycle_launches=vc_launch,
+                           p1_launches_per_issued=p1_per_it)
+        if name != "pmg-rect":
+            solves[key]["profile"] = profile_solve(
+                name, functools.partial(pmg_solve, name), 64)
 
     # a float64 model with the float32 V-cycle, to 1e-10 against its
     # manufactured solution (the reference's tests/test_pmg.py case at

@@ -28,19 +28,19 @@ tensor-product apply) is driven without it.  Needs one CUDA card.
 
 from __future__ import annotations
 
-import argparse
 import inspect
-import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+import ab_common
 
-def run_tree(root: str, steady: tuple[int, int]) -> dict:
+
+def run_tree(root: Path, steady: tuple[int, int]) -> dict:
     import numpy as np
     import torch
 
+    root = str(root)
     sys.path.insert(0, root)
     from chip_smoke import card_line, gpu_ms
     from spectralelementmethod_torch.basis import gll_basis_2d
@@ -115,51 +115,10 @@ def run_tree(root: str, steady: tuple[int, int]) -> dict:
         per_it.append(1e3 * (ts[1][0] - ts[0][0]) / (ts[1][1] - ts[0][1]))
     out["plain_cg_steady_ms"] = per_it
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    iters = 512
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        plain(iters)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA]
-    out["plain_cg_device_ms_per_iter"] = sum(
-        e.self_device_time_total for e in ev) / 1e3 / iters
-    out["plain_cg_top_kernels_ms_per_iter"] = {
-        e.key[:60]: e.self_device_time_total / 1e3 / iters
-        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]}
+    out["plain_cg_profile"] = ab_common.profile(lambda: plain(512), 512)
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--steady", default="512,1536")
-    ap.add_argument("--one", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    steady = tuple(int(v) for v in args.steady.split(","))
-    if args.one:
-        print(json.dumps(run_tree(str(Path(args.one).resolve()), steady)),
-              flush=True)
-        return 0
-    if len(args.trees) != 2:
-        ap.error("give two trees")
-    a, b = (str(Path(t).resolve()) for t in args.trees)
-    rc = 0
-    for tree in (a, b, b, a):
-        proc = subprocess.run([sys.executable, __file__, "--one", tree,
-                               "--steady", args.steady], cwd=tree,
-                              capture_output=True, text=True, timeout=600)
-        lines = proc.stdout.strip().splitlines()
-        print(lines[-1] if proc.returncode == 0 and lines
-              else f"{tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}",
-              flush=True)
-        rc = rc or proc.returncode
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_common.main(__file__, __doc__, "apply", run_tree,
+                            steady="512,1536", timeout=600))

@@ -32,40 +32,24 @@ tensor-product kernel A) is driven without it.  Needs one CUDA card.
 
 from __future__ import annotations
 
-import argparse
 import functools
 import inspect
-import json
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import ab_common
 
 K = 4
 DEFER = 8
 PROFILE_ITERS = 512
 
 
-def ptxas_report(logs: dict) -> list[str]:
-    """One line per n = 81 kernel of the two CG sources: registers, shared
-    memory, spills."""
-    out = []
-    for src in ("cg_kernel_a.cu", "cg_kernel_single.cu"):
-        lines = logs.get(src, "").splitlines()
-        for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and "Li81E" in ln:
-                info = [r.strip().replace("ptxas info    : ", "")
-                        for r in lines[i + 1:i + 5]
-                        if "stack frame" in r or "registers" in r]
-                out.append(f"{ln.split(chr(39))[1][:60]}: "
-                           + " | ".join(info))
-    return out
-
-
-def run_tree(root: str, steady: tuple[int, int]) -> dict:
+def run_tree(root: Path, steady: tuple[int, int]) -> dict:
     import numpy as np
     import torch
 
+    root = str(root)
     sys.path.insert(0, root)
     from chip_smoke import card_line, gpu_ms
     from spectralelementmethod_torch.basis import gll_basis_2d
@@ -78,7 +62,11 @@ def run_tree(root: str, steady: tuple[int, int]) -> dict:
     from spectralelementmethod_torch.ops.exchange import roll_dss_T
 
     out = dict(tree=root, card=card_line())
-    out["ptxas"] = ptxas_report(kernels.build())
+    logs = kernels.build()
+    out["ptxas"] = ab_common.ptxas_report(
+        {src: logs.get(src, "") for src in ("cg_kernel_a.cu",
+                                            "cg_kernel_single.cu")},
+        lambda ln: "Li81E" in ln)
     disc = Discretization(rectangle_mesh(316, 316, 8), gll_basis_2d(8))
     prob = Poisson(disc, dtype=np.float32)
     prob.set_dirichlet("ebc", lambda x, y: 0.2 * ((x + 1) + (y + 1)))
@@ -170,63 +158,12 @@ def run_tree(root: str, steady: tuple[int, int]) -> dict:
                              / (ts[1][1] - ts[0][1]) / modes[m][0])
     out["steady_ms_per_issued_per_rhs"] = per_it
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    prof_out = {}
-    for m in ("fused", f"batch-fused-bf16p-m{DEFER}"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            solve(m, PROFILE_ITERS)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ev) / 1e6
-        prof_out[m] = dict(
-            device_ms_per_iter=1e3 * busy / PROFILE_ITERS,
-            busy_share=busy / wall,
-            top_kernels_ms_per_iter={
-                e.key[:60]: e.self_device_time_total / 1e3 / PROFILE_ITERS
-                for e in sorted(ev, key=lambda e: -e.self_device_time_total)
-                [:6]})
-    out["profiles"] = prof_out
+    out["profiles"] = {
+        m: ab_common.profile(lambda: solve(m, PROFILE_ITERS), PROFILE_ITERS)
+        for m in ("fused", f"batch-fused-bf16p-m{DEFER}")}
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--steady", default="512,1536")
-    ap.add_argument("--one", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    steady = tuple(int(v) for v in args.steady.split(","))
-    if args.one:
-        print(json.dumps(run_tree(str(Path(args.one).resolve()), steady)),
-              flush=True)
-        return 0
-    if len(args.trees) != 2:
-        ap.error("give two trees")
-    a, b = (str(Path(t).resolve()) for t in args.trees)
-    rc = 0
-    for tree in (a, b, b, a):
-        proc = subprocess.run([sys.executable, __file__, "--one", tree,
-                               "--steady", args.steady], cwd=tree,
-                              capture_output=True, text=True, timeout=900)
-        lines = proc.stdout.strip().splitlines()
-        print(lines[-1] if proc.returncode == 0 and lines
-              else f"{tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}",
-              flush=True)
-        rc = rc or proc.returncode
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(card, flush=True)
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_common.main(__file__, __doc__, "cg", run_tree,
+                            steady="512,1536", timeout=900))

@@ -35,16 +35,14 @@ logs go to ``chiprun_out/ab_general_*.log``.  Needs one CUDA card.
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
+import ab_common
+
 K = 4                  # right-hand sides of the batched solves
 PROFILE_ITERS = 512
-CUT = "    # -- 3. the main path"
 
 
 def _tail(L: dict, steady: tuple[int, int]) -> dict:
@@ -52,8 +50,6 @@ def _tail(L: dict, steady: tuple[int, int]) -> dict:
     locals of ``chip_smoke.main`` at the start of its phase 3."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     tol_all, tol_f32 = 2e-3, 1e-4
     aprob, prob, hprob = L["aprob"], L["prob"], L["hprob"]
@@ -79,8 +75,9 @@ def _tail(L: dict, steady: tuple[int, int]) -> dict:
         return p_.solve_local(**kw, **opts)
 
     out = dict(rows_ms={r["name"]: r["ms"] for r in L["rows"]},
-               ptxas=_ptxas(L["logs"]), iterations={}, steady={},
-               profiles={})
+               ptxas=ab_common.ptxas_report(L["logs"],
+                                            lambda ln: "Li81E" in ln),
+               iterations={}, steady={}, profiles={})
     runs = [(m, tol_all) for m in modes] + [("curved-plain", tol_f32),
                                             ("curved-fused", tol_f32)]
     for name, tol in runs:
@@ -101,94 +98,17 @@ def _tail(L: dict, steady: tuple[int, int]) -> dict:
                 1e3 * (ts[1][0] - ts[0][0]) / (ts[1][1] - ts[0][1])
                 / modes[name][1])
     for name in ("curved-plain", "curved-fused-bf16p"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            solve(name, tol=0.0, max_iter=PROFILE_ITERS)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ev) / 1e6
-        out["profiles"][name] = dict(
-            device_ms_per_iter=1e3 * busy / PROFILE_ITERS,
-            busy_share=busy / wall,
-            top_kernels_ms_per_iter={
-                e.key[:60]: e.self_device_time_total / 1e3 / PROFILE_ITERS
-                for e in sorted(ev, key=lambda e: -e.self_device_time_total)
-                [:6]})
-    return out
-
-
-def _ptxas(logs: dict) -> dict:
-    """Registers, shared memory and spills of every n = 81 kernel."""
-    out = {}
-    for src, text in logs.items():
-        lines = text.splitlines()
-        for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and "Li81E" in ln:
-                info = [r.strip().replace("ptxas info    : ", "")
-                        for r in lines[i + 1:i + 5]
-                        if "stack frame" in r or "registers" in r]
-                out[f"{src} {ln.split(chr(39))[1][:60]}"] = " | ".join(info)
+        out["profiles"][name] = ab_common.profile(
+            lambda: solve(name, tol=0.0, max_iter=PROFILE_ITERS),
+            PROFILE_ITERS)
     return out
 
 
 def run_tree(root: Path, steady: tuple[int, int]) -> dict:
     """The tree's chip_smoke.py up to its phase 3, then :func:`_tail`."""
-    src = (root / "chip_smoke.py").read_text()
-    if CUT not in src:
-        raise RuntimeError(f"{root}/chip_smoke.py has no phase 3 marker")
-    src = src[:src.index(CUT)] + "    return _ab_tail(locals())\n"
-    ns = {"__name__": "chip_smoke_ab", "__file__": str(root / "chip_smoke.py"),
-          "_ab_tail": lambda L: _tail(L, steady)}
-    sys.path.insert(0, str(root))
-    exec(compile(src, str(root / "chip_smoke.py"), "exec"), ns)
-    res = ns["main"]()
-    if not isinstance(res, dict):
-        raise RuntimeError(f"phase 2 of {root} returned {res!r}")
-    res["tree"] = str(root)
-    return res
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--steady", default="512,1536")
-    ap.add_argument("--one", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    steady = tuple(int(v) for v in args.steady.split(","))
-    if args.one:
-        res = run_tree(Path(args.one).resolve(), steady)
-        print("AB_JSON " + json.dumps(res), flush=True)
-        return 0
-    if len(args.trees) != 2:
-        ap.error("give two trees")
-    a, b = (Path(t).resolve() for t in args.trees)
-    out_dir = Path(__file__).resolve().parents[1] / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    rc = 0
-    for i, tree in enumerate((a, b, b, a)):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--one", str(tree), "--steady", args.steady],
-                              cwd=tree, capture_output=True, text=True,
-                              timeout=1200)
-        (out_dir / f"ab_general_{i}.log").write_text(proc.stdout
-                                                     + proc.stderr)
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("AB_JSON ")]
-        print(lines[-1][8:] if proc.returncode == 0 and lines
-              else f"{tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}",
-              flush=True)
-        rc = rc or proc.returncode
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(card, flush=True)
-    return rc
+    return ab_common.through_phase2(root, lambda L: _tail(L, steady))
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_common.main(__file__, __doc__, "general", run_tree,
+                            steady="512,1536"))

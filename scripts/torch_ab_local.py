@@ -34,18 +34,16 @@ logs go to ``chiprun_out/ab_local_*.log``.  Needs one CUDA card.
 
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+import ab_common
 
 K = 4                  # right-hand sides of the batched Helmholtz solve
 HELM_STEADY = (128, 384)
 HELM_PROFILE = 128
 FAR_PROFILE = 512
-CUT = "    # -- 3. the main path"
 
 
 def _tail(L: dict, steady: tuple[int, int]) -> dict:
@@ -54,8 +52,6 @@ def _tail(L: dict, steady: tuple[int, int]) -> dict:
     phase 3."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     tol = 2e-3
     hprob, prob, ctx, cg = L["hprob"], L["prob"], L["ctx"], L["cg"]
@@ -88,8 +84,9 @@ def _tail(L: dict, steady: tuple[int, int]) -> dict:
                  HF, **en, **o)),
              "far-split": (1, lambda tol, max_iter: _Far(tol, max_iter))}
     out = dict(rows_ms={r_["name"]: r_["ms"] for r_ in L["rows"]},
-               ptxas=_ptxas(L["logs"]), iterations={}, steady={},
-               profiles={})
+               ptxas=ab_common.ptxas_report(
+                   L["logs"], lambda ln: "Li81E" in ln or "far_update" in ln),
+               iterations={}, steady={}, profiles={})
     for name, (k, run) in modes.items():
         sol = run(tol=tol, max_iter=20000)
         out["iterations"][f"{name}@{tol:g}"] = np.atleast_1d(
@@ -109,96 +106,16 @@ def _tail(L: dict, steady: tuple[int, int]) -> dict:
                 1e3 * (ts[1][0] - ts[0][0]) / (ts[1][1] - ts[0][1]) / k)
     for name, (k, run) in modes.items():
         iters = FAR_PROFILE if name == "far-split" else HELM_PROFILE
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sol = run(tol=0.0, max_iter=iters)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        issued = sol.cg.issued
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in ev) / 1e6
-        out["profiles"][name] = dict(
-            issued=issued, device_ms_per_iter=1e3 * busy / issued,
-            busy_share=busy / wall,
-            top_kernels_ms_per_iter={
-                e.key[:60]: e.self_device_time_total / 1e3 / issued
-                for e in sorted(ev, key=lambda e: -e.self_device_time_total)
-                [:6]})
-    return out
-
-
-def _ptxas(logs: dict) -> dict:
-    """Registers, shared memory and spills of every n = 81 kernel and of
-    the far update."""
-    out = {}
-    for src, text in logs.items():
-        lines = text.splitlines()
-        for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and (
-                    "Li81E" in ln or "far_update" in ln):
-                info = [r.strip().replace("ptxas info    : ", "")
-                        for r in lines[i + 1:i + 5]
-                        if "stack frame" in r or "registers" in r]
-                out[f"{src} {ln.split(chr(39))[1][:60]}"] = " | ".join(info)
+        out["profiles"][name] = ab_common.profile(
+            lambda: run(tol=0.0, max_iter=iters))
     return out
 
 
 def run_tree(root: Path, steady: tuple[int, int]) -> dict:
     """The tree's chip_smoke.py up to its phase 3, then :func:`_tail`."""
-    src = (root / "chip_smoke.py").read_text()
-    if CUT not in src:
-        raise RuntimeError(f"{root}/chip_smoke.py has no phase 3 marker")
-    src = src[:src.index(CUT)] + "    return _ab_tail(locals())\n"
-    ns = {"__name__": "chip_smoke_ab", "__file__": str(root / "chip_smoke.py"),
-          "_ab_tail": lambda L: _tail(L, steady)}
-    sys.path.insert(0, str(root))
-    exec(compile(src, str(root / "chip_smoke.py"), "exec"), ns)
-    res = ns["main"]()
-    if not isinstance(res, dict):
-        raise RuntimeError(f"phase 2 of {root} returned {res!r}")
-    res["tree"] = str(root)
-    return res
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--steady", default="512,1536")
-    ap.add_argument("--one", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    steady = tuple(int(v) for v in args.steady.split(","))
-    if args.one:
-        res = run_tree(Path(args.one).resolve(), steady)
-        print("AB_JSON " + json.dumps(res), flush=True)
-        return 0
-    if len(args.trees) != 2:
-        ap.error("give two trees")
-    a, b = (Path(t).resolve() for t in args.trees)
-    out_dir = Path(__file__).resolve().parents[1] / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    rc = 0
-    for i, tree in enumerate((a, b, b, a)):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--one", str(tree), "--steady", args.steady],
-                              cwd=tree, capture_output=True, text=True,
-                              timeout=1200)
-        (out_dir / f"ab_local_{i}.log").write_text(proc.stdout + proc.stderr)
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("AB_JSON ")]
-        print(lines[-1][8:] if proc.returncode == 0 and lines
-              else f"{tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}",
-              flush=True)
-        rc = rc or proc.returncode
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    print(card, flush=True)
-    return rc
+    return ab_common.through_phase2(root, lambda L: _tail(L, steady))
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_common.main(__file__, __doc__, "local", run_tree,
+                            steady="512,1536"))

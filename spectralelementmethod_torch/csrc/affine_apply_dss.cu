@@ -13,28 +13,37 @@
 // does 6.3 kflop per element, 0.63 GFLOP, 9 us at the SXM part's
 // 67 TFLOP/s on the CUDA cores.  A k-stack does k times both.
 //
-// Design: two launches.  affine_local_kernel computes the product from
-// the 1D derivative D, the weights W and three scales per element (no
-// assembled K): a tile of 32 elements per block, one warp per grid line,
-// each value staged in shared memory feeding M FMAs and each coefficient
-// read from the constant bank (the by-value AffineTables), so neither
-// shared-memory issue nor the flops of the assembled form (6.2x these) set
-// its pace.  3,121 blocks of 9 warps at E = 99,856, 800 for one shard's
-// 25,598; the launch bounds hold it to 56 registers, so 4 blocks (36
-// warps) stay resident per SM (on an H100 the global apply took 0.076 ms
-// at 72 registers and 3 blocks against 0.068 ms; 5 blocks spill).  It
-// writes the element-interior rows [nb, n) of S straight to
-// out and the exchanged rows [0, nb) to the scratch B; dss_gather_kernel
-// (sem_kernels.cuh) then sums the roll classes into out[0, nb), and
-// far_update reads B for the far classes of a split DSS.  The split costs
-// one extra write and read of the nb exchanged rows (nb = 32 of 81 at
-// p = 8) and keeps every cross-element read out of the product kernel.
-// The RHS of a stack is blockIdx.y in both launches.  Tensor cores are not
-// the route: the tensor form is under the byte bound on the CUDA cores,
-// and a 3xTF32 mma over the assembled K would do 3 x 3.9 GFLOP to stay
-// exact in f32.  No TPU mechanism is carried over: no lane windows or halo
-// triples, no far split in the kernel, no procedural masks, no bf16x3
-// split (the FMAs are true f32).
+// Design at p = 2..8: two launches.  affine_local_kernel computes the product
+// from the 1D derivative D, the weights W and three scales per element (no
+// assembled K): a tile of 32 elements per block, one warp per grid line, each
+// value staged in shared memory feeding M FMAs and each coefficient read from
+// the constant bank (the by-value AffineTables), so neither shared-memory
+// issue nor the flops of the assembled form (6.2x these) set its pace.  3,121
+// blocks of 9 warps at E = 99,856, 800 for one shard's 25,598; the launch
+// bounds hold it to 56 registers, so 4 blocks (36 warps) stay resident per SM
+// (on an H100 the global apply took 0.076 ms at 72 registers and 3 blocks
+// against 0.068 ms; 5 blocks spill).  It writes the element-interior rows
+// [nb, n) of S straight to out and the exchanged rows [0, nb) to the scratch
+// B; dss_gather_kernel (sem_kernels.cuh) then sums the roll classes into
+// out[0, nb), and far_update reads B for the far classes of a split DSS.  The
+// split costs one extra write and read of the nb exchanged rows (nb = 32 of 81
+// at p = 8) and keeps every cross-element read out of the product kernel. The
+// RHS of a stack is blockIdx.y in both launches.  Tensor cores are not the
+// route: the tensor form is under the byte bound on the CUDA cores, and a
+// 3xTF32 mma over the assembled K would do 3 x 3.9 GFLOP to stay exact in f32.
+// No TPU mechanism is carried over: no lane windows or halo triples, no far
+// split in the kernel, no procedural masks, no bf16x3 split (the FMAs are true
+// f32).
+//
+// Design at p = 1 (n = 4, the p-multigrid coarse level): one launch,
+// sem_affine_p1_apply_dss (sem_p1.cuh).  Every node is then a vertex, so
+// the two-launch form would pass the whole product through B.  A block
+// takes a tile of consecutive elements and forms, in shared memory, the
+// products (from the assembled blocks K_c by value, 48 floats, and the
+// three scales) of the elements its sums read, the tile shifted by the
+// plan's deltas; each thread adds its elements' entries from them and
+// writes out once.  The block apply at n = 4 is the same launch with the
+// shard's runtime masks read as bytes.
 //
 // sem_affine_block_apply_dss, the second entry point, replaces
 // make_fused_affine_block_kernel (pallas_kernels.py:1110, pallas_call at
@@ -50,6 +59,7 @@
 #include <cstring>
 
 #include "sem_affine.cuh"
+#include "sem_p1.cuh"
 
 namespace sem {
 
@@ -114,7 +124,7 @@ inline cudaError_t affine_local(const void* u, const void* tables,
 #define SEM_CASE(NN) \
   case NN:           \
     return launch_affine_local<NN>(uf, t, af, of, Bf, E, nb, k, s);
-    SEM_APPLY_FOR_EACH_N(SEM_CASE)
+    SEM_FOR_EACH_N(SEM_CASE)
 #undef SEM_CASE
     default:
       return cudaErrorInvalidValue;
@@ -163,4 +173,25 @@ extern "C" int sem_affine_block_apply_dss(const void* u, const void* tables,
       static_cast<const float*>(B), static_cast<float*>(out),
       static_cast<const int*>(row_ptr), static_cast<const int4*>(entries),
       static_cast<const bool*>(M), n, E, nb, 1, s));
+}
+
+// The size of the p = 1 blocks' table (sem_p1.cuh AffineP1::Tables).
+extern "C" int sem_affine_p1_tables_size() {
+  return static_cast<int>(sizeof(sem::AffineP1::Tables));
+}
+
+// The apply at n = 4 in one launch, for the global apply, its k-stack and
+// a shard's extended block.  u, out: (k * 4, E) f32; tables: host pointer
+// to an AffineP1::Tables; aT: (3, E) f32; masks: (C, E) bool (a block's
+// runtime slice) when bits is null, else bits: (E,) the plan's packed mask
+// words; classes: host pointer to the plan's P1Classes; B: (k, nb, E) f32
+// for the raw rows, or null.  Returns a cudaError_t code (0 on success).
+extern "C" int sem_affine_p1_apply_dss(const void* u, const void* tables,
+                                       const void* aT, const void* masks,
+                                       const void* bits, const void* classes,
+                                       void* out, void* B, int E, int nb,
+                                       int k, void* stream) {
+  return static_cast<int>(sem::launch_p1_apply_dss<sem::AffineP1>(
+      u, tables, aT, masks, bits, classes, out, B, E, nb, k,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -15,24 +15,33 @@
 // 67 TFLOP/s): bound by bytes, the slabs three fifths of them.  A k-stack
 // reads the slabs once per tile for all k: 8 k + 12 B per node.
 //
-// Design: two launches.  general_local_kernel runs the curved product of
-// sem_curved.cuh: a tile of 32 elements per block and M warps, one per
-// grid line, D0, D1 and the node order by value in the constant bank (no
-// per-block table setup), each node's factors copied once into shared
-// memory by cp.async issued before anything else (52 KB of shared memory
-// per block at p = 8).  It writes the element-interior rows [nb, n) of S
-// straight to out and the exchanged rows [0, nb) to the scratch B;
-// dss_gather_kernel (sem_kernels.cuh) then sums the roll classes into
-// out[0, nb), and far_update reads B for the far classes of a split DSS.
-// The RHS of a stack is the fastest index of the grid (block b: tile b / k,
-// RHS b % k), so the k blocks of one tile run together and read its factor
-// slabs (97 MB at p = 8, twice the 50 MB L2) through L2 once; the affine
-// kernels put the RHS in blockIdx.y because they read 1.2 MB of scales.
-// No TPU mechanism is carried over: no lane windows or halo triples, no far
-// split in the kernel, no bf16x3 split (the FMAs are true f32).
+// Design at p = 2..8: two launches.  general_local_kernel runs the curved
+// product of sem_curved.cuh: a tile of 32 elements per block and M warps, one
+// per grid line, D0, D1 and the node order by value in the constant bank (no
+// per-block table setup), each node's factors copied once into shared memory
+// by cp.async issued before anything else (52 KB of shared memory per block at
+// p = 8).  It writes the element-interior rows [nb, n) of S straight to out
+// and the exchanged rows [0, nb) to the scratch B; dss_gather_kernel
+// (sem_kernels.cuh) then sums the roll classes into out[0, nb), and far_update
+// reads B for the far classes of a split DSS. The RHS of a stack is the
+// fastest index of the grid (block b: tile b / k, RHS b % k), so the k blocks
+// of one tile run together and read its factor slabs (97 MB at p = 8, twice
+// the 50 MB L2) through L2 once; the affine kernels put the RHS in blockIdx.y
+// because they read 1.2 MB of scales. No TPU mechanism is carried over: no
+// lane windows or halo triples, no far split in the kernel, no bf16x3 split
+// (the FMAs are true f32).
+//
+// Design at p = 1 (n = 4, the p-multigrid coarse level): one launch,
+// sem_general_p1_apply_dss (sem_p1.cuh).  Every node is then a vertex, so
+// the two-launch form would pass the whole product through B.  A block
+// takes a tile of consecutive elements and forms, in shared memory, the
+// products (from Dh by value, 32 floats, and each element's 12 factors)
+// of the elements its sums read, the tile shifted by the plan's deltas;
+// each thread adds its elements' entries from them and writes out once.
 #include <cstring>
 
 #include "sem_curved.cuh"
+#include "sem_p1.cuh"
 
 namespace sem {
 
@@ -117,7 +126,7 @@ extern "C" int sem_general_apply_dss(const void* u, const void* tables,
   case NN:                                                                  \
     err = sem::launch_general_local<NN>(uf, t, gf, of, Bf, E, nb, k, s);    \
     break;
-    SEM_APPLY_FOR_EACH_N(SEM_CASE)
+    SEM_FOR_EACH_N(SEM_CASE)
 #undef SEM_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -127,4 +136,24 @@ extern "C" int sem_general_apply_dss(const void* u, const void* tables,
       Bf, of, static_cast<const int*>(row_ptr),
       static_cast<const int4*>(entries), static_cast<const bool*>(masks), n,
       E, nb, k, s));
+}
+
+// The size of the p = 1 derivative's table (sem_p1.cuh GeneralP1::Tables).
+extern "C" int sem_general_p1_tables_size() {
+  return static_cast<int>(sizeof(sem::GeneralP1::Tables));
+}
+
+// The apply at n = 4 in one launch.  u, out: (k * 4, E) f32; tables: host
+// pointer to a GeneralP1::Tables; gT: (3, 4, E) f32 lex-order factor
+// slabs; bits: (E,) the plan's packed mask words (masks unused: null);
+// classes: host pointer to the plan's P1Classes; B: (k, nb, E) f32 for
+// the raw rows, or null.  Returns a cudaError_t code (0 on success).
+extern "C" int sem_general_p1_apply_dss(const void* u, const void* tables,
+                                        const void* gT, const void* masks,
+                                        const void* bits, const void* classes,
+                                        void* out, void* B, int E, int nb,
+                                        int k, void* stream) {
+  return static_cast<int>(sem::launch_p1_apply_dss<sem::GeneralP1>(
+      u, tables, gT, masks, bits, classes, out, B, E, nb, k,
+      static_cast<cudaStream_t>(stream)));
 }

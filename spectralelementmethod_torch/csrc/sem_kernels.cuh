@@ -7,12 +7,15 @@
 // The element-local products live in sem_affine.cuh (affine meshes: the
 // tensor-product tile of 32 elements and one warp per grid line) and
 // sem_curved.cuh (curved meshes, the same tile, which the row-major (E, n)
-// element-local kernel, laplacian_local.cu, runs too); no kernel reads an
-// assembled stiffness block.  The direct stiffness summation (DSS) is a second pass,
-// dss_gather_kernel: the product kernels write the exchanged rows [0, nb)
-// of S to a scratch array B, and the gather sums them per roll class from
-// B[src, e + delta] under the class mask.  Masks are false wherever
+// element-local kernel, laplacian_local.cu, runs too); no kernel at
+// p >= 2 reads an assembled stiffness block.  The direct stiffness
+// summation (DSS) is a second pass, dss_gather_kernel: the product kernels
+// write the exchanged rows [0, nb) of S to a scratch array B, and the
+// gather sums them per roll class from B[src, e + delta] under the class
+// mask.  Masks are false wherever
 // e + delta leaves [0, E), and the read is guarded by the range as well.
+// At p = 1 (n = 4) the apply kernels take one launch instead, product and
+// DSS together, from the assembled blocks or Dh by value (sem_p1.cuh).
 //
 // A stack of k right-hand sides is k (n, E) arrays one after the other,
 // (k * n, E); every kernel takes the RHS from blockIdx.y, so the k RHS
@@ -141,15 +144,10 @@ inline cudaError_t launch_dss_gather(const float* B, float* out,
 
 }  // namespace sem
 
-// Element counts n = (p + 1)^2 with a compiled instantiation (p = 2 .. 8).
+// Element counts n = (p + 1)^2 with a compiled instantiation of the
+// tensor-product tile (p = 2 .. 8); the apply kernels' p = 1 (n = 4) is
+// sem_p1.cuh's one-launch form.
 #define SEM_FOR_EACH_N(X) X(9) X(16) X(25) X(36) X(49) X(64) X(81)
-// The apply kernels' (affine_apply_dss.cu, general_apply_dss.cu): p = 1 as
-// well, n = 4, the p-multigrid coarse level.  The tile then has M = 2 warps
-// and every node is a vertex: all four rows are exchanged (nb = 4 on a
-// mesh with more than one element), so the product writes only the scratch
-// B and the gather writes every row of out.
-#define SEM_APPLY_FOR_EACH_N(X) X(4) SEM_FOR_EACH_N(X)
-
 extern "C" const char* sem_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -24,6 +24,12 @@ launches one variant:
 * :func:`affine_block_apply_dss` — the affine apply on one shard's
   halo-extended element block, its scales and class masks runtime operands
   (``make_fused_affine_block_kernel``);
+* at p = 1 (n = 4, the p-multigrid coarse level) each apply above is one
+  launch of the p = 1 kernels (``csrc/sem_p1.cuh``): the element products
+  from the assembled blocks or ``Dh`` by value, formed per tile in shared
+  memory for the windows of deltas its sums read, and the DSS together,
+  with the plan's entries by value (:func:`p1_classes`); with
+  ``aux=True`` the same launch writes the raw rows;
 * :func:`far_update` — adds the far roll classes of a split DSS into an
   apply's output in place (``make_far_update_kernel``);
 * :func:`cg_kernel_a` / :func:`cg_kernel_a_deferred` — the direction half
@@ -88,7 +94,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_HEADERS = ("sem_kernels.cuh", "sem_affine.cuh", "sem_curved.cuh")
+_HEADERS = ("sem_kernels.cuh", "sem_affine.cuh", "sem_curved.cuh",
+            "sem_p1.cuh")
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
@@ -135,11 +142,17 @@ GENERAL_TILE = 32
 #: nodes per element with a compiled instantiation of every kernel:
 #: (p + 1)^2 for p = 2..8 (``SEM_FOR_EACH_N`` in csrc/sem_kernels.cuh)
 SUPPORTED_N = (9, 16, 25, 36, 49, 64, 81)
-#: nodes per element with a compiled instantiation of the apply kernels
-#: (affine_apply_dss, general_apply_dss, their stacks and the block apply,
-#: which shares the affine product): p = 1 as well, the p-multigrid coarse
-#: level (``SEM_APPLY_FOR_EACH_N``)
+#: nodes per element of the apply kernels (affine_apply_dss,
+#: general_apply_dss, their stacks and the block apply): p = 1 as well,
+#: the p-multigrid coarse level, which takes the one-launch p = 1 kernels
+#: (csrc/sem_p1.cuh) instead of the tile
 APPLY_N = (4,) + SUPPORTED_N
+#: the p = 1 kernels' class table (csrc/sem_p1.cuh): the most windows,
+#: products in shared memory and entries (``kP1MaxWindows``, ``kP1Slots``,
+#: ``kP1MaxEntries``), and the tile sizes an apply of one RHS and of a
+#: stack takes, the first whose windows fit
+P1_MAX_WINDOWS, P1_SLOTS, P1_MAX_ENTRIES = 8, 3072, 32
+P1_TILES, P1_TILES_STACK = (256,), (1024, 512, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -162,10 +175,15 @@ _SIGNATURES = {
     + [_I, _P],
     "sem_laplacian_local_occupancy": [_I] * 3 + [_P],
     "sem_affine_block_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
+    "sem_affine_p1_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
+    "sem_general_p1_apply_dss": [_P] * 8 + [_I] * 3 + [_P],
     "sem_far_update": [_P] * 4 + [_I, _P],
     "sem_affine_tables_size": [],
     "sem_general_tables_size": [],
     "sem_far_tables_size": [],
+    "sem_p1_classes_size": [],
+    "sem_affine_p1_tables_size": [],
+    "sem_general_p1_tables_size": [],
 }
 #: the partial sums of the single-kernel iteration, their columns in order
 SINGLE_PARTS = ("denom", "c1", "c2", "e1", "e2")
@@ -239,7 +257,13 @@ def _lib(source: str) -> ctypes.CDLL:
                 ("sem_general_tables_size", _GENERAL_TABLES,
                  "GeneralTables (csrc/sem_curved.cuh)"),
                 ("sem_far_tables_size", _FAR_TABLES,
-                 "FarTables (csrc/far_update.cu)")):
+                 "FarTables (csrc/far_update.cu)"),
+                ("sem_p1_classes_size", _P1_CLASSES,
+                 "P1Classes (csrc/sem_p1.cuh)"),
+                ("sem_affine_p1_tables_size", _AFFINE_P1_TABLES,
+                 "AffineP1::Tables (csrc/sem_p1.cuh)"),
+                ("sem_general_p1_tables_size", _GENERAL_P1_TABLES,
+                 "GeneralP1::Tables (csrc/sem_p1.cuh)")):
             if hasattr(lib, fn) and getattr(lib, fn)() != dt.itemsize:
                 raise RuntimeError(f"the layout of {what} differs from "
                                    "ops/kernels.py's")
@@ -411,6 +435,9 @@ class AffineFactors:
         self.tables["D"][:n] = self.D.ravel()
         self.tables["W"][:n] = self.W
         self.tables["row"][:n] = np.argsort(hier)
+        #: the p = 1 kernel's operand (n = 4 only): the blocks K_c
+        self.p1_tables = (np.ascontiguousarray(self.Kst, np.float32)
+                          if n == 4 else None)
 
 
 def _require_factors(factors, Kst: torch.Tensor, what: str) -> int:
@@ -432,7 +459,7 @@ def _require_factors(factors, Kst: torch.Tensor, what: str) -> int:
             raise ValueError(f"{what}: Kst is not the blocks K_c of the "
                              "given factors")
         Kst._affine_factors_checked = key
-    return factors.tables.ctypes.data
+    return _operand(factors)
 
 
 # -- the curved kernels' operand: Dhat in tensor-product form ----------------
@@ -482,6 +509,9 @@ class GeneralFactors:
         self.tables["D0t"][:n] = D0.T.ravel()
         self.tables["D1t"][:n] = D1.T.ravel()
         self.tables["row"][:n] = np.argsort(hier)
+        #: the p = 1 kernel's operand (n = 4 only): Dh itself
+        self.p1_tables = (np.ascontiguousarray(Dh, np.float32)
+                          if n == 4 else None)
 
 
 def _require_general_factors(factors, Dh: torch.Tensor, hier: torch.Tensor,
@@ -507,10 +537,142 @@ def _require_general_factors(factors, Dh: torch.Tensor, hier: torch.Tensor,
             raise ValueError(f"{what}: Dh and hier are not those of the "
                              "given factors")
         Dh._general_factors_checked = key
-    return factors.tables.ctypes.data
+    return _operand(factors)
+
+
+def _operand(factors) -> int:
+    """The host pointer of the by-value table the kernels read at
+    ``factors.n``: the p = 1 kernels' at n = 4, else the tile's."""
+    return (factors.p1_tables if factors.n == 4
+            else factors.tables).ctypes.data
 
 
 # -- kernel 1: the operator apply ---------------------------------------------
+
+#: the by-value class table of the p = 1 kernels (``P1Classes`` in
+#: csrc/sem_p1.cuh)
+_P1_CLASSES = np.dtype([("tile", "<i4"), ("n_windows", "<i4"),
+                        ("lo", "<i4", (P1_MAX_WINDOWS,)),
+                        ("base", "<i4", (P1_MAX_WINDOWS + 1,)),
+                        ("n_entries", "<i4"), ("own_slot", "<i4"),
+                        ("delta", "<i4", (P1_MAX_ENTRIES,)),
+                        ("slot", "<u2", (P1_MAX_ENTRIES,)),
+                        ("mask", "<u2", (P1_MAX_ENTRIES,)),
+                        ("bit", "u1", (P1_MAX_ENTRIES,)),
+                        ("dst", "u1", (P1_MAX_ENTRIES,)),
+                        ("src", "u1", (P1_MAX_ENTRIES,))], align=True)
+#: the p = 1 kernels' operands (``AffineP1::Tables``,
+#: ``GeneralP1::Tables``): the blocks K_c (3, 4, 4) and Dh (8, 4), float32
+_AFFINE_P1_TABLES = np.dtype([("K", "<f4", (3, 4, 4))])
+_GENERAL_P1_TABLES = np.dtype([("Dh", "<f4", (8, 4))])
+
+
+def _p1_windows(deltas, tile: int):
+    """The windows of a tile of ``tile`` elements for the sorted
+    ``deltas``: ``(lo, hi)`` pairs, a tile's window holding the products
+    of its elements shifted by lo .. hi (elements [b0 + lo, b0 + hi +
+    tile)); deltas whose element ranges overlap or touch share one."""
+    win = []
+    for d in deltas:
+        if win and d <= win[-1][1] + tile:
+            win[-1][1] = d
+        else:
+            win.append([d, d])
+    return win
+
+
+def p1_classes(plan: DSSPlan, tiles=P1_TILES) -> np.ndarray:
+    """The p = 1 kernels' by-value class table of ``plan``: every entry
+    ``(dst_row, src_row, delta, mask_index)`` of the plan once, in its CSR
+    order (by destination row, the plan's order within a row: the order of
+    :func:`.roll_dss_T`'s sums), each entry's bit in the packed mask words
+    (:func:`p1_mask_words`), and the windows of products a tile forms in
+    shared memory (:func:`_p1_windows` of the plan's deltas and 0), for
+    the first tile size of ``tiles`` whose windows fit :data:`P1_SLOTS`
+    products.  Built once per plan and ``tiles``, and kept on the plan.
+    Raises ``ValueError`` for a plan whose n is not 4, beyond
+    :data:`P1_MAX_ENTRIES` entries, or when no tile fits."""
+    tiles = tuple(int(T) for T in tiles)
+    cache = plan.__dict__.setdefault("_p1_classes", {})
+    if tiles in cache:
+        return cache[tiles]
+    if plan.n != 4:
+        raise ValueError(f"the p = 1 class table is for n = 4, not {plan.n}")
+    # (src, delta, mask, dst) in CSR order
+    ent = plan.entries.cpu().numpy()[:plan.n_entries]
+    if len(ent) > P1_MAX_ENTRIES or (len(ent) and ent[:, 2].max() > 65535):
+        raise ValueError(f"the plan has {len(ent)} entries; the p = 1 "
+                         f"kernels take at most {P1_MAX_ENTRIES}, with mask "
+                         "rows below 65,536")
+    deltas = sorted({0, *ent[:, 1].tolist()})
+    for T in tiles:
+        win = _p1_windows(deltas, T)
+        size = sum(hi - lo + T for lo, hi in win)
+        if len(win) <= P1_MAX_WINDOWS and size <= P1_SLOTS:
+            break
+    else:
+        raise ValueError(f"the plan's deltas {deltas} need more than "
+                         f"{P1_SLOTS} products in {P1_MAX_WINDOWS} windows "
+                         f"for a tile of {T}: the p = 1 kernels' limit")
+    base = np.cumsum([0] + [hi - lo + T for lo, hi in win])
+    rows = _p1_mask_rows(plan)
+
+    def slot(d):
+        w = next(i for i, (lo, hi) in enumerate(win) if lo <= d <= hi)
+        return base[w] + d - win[w][0]
+
+    t = np.zeros((), _P1_CLASSES)
+    t["tile"], t["n_windows"], t["n_entries"] = T, len(win), len(ent)
+    t["lo"][:len(win)] = [lo for lo, _ in win]
+    t["base"][:len(win) + 1] = base
+    t["own_slot"] = slot(0)
+    for i, (src, delta, mask, dst) in enumerate(ent.tolist()):
+        t["slot"][i], t["delta"][i], t["mask"][i] = slot(delta), delta, mask
+        t["bit"][i], t["src"][i], t["dst"][i] = rows.index(mask), src, dst
+    cache[tiles] = t
+    return t
+
+
+def _p1_mask_rows(plan: DSSPlan) -> list:
+    """The class-mask rows the plan's entries read, in order: row
+    ``rows[b]`` is bit b of the packed mask words (at most 32, as the
+    entries)."""
+    return sorted(set(plan.entries.cpu().numpy()[:plan.n_entries, 2]
+                      .tolist()))
+
+
+def p1_mask_words(plan: DSSPlan) -> torch.Tensor:
+    """The packed class masks of ``plan`` for the p = 1 kernels: (E,)
+    int32 on the plan's device, bit b of element e's word the mask row
+    :func:`_p1_mask_rows` ``[b]`` at e.  Built once per plan (its masks are
+    static) and kept on it."""
+    w = getattr(plan, "_p1_mask_words", None)
+    if w is None:
+        m = plan.masks.cpu().numpy()[_p1_mask_rows(plan)].astype(np.uint64)
+        words = (m << np.arange(len(m), dtype=np.uint64)[:, None]).sum(0)
+        w = plan._p1_mask_words = torch.as_tensor(
+            words.astype(np.uint32).view(np.int32), device=plan.device)
+    return w
+
+
+def _launch_p1(lib, fn, what, uT, tables, coef, masks, plan, k: int,
+               aux: bool):
+    """One launch of a p = 1 apply (``fn`` of ``lib``) on CUDA tensors:
+    (out, B), B the (k, nb, E) raw rows when ``aux``, else None.  ``masks``
+    None: the plan's own, as packed words; else a (C, E) bool runtime
+    operand."""
+    dev, E = uT.device, uT.shape[-1]
+    out = torch.empty_like(uT)
+    B = (torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32,
+                     device=dev) if aux else None)
+    words = p1_mask_words(plan) if masks is None else None
+    cls = p1_classes(plan, P1_TILES if k == 1 else P1_TILES_STACK)
+    rc = fn(_ptr(uT), tables, _ptr(coef), _ptr(masks), _ptr(words),
+            cls.ctypes.data, _ptr(out), _ptr(B), E, plan.nb, k,
+            _stream(dev))
+    _check(lib, rc, f"{what} (n=4, E={E}, k={k})")
+    return out, B
+
 
 def _with_aux(S, plan: DSSPlan, aux: bool):
     """The roll-class DSS of the local product ``S``, and with ``aux`` the
@@ -531,9 +693,9 @@ def affine_apply_dss_batched_plain(uT, Kst, aT, plan: DSSPlan):
     return affine_apply_dss_plain(u3, Kst, aT, plan).reshape(uT.shape)
 
 
-def _launch_apply(uT, Kst, aT, plan, k: int, factors):
+def _launch_apply(uT, Kst, aT, plan, k: int, factors, aux: bool = False):
     """The apply on CUDA tensors: (out, B), B the (k, nb, E) scratch of raw
-    exchanged rows."""
+    exchanged rows (at n = 4 one launch, B only with ``aux``)."""
     dev = _cuda_device(uT)
     _check_plan(plan, dev)
     n, E = Kst.shape[-1], uT.shape[-1]
@@ -543,9 +705,13 @@ def _launch_apply(uT, Kst, aT, plan, k: int, factors):
     _require(Kst, "Kst", f32, (3, n, n), dev)
     _require(aT, "aT", f32, (3, E), dev)
     tables = _require_factors(factors, Kst, "affine_apply_dss")
+    lib = _lib(_APPLY)
+    if n == 4:
+        return _launch_p1(lib, lib.sem_affine_p1_apply_dss,
+                          "affine_apply_dss", uT, tables, aT, None, plan, k,
+                          aux)
     out = torch.empty_like(uT)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    lib = _lib(_APPLY)
     rc = lib.sem_affine_apply_dss(
         _ptr(uT), tables, _ptr(aT), _ptr(out), _ptr(B),
         _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
@@ -566,7 +732,9 @@ def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
     the :class:`AffineFactors` of ``Kst`` (required there: checked once
     against ``Kst``; the plain version reads ``Kst``).  ``aux=True``
     returns ``(out, aux)``, ``aux`` (nb, E) the raw (pre-DSS) exchanged
-    rows of the product, which :func:`far_update` reads.
+    rows of the product, which :func:`far_update` reads.  At n = 4 the
+    kernel is one launch, product and DSS together (csrc/sem_p1.cuh), with
+    or without ``aux``.
     """
     if uT.device.type == "cpu":
         _check_plan(plan, None)
@@ -574,7 +742,7 @@ def affine_apply_dss(uT: torch.Tensor, Kst: torch.Tensor, aT: torch.Tensor,
     if uT.dim() != 2 or uT.shape[0] != Kst.shape[-1]:
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Kst.shape[-1]}, E)")
-    out, B = _launch_apply(uT, Kst, aT, plan, 1, factors)
+    out, B = _launch_apply(uT, Kst, aT, plan, 1, factors, aux)
     _count(affine_apply_dss, Kst.shape[-1])
     return (out, B[0, :plan.nb]) if aux else out
 
@@ -917,7 +1085,8 @@ def general_apply_dss_batched_plain(uT, gT, Dh, hier, plan: DSSPlan):
     return general_apply_dss_plain(u3, gT, Dh, hier, plan).reshape(uT.shape)
 
 
-def _launch_general_apply(uT, gT, Dh, plan, k: int, tables: int):
+def _launch_general_apply(uT, gT, Dh, plan, k: int, tables: int,
+                          aux: bool = False):
     """The general apply on CUDA tensors: (out, B) as in
     :func:`_launch_apply`; ``tables`` the host pointer
     :func:`_require_general_factors` gave."""
@@ -928,9 +1097,13 @@ def _launch_general_apply(uT, gT, Dh, plan, k: int, tables: int):
     f32 = (torch.float32,)
     _require(uT, "uT", f32, (k * n, E), dev)
     _require(gT, "gT", f32, (3, n, E), dev)
+    lib = _lib(_GEN_APPLY)
+    if n == 4:
+        return _launch_p1(lib, lib.sem_general_p1_apply_dss,
+                          "general_apply_dss", uT, tables, gT, None, plan, k,
+                          aux)
     out = torch.empty_like(uT)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    lib = _lib(_GEN_APPLY)
     rc = lib.sem_general_apply_dss(
         _ptr(uT), tables, _ptr(gT), _ptr(out), _ptr(B),
         _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
@@ -963,7 +1136,7 @@ def general_apply_dss(uT: torch.Tensor, gT: torch.Tensor, Dh: torch.Tensor,
     if uT.dim() != 2 or uT.shape[0] != Dh.shape[1]:
         raise ValueError(f"uT has shape {tuple(uT.shape)}; expected "
                          f"({Dh.shape[1]}, E)")
-    out, B = _launch_general_apply(uT, gT, Dh, plan, 1, tables)
+    out, B = _launch_general_apply(uT, gT, Dh, plan, 1, tables, aux)
     _count(general_apply_dss, Dh.shape[1])
     return (out, B[0, :plan.nb]) if aux else out
 
@@ -1157,15 +1330,20 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
                          f"{block_plan.n_classes} classes; got E={E} and "
                          f"{M_ext.shape[0]} mask rows")
     tables = _require_factors(factors, Kst, "affine_block_apply_dss")
-    out = torch.empty_like(uT_ext)
-    B = torch.empty((max(block_plan.nb, 1), E), dtype=torch.float32,
-                    device=dev)
     lib = _lib(_APPLY)
-    rc = lib.sem_affine_block_apply_dss(
-        _ptr(uT_ext), tables, _ptr(aT_ext), _ptr(M_ext), _ptr(out),
-        _ptr(B), _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n, E,
-        block_plan.nb, _stream(dev))
-    _check(lib, rc, f"affine_block_apply_dss (n={n}, E={E})")
+    if n == 4:
+        out, _ = _launch_p1(lib, lib.sem_affine_p1_apply_dss,
+                            "affine_block_apply_dss", uT_ext, tables, aT_ext,
+                            M_ext, block_plan, 1, False)
+    else:
+        out = torch.empty_like(uT_ext)
+        B = torch.empty((max(block_plan.nb, 1), E), dtype=torch.float32,
+                        device=dev)
+        rc = lib.sem_affine_block_apply_dss(
+            _ptr(uT_ext), tables, _ptr(aT_ext), _ptr(M_ext), _ptr(out),
+            _ptr(B), _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n,
+            E, block_plan.nb, _stream(dev))
+        _check(lib, rc, f"affine_block_apply_dss (n={n}, E={E})")
     _count(affine_block_apply_dss, Kst.shape[-1])
     return out
 

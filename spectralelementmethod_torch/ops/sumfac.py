@@ -791,7 +791,11 @@ def ne_backend(exchange, dtype, n: int, device,
     compiled for its n (:data:`.kernels.APPLY_N`): without one it raises
     ``NotImplementedError``, whichever of ``"auto"`` and ``"fused"`` chose
     it (the reference's rule has no such limit, so ``"auto"`` does not
-    turn to ``"xla"`` for it)."""
+    turn to ``"xla"`` for it).  For an exchange of p = 1 elements (4 nodes
+    each) it builds the p = 1 kernels' class tables of the exchange's plan
+    (:func:`.kernels.p1_classes`, one RHS and stacks) here, so a plan
+    beyond their limits raises ``ValueError`` when the operator is built
+    and not at its first apply."""
     if backend not in NE_BACKENDS:
         raise ValueError(f"unknown backend {backend!r} for the 'ne' layout")
     if backend == "xla":
@@ -816,6 +820,10 @@ def ne_backend(exchange, dtype, n: int, device,
             f"no apply kernel instantiation for n={n} nodes per element "
             f"(compiled: {kernels.APPLY_N}); backend='xla' runs the plain "
             "product")
+    if torch.device(device).type == "cuda" and exchange.n_loc == 4:
+        plan = exchange.plan("cpu")
+        for tiles in (kernels.P1_TILES, kernels.P1_TILES_STACK):
+            kernels.p1_classes(plan, tiles)
     return "fused"
 
 

@@ -264,6 +264,10 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     dev = mesh.device
     view = _BlockExchangeView(ex, Eext)
     block_plan = view.plan(dev)
+    if dev.type == "cuda" and n == 4:
+        # a plan beyond the p = 1 kernel's limits raises here, not at the
+        # first apply
+        kernels.p1_classes(block_plan)
 
     Kcat = np.asarray(Kcat, dtype=np.float64)
     Kst = torch.as_tensor(np.stack([Kcat[:, c * n:(c + 1) * n]
