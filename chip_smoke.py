@@ -85,7 +85,19 @@ Phases (any failure exits non-zero and prints no result line):
    batches of both meshes, every level of each V-cycle on the apply
    kernels; and a float64 model with
    the float32 cycle to 1e-10 against its manufactured solution through
-   the "xla" outer apply;
+   the "xla" outer apply; (3r) ``solve_local(tol=1e-6, precond="pmg",
+   certify=True)`` (the float64-certified solve) twice on the rectangle
+   and on the annulus: converged and not stalled, the float64 iterate's
+   true residual recomputed by a float64 operator built here at most 1.05
+   tol of ``||b_hi||_w``, the repeat call bit for bit, the rectangle's
+   iterations within 27 +- 5 of at most 128 issued (the reference's arm),
+   its warm and timed seconds, setup stages, one profile of the whole
+   schedule and the float64 anchor's time; certify on a float64 model (the
+   plain solve, no kernel); one certified call at 1,048,576 elements
+   (``rectangle_mesh(1024, 1024, 8)``: converged, the recomputed
+   residual, setup seconds); ``Poisson.solve`` with and without
+   ``host_loop`` and ``solve_local(host_loop=True)`` on a float64
+   manufactured problem;
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -117,6 +129,7 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 NX = NY = 316          # E = 99,856: the reference bench's default 100k mesh
+NX_1M = 1024           # E = 1,048,576: the reference's 1M cell (phase 3r)
 ORDER = 8
 # the curved path: the reference's isoparametric half-annulus with every
 # node polar-exact, 632 x 158 = 99,856 elements (cell aspect 1.3-1.6)
@@ -1796,6 +1809,7 @@ def main() -> int:
     r0_64 = true64(u_d64)
     rep_rel = float(sol.cg.residual_norm) / r0_64
     true_rel64 = true64(sol.u) / r0_64
+    u_pmg_rect = sol.u              # phase 3r evaluates it once more
     check(A64._backend == "xla", "the float64 residual operator is 'xla'")
     log(f"  pmg-rect: {its} iterations (reference {PMG_ITS}), reported "
         f"relative residual {rep_rel:.3e}, true (float64-evaluated) "
@@ -1896,6 +1910,200 @@ def main() -> int:
     solves["pmg-f64@1e-10"] = dict(iterations=int(sol.cg.iterations),
                                    issued=sol.cg.issued, seconds=dt,
                                    l2_error=l2)
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
+    # -- 3r. the float64-certified solve ------------------------------------
+    # the reference's converged arm (bench.py: solve_local(tol=1e-6,
+    # precond="pmg", certify=True), a warm call and a timed one) on the
+    # rectangle and the annulus; each solution's float64 true residual is
+    # recomputed here by a float64 "xla" operator of the same factor values,
+    # built apart from the solve's cached one; then certify on a float64
+    # model (a no-op: no kernel), and the global-vector entry points
+    log(f"[3r] solve_local(certify=True), precond='pmg', tol {TOL_PMG:g} "
+        f"{at()}")
+
+    def cert_check_fns(prob_, ctx_):
+        """(true residual of a global u or an (n, E) float64 L-vector,
+        ||b_hi||_w, the lift as a float64 L-vector, the operator's backend),
+        float64, from an operator of the certified system's factor values
+        (the rank-1 field a (x) W on an affine mesh, else the float32
+        factors upcast)."""
+        ex_, d_ = ctx_["ex"], prob_.disc
+        G32 = prob_._G_host.reshape(d_.E, 3, -1)
+        W = np.asarray(d_.basis.weight_grid(), np.float64).reshape(-1)
+        a_, exact = sumfac.affine_factorization(G32, W)
+        G64 = a_[:, :, None] * W if exact else G32.astype(np.float64)
+        A_ = sumfac.make_local_laplacian_operator(
+            ex_, G64, np.asarray(ctx_["Dhat"], np.float64), None, device=dev,
+            backend="xla")
+        w_ = ex_.weights_T(torch.float32, dev)
+        free_ = ctx_["free_local"]
+
+        def tl64(u):
+            return torch.as_tensor(ex_.local_T_from_global(
+                np.asarray(u, np.float64)), device=dev)
+
+        b_ = tl64(np.asarray(prob_._b, np.float64) + prob_._neumann)
+
+        def true_res(u):
+            uL = u if isinstance(u, torch.Tensor) else tl64(u)
+            rt = torch.where(free_, b_ - A_(uL), 0.0)
+            return float(torch.sqrt(torch.sum(w_ * rt * rt)))
+
+        u_dL = tl64(np.where(prob_._dirichlet_mask, prob_._dirichlet_vals,
+                             0.0))
+        return true_res, true_res(u_dL), u_dL, A_._backend
+
+    def cert_cell(name, prob_, ctx_, calls=2, pmg_key=None):
+        """``calls`` certified solves of one problem (a warm call, then a
+        timed one, as bench.py), checked and logged; returns the last
+        solution, its check functions and the segments it ran."""
+        true_res, bnorm, u_dL64, be64 = cert_check_fns(prob_, ctx_)
+        stages.snapshot(reset=True)
+        runs_ = [drive(name, lambda: prob_.solve_local(
+            tol=TOL_PMG, precond="pmg", certify=True)) for _ in range(calls)]
+        setup = {st: round(v, 3) for st, v in stages.snapshot(reset=True)
+                 .items() if v >= 0.001}
+        (sol0, dt0), (sol, dt) = runs_[0], runs_[-1]
+        res = sol.cg
+        rel = true_res(sol.u) / bnorm
+        # the solver's float64 L-vector iterate, before the model-dtype
+        # rounding and the global field's one copy per node
+        rel_x = true_res(u_dL64 + res.x) / bnorm
+        same = (np.array_equal(sol0.u, sol.u)
+                and bool(torch.equal(sol0.cg.x, res.x)))
+        ran = int(np.searchsorted(np.cumsum((64, 32, 32, 64)), res.issued)
+                  + 1)
+        pmg_setup = solves[pmg_key]["setup_stages_s"] if pmg_key else {}
+        by_n = {w: c for w, c in launches[name].items() if c}
+        solves[f"{name}@{TOL_PMG:g}"] = dict(
+            converged=res.converged, stalled=res.stalled,
+            iterations=res.iterations, issued=res.issued, segments_run=ran,
+            cycle_resnorms=list(res.cycle_resnorms),
+            reported_rel=res.residual_norm / bnorm, true_rel_f64=rel,
+            true_rel_f64_of_x=rel_x, bit_for_bit=same, seconds_warm=dt0,
+            seconds=dt, setup_stages_s=setup, pmg_setup_stages_s=pmg_setup,
+            launches_by_n={w: {str(n_): c for n_, c in d.items()}
+                           for w, d in by_n.items()})
+        log(f"  {name}: converged {res.converged}, stalled {res.stalled}, "
+            f"its {res.iterations} / {res.issued} issued (the reference: 27 "
+            f"/ 128), {ran} segments; cycle_resnorms "
+            f"{[float(f'{v:.3e}') for v in res.cycle_resnorms]} (the "
+            f"reference: 2.2e-3, 8.6e-5, 1.03e-5, 1.03e-5 on the rectangle); "
+            f"reported {res.residual_norm / bnorm:.3e} relative, true "
+            f"float64 {rel:.3e} of u ({rel_x:.3e} of the float64 iterate), "
+            f"against tol {TOL_PMG:g} x ||b_hi||_w = {TOL_PMG * bnorm:.4e} "
+            f"({be64} operator); {calls} calls: first {dt0:.3f} s, last "
+            f"{dt:.3f} s; setup stages {setup}, pmg-build in 3p "
+            f"{pmg_setup.get('precond/pmg-build')}; launches {by_n}")
+        check(res.converged and not res.stalled,
+              f"{name}: converged, not stalled")
+        check(rel_x <= 1.05 * TOL_PMG,
+              f"{name}: the float64 iterate's recomputed true residual "
+              f"{rel_x:.3e} <= 1.05 x {TOL_PMG:g} of ||b_hi||_w")
+        if calls > 1:
+            check(same, f"{name}: the repeat call is bit for bit the first")
+        check(bool(np.isfinite(sol.u).all()) and sol.u.dtype == np.float32
+              and sol.u.size == prob_.disc.n_nodes,
+              f"{name}: a finite float32 solution of the mesh's shape")
+        return res, true_res, bnorm, ran
+
+    res, true_res, bnorm, ran = cert_cell("cert-rect", prob, ctx,
+                                          pmg_key=f"pmg-rect@{TOL_PMG:g}")
+    check(res.issued <= 128 and abs(res.iterations - 27) <= 5,
+          f"cert-rect: {res.iterations} iterations within 27 +- 5, "
+          f"{res.issued} issued <= 128")
+    r_cert = solves[f"cert-rect@{TOL_PMG:g}"]["true_rel_f64"]
+    r_unc = true_res(u_pmg_rect) / bnorm
+    solves[f"cert-rect@{TOL_PMG:g}"].update(
+        uncertified_true_rel_f64=r_unc, uncertified_true_rel_f64_3p=true_rel64)
+    log(f"  cert-rect: true float64 residual of u: certified {r_cert:.3e}, "
+        f"uncertified pmg (3p) {r_unc:.3e} against this operator, "
+        f"{true_rel64:.3e} against 3p's upcast one")
+    # where the certified solve's time goes: all four segments (tol 0 runs
+    # the whole schedule), and one float64 anchor timed
+    A_hi = prob._op_cache[("A_hi", "ne", str(dev))]
+    _, r_hi = prob._bc_cache[str(dev)]
+    xs = [(torch.where(ctx["free_local"], torch.randn(
+        (n, E), generator=g, device=dev, dtype=torch.float64), 0.0),)
+        for _ in range(3)]
+    anchor_ms = gpu_ms(lambda x: torch.sum(w_m * (r_hi - A_hi(x)) ** 2), xs,
+                       reps=10)
+    prof = profile_solve("cert-rect", functools.partial(
+        prob.solve_local, precond="pmg", certify=True), 192)
+    solves[f"cert-rect@{TOL_PMG:g}"].update(
+        profile_192=prof, anchor_ms=anchor_ms, anchors_per_solve=ran)
+    log(f"  cert-rect: a float64 anchor (apply of A_hi and the weighted norm) "
+        f"{anchor_ms:.4f} ms device, {ran} per solve ({ran * anchor_ms:.3f} "
+        f"ms), 4 in the 192-iteration profile")
+    del xs, A_hi, r_hi
+    cert_cell("cert-annulus", aprob, actx, pmg_key=f"pmg-annulus@{TOL_PMG:g}")
+
+    # the reference's unmet goal (VERDICT.md): a certified converged solve
+    # at 1,048,576 elements; one call, and the setup seconds of the mesh,
+    # the discretization, the model and its operators beside it
+    t1m = {}
+    t0 = time.perf_counter()
+    m1m = rectangle_mesh(NX_1M, NX_1M, ORDER)
+    t1m["mesh"] = time.perf_counter() - t0
+    d1m = Discretization(m1m, gll_basis_2d(ORDER))
+    t1m["discretization"] = time.perf_counter() - t0 - sum(t1m.values())
+    p1m = Poisson(d1m, dtype=np.float32)
+    p1m.set_dirichlet("ebc", lambda x, y: 0.2 * ((x + 1) + (y + 1)))
+    t1m["model"] = time.perf_counter() - t0 - sum(t1m.values())
+    c1m = p1m._local_setup(dev)
+    torch.cuda.synchronize()
+    t1m["operators"] = time.perf_counter() - t0 - sum(t1m.values())
+    torch.cuda.reset_peak_memory_stats()
+    cert_cell("cert-1m", p1m, c1m, calls=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    solves[f"cert-1m@{TOL_PMG:g}"].update(E=d1m.E, setup_s=t1m,
+                                         peak_device_gib=peak)
+    log(f"  cert-1m: E = {d1m.E}, setup before the call "
+        f"{ {k_: round(v, 2) for k_, v in t1m.items()} } s, peak device "
+        f"memory {peak:.2f} GiB {at()}")
+    del m1m, d1m, p1m, c1m
+    torch.cuda.empty_cache()
+
+    # certify on a float64 model does nothing: the plain solve, bit for
+    # bit, through the "xla" operator, no kernel launched
+    xp = Poisson(Discretization(rectangle_mesh(16, 16, ORDER),
+                                gll_basis_2d(ORDER)), dtype=np.float64)
+    xp.set_dirichlet("ebc", lambda x, y: 0.1 * (x + y))
+    sol_c, dt = drive("cert-f64", lambda: xp.solve_local(tol=1e-10,
+                                                         certify=True))
+    sol_p = xp.solve_local(tol=1e-10)
+    n_l = sum(totals("cert-f64").values())
+    log(f"  cert-f64: {int(sol_c.cg.iterations)} its, {dt:.3f} s, "
+        f"cycle_resnorms {sol_c.cg.cycle_resnorms}, {n_l} kernel launches")
+    check(np.array_equal(sol_c.u, sol_p.u) and sol_c.cg.cycle_resnorms == ()
+          and n_l == 0 and bool(sol_c.cg.converged),
+          "cert-f64: certify on a float64 model is the plain solve, bit for "
+          "bit, with no kernel launched")
+
+    # the global-vector entry points on a small float64 rectangle with the
+    # manufactured u = 0.1 (x + y) (Dirichlet + Neumann), phase 4's bar
+    gp = Poisson(Discretization(rectangle_mesh(16, 16, ORDER),
+                                gll_basis_2d(ORDER)), forcing=0.0,
+                 dtype=np.float64)
+    gp.set_dirichlet("ebc", lambda x, y: 0.1 * (x + y))
+    gp.set_neumann("nbc", 0.1)
+    gx, gy = gp.x_nodes
+    for name, fn in (("global-solve", lambda: gp.solve(tol=1e-10)),
+                     ("global-solve-host", lambda: gp.solve(
+                         tol=1e-10, host_loop=True)),
+                     ("local-host", lambda: gp.solve_local(
+                         tol=1e-10, host_loop=True))):
+        sol_g, dt = drive(name, fn)
+        err = gp.l2_error(sol_g.u, lambda x, y: 0.1 * (x + y))
+        n_l = sum(totals(name).values())
+        err_max = np.abs(sol_g.u - 0.1 * (gx + gy)).max()
+        log(f"  {name}: {int(sol_g.cg.iterations)} its, {dt:.3f} s, l2 "
+            f"error {err:.3e}, max {err_max:.3e}, {n_l} kernel launches")
+        solves[f"{name}@1e-10"] = dict(iterations=int(sol_g.cg.iterations),
+                                       seconds=dt, l2_error=err)
+        check(bool(sol_g.cg.converged) and err < 1e-4,
+              f"{name}: converged, l2 error below 1e-4")
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
     # -- 4. manufactured solutions --------------------------------------------

@@ -124,10 +124,6 @@ class Helmholtz(BoundaryConditionMixin):
                 gix=torch.as_tensor(self.disc.gather_nodes, device=device))
         return st
 
-    def _vec(self, u, device) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(u) if not isinstance(
-            u, torch.Tensor) else u, device=device).to(torch_dtype(self.dtype))
-
     def apply_operator(self, u, device=None) -> torch.Tensor:
         """(A + k M) u on a global (n_nodes,) vector, matrix-free."""
         dev = resolve_device(device)

@@ -17,9 +17,12 @@ the two-level p-multigrid (``precond="pmg"`` or ``{"pmg": {...}}``,
 :mod:`..solver.pmg`) preconditioners, ``cg_kernel`` in {``auto``,
 ``plain``, ``fused``, ``fused1``}, ``p_dtype`` in {None,
 ``torch.bfloat16``}, ``defer_x`` (affine meshes), the transposed (n, E)
-layout.  Not yet: 3D, the fdm preconditioner, ``certify``, ``host_loop``,
-``compute_dtype``, the ``en`` layout (ROADMAP queues); the signatures are
-the reference's all the same, and those options raise.
+layout, ``host_loop``, the float64-certified solve (``certify=True``,
+:func:`..solver.cg.cg_refined_static`), and the global-vector
+:meth:`Poisson.apply_operator` and :meth:`Poisson.solve`.  Not yet: 3D,
+the fdm preconditioner, ``compute_dtype``, the ``en`` layout (ROADMAP
+queues); the signatures are the reference's all the same, and those
+options raise.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from ..config import resolve_device, torch_dtype
 from ..core.discretization import Discretization
 from ..ops import sumfac
 from ..solver.cg import (CGResult, auto_defer_x, auto_defer_x_batched, cg,
-                         cg_batched, cg_fused, cg_fused_batched,
-                         hbm_residency_regime, jacobi_preconditioner)
+                         cg_batched, cg_fused, cg_fused_batched, cg_host,
+                         cg_refined_static, hbm_residency_regime,
+                         jacobi_preconditioner)
 
 
 class PoissonSolution(NamedTuple):
@@ -72,14 +76,10 @@ def fused_cg_operands(diagT, freeT, wT, p_dtype, device):
     return inv, w_free
 
 
-def _check_unported(host_loop=False, precond="jacobi", compute_dtype=None,
-                    vector_layout="auto", certify=False) -> None:
+def _check_unported(precond="jacobi", compute_dtype=None,
+                    vector_layout="auto") -> None:
     """Raise for the reference's ``solve_local`` options the port has not
     taken up yet, each naming its ROADMAP item."""
-    if host_loop:
-        raise NotImplementedError(
-            "host_loop=True is not ported for Poisson yet (ROADMAP Queue 1 "
-            "item 15)")
     if isinstance(precond, str) and precond == "fdm":
         raise NotImplementedError(
             "precond='fdm' is not ported yet (ROADMAP Queue 1 item 8)")
@@ -95,9 +95,6 @@ def _check_unported(host_loop=False, precond="jacobi", compute_dtype=None,
             "(n, E) 'ne' layout only (ROADMAP Queue 1 item 15)")
     if vector_layout not in ("auto", "ne"):
         raise ValueError(f"unknown vector_layout {vector_layout!r}")
-    if certify:
-        raise NotImplementedError(
-            "certify=True is not ported yet (ROADMAP Queue 1 item 2)")
 
 
 def _is_pmg(precond) -> bool:
@@ -121,7 +118,9 @@ class BoundaryConditionMixin:
     """Named-boundary Dirichlet/Neumann handling shared by scalar models.
 
     Requires ``self.disc``, ``self.x_nodes``, ``self._dirichlet_mask``,
-    ``self._dirichlet_vals``, ``self._neumann``.
+    ``self._dirichlet_vals``, ``self._neumann``, ``self.dtype``; an optional
+    ``self._bc_cache`` holds device vectors built from the boundary data,
+    which every BC change empties.
     """
 
     def set_dirichlet(self, boundary_name: str, value) -> None:
@@ -136,9 +135,11 @@ class BoundaryConditionMixin:
         cache = getattr(self, "_op_cache", None)
         if cache:
             cache.clear()
+        getattr(self, "_bc_cache", {}).clear()
 
     def set_neumann(self, boundary_name: str, value) -> None:
         """Natural BC: adds the surface integral ∫ g v dS to the RHS."""
+        getattr(self, "_bc_cache", {}).clear()
         g = _as_callable(value)
         disc = self.disc
         ndim = disc.mesh.ndim
@@ -147,6 +148,12 @@ class BoundaryConditionMixin:
             contrib = gvals * fg.dSxW
             gidx = disc._face_nodes_of(fg)
             np.add.at(self._neumann, gidx.ravel(), contrib.ravel())
+
+    def _vec(self, u, device) -> torch.Tensor:
+        """A global vector (numpy or tensor) on ``device`` at the model's
+        dtype."""
+        return torch.as_tensor(np.asarray(u) if not isinstance(
+            u, torch.Tensor) else u, device=device).to(torch_dtype(self.dtype))
 
     def boundary_flux(self, u: np.ndarray, boundary_name: str) -> float:
         """Outward boundary flux ∮_Γ (c ∇u)·n dS of a nodal field (host
@@ -244,6 +251,38 @@ class Poisson(BoundaryConditionMixin):
         self._neumann = np.zeros(disc.n_nodes)
         self._exchange = None
         self._op_cache = {}
+        #: the certified solve's float64 seed and lift, per device
+        self._bc_cache = {}
+        #: the global-vector operator's arrays, per device
+        self._dev_cache = {}
+
+    # -- global-vector operator ----------------------------------------------
+
+    def _on(self, device) -> dict:
+        """The global-vector apply's arrays on ``device`` (cached)."""
+        st = self._dev_cache.get(str(device))
+        if st is None:
+            st = self._dev_cache[str(device)] = dict(
+                G=self._vec(np.array(self._G_host), device),
+                D0=self._vec(np.array(self._D0_host), device),
+                D1=self._vec(np.array(self._D1_host), device),
+                gix=torch.as_tensor(self.disc.gather_nodes, device=device))
+        return st
+
+    def apply_operator(self, u, device=None) -> torch.Tensor:
+        """Raw weak Laplacian ``A u`` of a global (n_nodes,) vector (no BC
+        masking), on ``device``: gather, local product, scatter-add
+        (:func:`..ops.sumfac.laplacian_apply`)."""
+        dev = resolve_device(device)
+        self._check_2d("apply_operator")
+        st = self._on(dev)
+        return sumfac.laplacian_apply(self._vec(u, dev), st["gix"], st["G"],
+                                      st["D0"], st["D1"], self.disc.n_nodes)
+
+    def _check_2d(self, what: str) -> None:
+        if self.disc.mesh.ndim != 2:
+            raise NotImplementedError(
+                f"3D {what} is not ported yet (ROADMAP Queue 1, the 3D path)")
 
     def operator_diagonal(self) -> np.ndarray:
         """Assembled operator diagonal (host numpy, cached)."""
@@ -260,6 +299,33 @@ class Poisson(BoundaryConditionMixin):
         return self._diag_host
 
     # -- solve -----------------------------------------------------------------
+
+    def solve(self, tol: float = 1e-12, max_iter: int | None = None,
+              host_loop: bool = False, device=None) -> PoissonSolution:
+        """Jacobi PCG on global (n_nodes,) vectors, on ``device``:
+        :func:`..solver.cg.cg`, or :func:`..solver.cg.cg_host` with
+        ``host_loop``.  The Dirichlet DOFs are eliminated symmetrically
+        (:func:`..ops.sumfac.make_poisson_operator`); the stopping rule is
+        ``||r|| <= tol ||b||`` in the Euclidean norm, as in the reference."""
+        dev = resolve_device(device)
+        disc = self.disc
+        self._check_2d("solve")
+        st = self._on(dev)
+        free = torch.as_tensor(~self._dirichlet_mask, device=dev)
+        u_d = self._vec(np.where(self._dirichlet_mask, self._dirichlet_vals,
+                                 0.0), dev)
+        A = sumfac.make_poisson_operator(st["gix"], st["G"], st["D0"],
+                                         st["D1"], disc.n_nodes, free)
+        b = self._vec(self._b, dev) + self._vec(self._neumann, dev)
+        # eliminate Dirichlet DOFs: r_f = (b - A u_d)|_free
+        r = sumfac.masked(b - self.apply_operator(u_d, dev), free)
+        M = jacobi_preconditioner(self._vec(self.operator_diagonal(), dev),
+                                  free)
+        if max_iter is None:
+            max_iter = max(200, 20 * int(np.sqrt(disc.ndof)))
+        solver = cg_host if host_loop else cg
+        res = solver(A, r, M=M, tol=tol, max_iter=max_iter)
+        return PoissonSolution((u_d + res.x).cpu().numpy(), res)
 
     def _structure(self, structure: str) -> str:
         """``structure`` resolved against the mesh: ``"auto"`` becomes
@@ -353,9 +419,18 @@ class Poisson(BoundaryConditionMixin):
 
         The parameters are the reference's, in its order, with ``device``
         last.  Not ported yet, and raising ``NotImplementedError`` with
-        their ROADMAP item: ``host_loop=True``, ``precond="fdm"``,
-        ``compute_dtype``, ``vector_layout="en"`` and ``certify=True``;
-        ``vector_layout`` ``"auto"`` is ``"ne"``.
+        their ROADMAP item: ``precond="fdm"``, ``compute_dtype`` and
+        ``vector_layout="en"``; ``vector_layout`` ``"auto"`` is ``"ne"``.
+        ``certify=True`` (float32 models) returns a solution whose
+        convergence is certified against the float64-evaluated true
+        residual (:meth:`_certified_solve_2d`,
+        :func:`..solver.cg.cg_refined_static`); it ignores ``max_iter``,
+        ``cg_kernel``, ``p_dtype`` and ``defer_x``, raises ``ValueError``
+        with ``host_loop=True``, and on a float64 model does nothing, as
+        in the reference.  ``host_loop=True`` runs
+        :func:`..solver.cg.cg_host` (one host read per iteration) with the
+        exchange's weighted ``dot_T``; an explicit fused ``cg_kernel``
+        ignores it, and ``"auto"`` then never fuses.
         ``precond``: ``"jacobi"``, or ``"pmg"`` / ``{"pmg": {...}}`` — the
         two-level p-multigrid V-cycle
         (:func:`..solver.pmg.make_pmg_preconditioner`, with the dict's
@@ -411,12 +486,15 @@ class Poisson(BoundaryConditionMixin):
         """
         dev = resolve_device(device)
         disc = self.disc
-        if disc.mesh.ndim != 2:
-            raise NotImplementedError(
-                "3D solve_local is not ported yet (ROADMAP Queue 1, the 3D "
-                "path)")
-        _check_unported(host_loop, precond, compute_dtype, vector_layout,
-                        certify)
+        self._check_2d("solve_local")
+        _check_unported(precond, compute_dtype, vector_layout)
+        if certify and np.dtype(self.dtype) == np.float32:
+            # before the float32 right-hand side is staged: the certified
+            # path builds its own float64 seed
+            if host_loop:
+                raise ValueError("certify=True is a device path "
+                                 "(host_loop=False)")
+            return self._certified_solve_2d(tol, precond, structure, dev)
         if cg_kernel not in ("auto", "plain", "fused", "fused1"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
@@ -441,7 +519,7 @@ class Poisson(BoundaryConditionMixin):
         f32 = np.dtype(self.dtype) == np.float32
         single = cg_kernel == "fused1"
         want_fused = cg_kernel in ("fused", "fused1") or (
-            cg_kernel == "auto" and p_dtype is not None
+            cg_kernel == "auto" and not host_loop and p_dtype is not None
             and dev.type == "cuda")
         pmg = _is_pmg(precond)
         if cg_kernel in ("fused", "fused1") and (pmg or not f32):
@@ -475,11 +553,80 @@ class Poisson(BoundaryConditionMixin):
         else:
             if pmg:
                 M = self._pmg(ctx, precond, dev)
-            w = ex.weights_T(self.dtype, dev)
-            res = cg(A, r, M=M, tol=tol, max_iter=max_iter, dot_weight=w)
+            if host_loop:
+                res = cg_host(A, r, M=M, tol=tol, max_iter=max_iter,
+                              dot=ex.dot_T)
+            else:
+                w = ex.weights_T(self.dtype, dev)
+                res = cg(A, r, M=M, tol=tol, max_iter=max_iter, dot_weight=w)
         uL = u_dL + res.x.to(u_dL.dtype)
         u = ex.global_from_local_T(uL.cpu().numpy())
         return PoissonSolution(u, res)
+
+    def _certified_solve_2d(self, tol, precond, structure,
+                            device) -> PoissonSolution:
+        """The float64-certified mixed-precision solve (``certify=True``,
+        float32 models).
+
+        :func:`..solver.cg.cg_refined_static` on the solve's float32
+        operator (the apply kernels) and preconditioner (Jacobi or the
+        cached pmg V-cycle), anchored on ``A_hi``: the ``"xla"`` (n, E)
+        operator of float64 factors with the same values (for an affine
+        mesh rebuilt as the exact rank-1 field ``a (x) W``, so it stays
+        affine; a raw float32 -> float64 upcast fails the affine test),
+        cached in ``_op_cache``.  The float64 seed ``r_hi = free ? b -
+        A_hi(u_d) : 0`` and the lift at the model dtype are cached in
+        ``_bc_cache`` (emptied by ``set_dirichlet`` and ``set_neumann``),
+        so a repeat solve is bit for bit the same.  The dot weights are
+        the exchange's float32 weights on the device.
+
+        ``sol.cg`` is the float64-certified result (its ``x`` float64);
+        ``u`` is ``u_d + x`` at the model dtype.  Unlike the reference, no
+        host-ladder fallback above :func:`..solver.cg.
+        hbm_residency_regime`: that fallback works around TPU compile
+        limits, so every size runs ``cg_refined_static`` on the fused
+        operator (ROADMAP Queue 3).
+        """
+        from ..utils.stages import stage
+
+        disc = self.disc
+        ctx = self._local_setup(device, structure)
+        ex, A, free_local = ctx["ex"], ctx["A"], ctx["free_local"]
+        M = self._pmg(ctx, precond, device) if _is_pmg(precond) else ctx["M"]
+        key = ("A_hi", "ne", str(device))
+        A_hi = self._op_cache.get(key)
+        if A_hi is None:
+            with stage("certify/A_hi"):
+                Gf32 = self._G_host.reshape(disc.E, 3, -1)
+                W = np.asarray(disc.basis.weight_grid(),
+                               np.float64).reshape(-1)
+                a, exact = sumfac.affine_factorization(Gf32, W)
+                Gf64 = (np.asarray(a, np.float64)[:, :, None] * W
+                        if exact else Gf32.astype(np.float64))
+                A_hi = self._op_cache[key] = \
+                    sumfac.make_local_laplacian_operator(
+                        ex, Gf64, np.asarray(ctx["Dhat"], np.float64),
+                        free_local, assume_masked_input=True, device=device,
+                        backend="xla")
+        seed = self._bc_cache.get(str(device))
+        if seed is None:
+            with stage("certify/seed"):
+                def to64(v):
+                    return torch.as_tensor(ex.local_T_from_global(
+                        np.asarray(v, np.float64)), device=device)
+
+                b = np.asarray(self._b, np.float64) + self._neumann
+                u_dL64 = to64(np.where(self._dirichlet_mask,
+                                       self._dirichlet_vals, 0.0))
+                r_hi = torch.where(free_local, to64(b) - A_hi(u_dL64), 0.0)
+                seed = self._bc_cache[str(device)] = (
+                    u_dL64.to(torch_dtype(self.dtype)), r_hi)
+        u_dL, r_hi = seed
+        res = cg_refined_static(A, r_hi, A_hi=A_hi, M=M, tol=tol,
+                                dot_weight=ex.weights_T(torch.float32,
+                                                        device))
+        uL = u_dL + res.x.to(u_dL.dtype)
+        return PoissonSolution(ex.global_from_local_T(uL.cpu().numpy()), res)
 
     def solve_local_batch(self, forcings, tol: float = 1e-12,
                           max_iter: int | None = None,
@@ -526,10 +673,7 @@ class Poisson(BoundaryConditionMixin):
         """
         dev = resolve_device(device)
         disc = self.disc
-        if disc.mesh.ndim != 2:
-            raise NotImplementedError(
-                "3D solve_local_batch is not ported yet (ROADMAP Queue 1, "
-                "the 3D path)")
+        self._check_2d("solve_local_batch")
         _check_unported(precond=precond, compute_dtype=compute_dtype,
                         vector_layout=vector_layout)
         if cg_kernel not in ("auto", "plain", "fused"):

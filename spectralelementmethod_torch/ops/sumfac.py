@@ -2,7 +2,8 @@
 
 Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D solves
 run.  The global-vector helpers (:func:`gather`, :func:`scatter_add`,
-:func:`laplacian_apply_local`, :func:`laplacian_diag_local`,
+:func:`laplacian_apply_local`, :func:`laplacian_apply`,
+:func:`make_poisson_operator`, :func:`laplacian_diag_local`,
 :func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` /
 ``index_add_``, as the reference leaves them to XLA.
 
@@ -87,6 +88,13 @@ def laplacian_apply_local(ue, G, D0, D1):
     return grad_transpose_2d(fr, fs, D0, D1)
 
 
+def laplacian_apply(u, gather_nodes, G, D0, D1, n_nodes):
+    """Global matrix-free weak Laplacian: scatter(local(gather(u)))."""
+    ue = gather(u, gather_nodes, G.shape[-2:])
+    return scatter_add(laplacian_apply_local(ue, G, D0, D1), gather_nodes,
+                       n_nodes)
+
+
 def laplacian_diag_local(G, D0, D1):
     """Diagonal of the local weak Laplacian (for Jacobi preconditioning);
     the tensor twin of :func:`laplacian_diag_local_host`."""
@@ -106,6 +114,19 @@ def mass_apply_local(ue, detJxW):
 def masked(u, free_mask):
     """Zero entries not in the free set (Dirichlet elimination helper)."""
     return torch.where(free_mask, u, 0.0)
+
+
+def make_poisson_operator(gather_nodes, G, D0, D1, n_nodes, free_mask):
+    """``A(u)``: the weak Laplacian on global vectors restricted to the free
+    DOFs.  Dirichlet DOFs are eliminated symmetrically (input and output
+    zeroed on them), so CG on ``A`` solves ``A_ff u_f = r_f``."""
+
+    def apply(u):
+        v = laplacian_apply(masked(u, free_mask), gather_nodes, G, D0, D1,
+                            n_nodes)
+        return masked(v, free_mask)
+
+    return apply
 
 
 def laplacian_diag_local_host(G, D0, D1):

@@ -17,14 +17,17 @@ Port of the main-path solvers of the JAX package's ``solver/cg.py``:
   per-RHS scalars and freezing and one host ladder;
 * :func:`cg_host` — PCG with a plain host loop (one host read of the
   residual norm per iteration), for small and one-off solves;
+* :func:`cg_refined` and :func:`cg_refined_static` — mixed-precision
+  refinement: inner PCG solves (segments) re-anchored on the true residual,
+  optionally evaluated in float64 by a second operator ``A_hi``;
 * :func:`auto_defer_x`, :func:`auto_defer_x_batched` and
   :func:`hbm_residency_regime`, the reference's ``defer_x`` policies;
 * :func:`jacobi_preconditioner`.
 
 Each iteration is a Python loop over device tensors: the scalars (alpha,
 beta, the stopping state) stay on the device and are read back once per
-block.  The refined/certified solvers and ``cg_batched``'s vmapped mode
-are not ported yet (ROADMAP Queue 1 items 2 and 5).
+block.  ``cg_batched``'s vmapped mode is not ported yet (ROADMAP Queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -50,8 +53,13 @@ class CGResult(NamedTuple):
     #: including post-convergence frozen ones — the honest denominator
     #: for time-per-iteration accounting
     issued: int = 0
-    #: :func:`cg` with ``stall_cut``: the ladder ended on a stall (a
-    #: block shrank ||r||^2 by less than the cut while above tolerance)
+    #: :func:`cg_refined` and :func:`cg_refined_static`: the true residual
+    #: norm after each cycle or segment (a skipped segment repeats the last)
+    cycle_resnorms: tuple = ()
+    #: the solve ended on a stall: :func:`cg` with ``stall_cut`` (a block
+    #: shrank ||r||^2 by less than the cut while above tolerance), a
+    #: refinement cycle or segment that shrank the true ||r||^2 by less
+    #: than 4x while above tolerance
     stalled: bool = False
 
 
@@ -87,6 +95,50 @@ def _ladder_size(max_iter: int, issued: int, block: int) -> int:
     return min(block, remaining)
 
 
+def _pcg(A: Callable, M: Callable, dot: Callable | None,
+         w: torch.Tensor | None):
+    """``(wsum, step)`` of preconditioned CG: the inner product (``sum(w u
+    v)`` with the diagonal weights ``w``, else ``dot``, else Euclidean) and
+    one iteration on a :class:`_State`.  With ``w`` the step folds the
+    weight into each vector pass once (``w*Ap``, ``w*z``)."""
+    if w is not None:
+        def wsum(u, v):
+            return torch.sum(u * v * w)
+    elif dot is not None:
+        wsum = dot
+    else:
+        def wsum(u, v):
+            return torch.sum(u * v)
+
+    def step(s: _State) -> _State:
+        done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
+        Ap = A(s.p)
+        denom = wsum(s.p, Ap) if w is None else torch.sum(s.p * (w * Ap))
+        alpha = torch.where(done, 0.0, s.rz / _safe(denom))
+        x = s.x + alpha * s.p
+        r = s.r - alpha * Ap
+        z = M(r)
+        rz_n = wsum(r, z) if w is None else torch.sum(r * (w * z))
+        rn2 = wsum(r, r)
+        beta = rz_n / _safe(s.rz)
+        p = z + beta * s.p
+        k = s.k + (~done).to(s.k.dtype)
+        rn2_min = torch.where(done, s.rn2_min, torch.minimum(s.rn2_min, rn2))
+        return _State(x, r, z, p, rz_n, rn2, k, s.stop2, s.max_it, rn2_min)
+
+    return wsum, step
+
+
+def _pcg_init(x0, r0, M, wsum, stop2, max_iter: int) -> _State:
+    """The PCG state at the guess ``x0`` with residual ``r0``."""
+    z0 = M(r0)
+    rn0 = wsum(r0, r0)
+    dev = r0.device
+    return _State(x0, r0, z0, z0, wsum(r0, z0), rn0,
+                  torch.zeros((), dtype=torch.int32, device=dev), stop2,
+                  torch.tensor(max_iter, dtype=torch.int32, device=dev), rn0)
+
+
 def cg(
     A: Callable,
     b: torch.Tensor,
@@ -118,51 +170,10 @@ def cg(
     """
     if M is None:
         M = _identity
-    w = dot_weight
-    if w is not None:
-        def wsum(u, v):
-            return torch.sum(u * v * w)
-
-        def fold(v):
-            return w * v
-    else:
-        if dot is None:
-            def dot(u, v):
-                return torch.sum(u * v)
-
-        def wsum(u, v):
-            return dot(u, v)
-
-        def fold(v):
-            return v
-
-    dev = b.device
+    wsum, step = _pcg(A, M, dot, dot_weight)
     x0 = torch.zeros_like(b) if x0 is None else x0
-    r0 = b - A(x0)
-    z0 = M(r0)
-    rn0 = wsum(r0, r0)
     stop2 = torch.clamp_min(tol * tol * wsum(b, b), atol * atol)
-    state = _State(x0, r0, z0, z0, wsum(r0, z0), rn0,
-                   torch.zeros((), dtype=torch.int32, device=dev), stop2,
-                   torch.tensor(max_iter, dtype=torch.int32, device=dev),
-                   rn0)
-    zero = torch.zeros((), dtype=b.dtype, device=dev)
-
-    def step(s: _State) -> _State:
-        done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
-        Ap = A(s.p)
-        denom = wsum(s.p, Ap) if w is None else torch.sum(s.p * fold(Ap))
-        alpha = torch.where(done, zero, s.rz / _safe(denom))
-        x = s.x + alpha * s.p
-        r = s.r - alpha * Ap
-        z = M(r)
-        rz_n = wsum(r, z) if w is None else torch.sum(r * fold(z))
-        rn2 = wsum(r, r)
-        beta = rz_n / _safe(s.rz)
-        p = z + beta * s.p
-        k = s.k + (~done).to(s.k.dtype)
-        rn2_min = torch.where(done, s.rn2_min, torch.minimum(s.rn2_min, rn2))
-        return _State(x, r, z, p, rz_n, rn2, k, s.stop2, s.max_it, rn2_min)
+    state = _pcg_init(x0, b - A(x0), M, wsum, stop2, max_iter)
 
     issued = 0
     best_state, best_rn2 = state, float("inf")
@@ -189,7 +200,194 @@ def cg(
     # on breakdown/divergence, fall back to the best block-boundary state
     s = best_state
     return CGResult(s.x, s.k, torch.sqrt(s.rn2), s.rn2 <= s.stop2, issued,
-                    stalled)
+                    stalled=stalled)
+
+
+def cg_refined(
+    A: Callable,
+    b: torch.Tensor,
+    *,
+    M: Callable | None = None,
+    tol: float = 1e-6,
+    max_iter: int = 1000,
+    dot: Callable | None = None,
+    dot_weight: torch.Tensor | None = None,
+    block: int = 64,
+    cycles: int = 3,
+    stall_cut: float | None = None,
+    A_hi: Callable | None = None,
+    b_hi: torch.Tensor | None = None,
+    inner_tol_factor: float = 0.25,
+) -> CGResult:
+    """PCG with true-residual refinement (the reference's signature).
+
+    Each cycle runs :func:`cg` on the current residual ``r`` from a zero
+    guess, to ``atol = inner_tol_factor * tol * ||b||`` (past the outer
+    target: an inner recurrence's claimed residual under-reports the true
+    one by its rounding floor), then re-anchors on the true residual, ``r =
+    b - A x``.  ``stall_cut`` goes to the inner :func:`cg`; a cycle that
+    shrinks the true ``||r||^2`` by less than 4x while above tolerance ends
+    the loop with ``stalled=True``.  Stops when ``||r|| <= tol ||b||`` in
+    the ``dot_weight`` / ``dot`` / Euclidean norm, after at most ``cycles``
+    cycles.
+
+    ``A_hi`` (and optionally ``b_hi``): the anchors in float64 — ``x_h +=
+    dx``, ``r_h = b_h - A_hi(x_h)``, the norm in float64 from the stored
+    weights (cast inside the reduction; no float64 copy of the weights is
+    kept), and ``x`` is ``x_h``.  With ``A_hi`` the norm must be
+    ``dot_weight``'s or the Euclidean one (``dot`` alone raises).
+
+    Returns a :class:`CGResult` of host scalars, as the reference's:
+    ``iterations`` and ``issued`` summed over the cycles, the true residual
+    after each cycle in ``cycle_resnorms``.
+
+    One planned divergence from the reference: ``stall_cut`` defaults to
+    None (there 4.0), so an honestly but slowly converging inner ladder
+    (Jacobi on an ill-conditioned system) is not cut; the certified solve
+    passes its own.
+    """
+    if A_hi is not None and dot is not None and dot_weight is None:
+        raise ValueError("A_hi anchoring supports dot_weight or the "
+                         "Euclidean dot (the float64 anchor norm must match "
+                         "the inner stopping norm)")
+    w = dot_weight
+
+    def nrm2(v) -> float:
+        if w is not None:
+            return float(torch.sum(w * v * v))
+        if dot is not None:
+            return float(dot(v, v))
+        return float(torch.sum(v * v))
+
+    if A_hi is not None:
+        b_h = (b if b_hi is None else b_hi).to(torch.float64)
+        x_h = torch.zeros_like(b_h)
+        rn2 = nrm2(b_h)
+    else:
+        rn2 = nrm2(b)
+    stop2 = float(tol) ** 2 * rn2
+    x = torch.zeros_like(b)
+    r = b
+    its = issued = 0
+    history = []
+    stalled = False
+    for _ in range(max(int(cycles), 1)):
+        if rn2 <= stop2:
+            break
+        res = cg(A, r, M=M, tol=0.0,
+                 atol=inner_tol_factor * math.sqrt(stop2),
+                 max_iter=max_iter, dot=dot, dot_weight=dot_weight,
+                 block=block, stall_cut=stall_cut)
+        its += int(res.iterations)
+        issued += int(res.issued)
+        rn2_prev = rn2
+        if A_hi is not None:
+            x_h = x_h + res.x.to(torch.float64)
+            r_h = b_h - A_hi(x_h)
+            rn2 = nrm2(r_h)
+            r = r_h.to(b.dtype)             # the next cycle's right-hand side
+        else:
+            x = x + res.x
+            r = b - A(x)
+            rn2 = nrm2(r)
+        history.append(math.sqrt(max(rn2, 0.0)))
+        if rn2 > stop2 and rn2 > 0.25 * rn2_prev:
+            # the recursion's floor is the limit, not the anchor point
+            stalled = True
+            break
+    if A_hi is not None:
+        x = x_h
+    return CGResult(x, its, math.sqrt(max(rn2, 0.0)),
+                    rn2 <= stop2 * (1 + 1e-12), issued,
+                    cycle_resnorms=tuple(history), stalled=stalled)
+
+
+def cg_refined_static(
+    A: Callable,
+    b_hi: torch.Tensor,
+    *,
+    A_hi: Callable,
+    M: Callable | None = None,
+    tol: float = 1e-6,
+    schedule: tuple = (64, 32, 32, 64),
+    dot_weight: torch.Tensor | None = None,
+    inner_tol_factor: float = 0.25,
+    dtype=torch.float32,
+) -> CGResult:
+    """Mixed-precision refined PCG on a fixed schedule (the reference's
+    signature).
+
+    ``b_hi``: the float64 right-hand side; ``A``, ``M``: the ``dtype``
+    operator and preconditioner; ``A_hi``: the float64 operator of the same
+    system.  Segment i runs exactly ``schedule[i]`` PCG iterations in
+    ``dtype`` from a zero guess on the current residual ``r`` (no apply of
+    the guess), frozen once its recurrence reaches ``inner_tol_factor**2 *
+    tol**2 * ||b_hi||^2``, then re-anchors in float64: ``x_h += x``, ``r_h =
+    b_hi - A_hi(x_h)``, ``rn2 = sum(w r_h^2)`` (``dot_weight`` cast inside
+    the reduction, or Euclidean).  ``iterations`` counts the iterations
+    that were not frozen, ``issued`` those of the segments run.
+
+    A segment whose anchored residual is already at ``tol ||b_hi||`` is
+    skipped: it repeats the last value in ``cycle_resnorms`` and adds
+    nothing to ``issued``.  The reference decides that inside one compiled
+    program; here the host decides, from one read after each segment (the
+    anchored norm, the segment's iterations and, with the first, ``||b_hi||``;
+    the first segment is launched before ``||b_hi||`` is known and dropped
+    if there was nothing to solve), so a solve makes one host read per
+    segment it runs.
+
+    Returns a :class:`CGResult` of host scalars with the float64 ``x``.
+    ``converged`` refers to the float64-evaluated residual.  ``stalled``
+    (a planned divergence: the reference's flag cannot be true) is set when
+    the solve is not converged and the last segment run shrank the anchored
+    ``||r||^2`` by less than 4x, the rule of :func:`cg_refined`'s outer loop.
+    """
+    if M is None:
+        M = _identity
+    schedule = tuple(int(n) for n in schedule)
+    tol2 = float(tol) ** 2
+    f2 = float(inner_tol_factor) ** 2
+    b_h = b_hi.to(torch.float64)
+    w32 = None if dot_weight is None else dot_weight.to(dtype)
+    wsum, step = _pcg(A, M, None, w32)
+
+    def wsum64(v):
+        return torch.sum(v * v) if w32 is None else torch.sum(w32 * v * v)
+
+    rn2_0 = wsum64(b_h)
+    atol2_i = (f2 * (tol2 * rn2_0)).to(dtype)
+    x_h = torch.zeros_like(b_h)
+    r32 = b_h.to(dtype)
+    its = issued = 0
+    seg_rns = []
+    stop2 = rn2 = rn2_prev = None
+    for i, n in enumerate(schedule):
+        if i and rn2 <= stop2:
+            seg_rns.append(seg_rns[-1])
+            continue
+        state = _pcg_init(torch.zeros_like(r32), r32, M, wsum, atol2_i, n)
+        for _ in range(n):
+            state = step(state)
+        x_new = x_h + state.x.to(torch.float64)
+        r_h = b_h - A_hi(x_new)
+        rn2_new, k_seg, rn2_b = torch.stack(
+            [wsum64(r_h), state.k.to(torch.float64), rn2_0]).tolist()
+        if not i:
+            stop2 = tol2 * rn2_b
+            rn2 = rn2_b
+            if rn2 <= stop2:                # nothing to solve: skip them all
+                seg_rns = [math.sqrt(max(rn2, 0.0))] * len(schedule)
+                break
+        x_h, r32 = x_new, r_h.to(dtype)
+        rn2_prev, rn2 = rn2, rn2_new
+        its += int(k_seg)
+        issued += n
+        seg_rns.append(math.sqrt(max(rn2, 0.0)))
+    converged = rn2 <= stop2 * (1 + 1e-12)
+    stalled = (not converged and rn2_prev is not None
+               and rn2 > 0.25 * rn2_prev)
+    return CGResult(x_h, its, math.sqrt(max(rn2, 0.0)), converged, issued,
+                    cycle_resnorms=tuple(seg_rns), stalled=stalled)
 
 
 def _identity(r):

@@ -2,10 +2,12 @@
 reference's order, so a positional call binds the same parameter in both
 packages.  ``device`` may follow as the last parameter; every parameter the
 port has not taken up yet exists and raises ``NotImplementedError`` naming
-its ROADMAP item when asked for more than the default."""
+its ROADMAP item when asked for more than the default.  Every default
+matches the reference's but the two named in ``DEFAULTS``."""
 
 import inspect
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,10 +21,15 @@ from spectralelementmethod_torch.core.discretization import Discretization
 from spectralelementmethod_torch.mesh import rectangle_mesh
 from spectralelementmethod_torch.models.helmholtz import Helmholtz
 from spectralelementmethod_torch.models.poisson import Poisson
-from spectralelementmethod_torch.solver.cg import cg
+from spectralelementmethod_torch.solver.cg import (cg, cg_host, cg_refined,
+                                                   cg_refined_static)
 from spectralelementmethod_tpu.models.helmholtz import Helmholtz as JHelm
 from spectralelementmethod_tpu.models.poisson import Poisson as JPoisson
 from spectralelementmethod_tpu.solver.cg import cg as j_cg
+from spectralelementmethod_tpu.solver.cg import cg_host as j_cg_host
+from spectralelementmethod_tpu.solver.cg import cg_refined as j_cg_refined
+from spectralelementmethod_tpu.solver.cg import (
+    cg_refined_static as j_cg_refined_static)
 
 torch.set_num_threads(2)
 
@@ -34,7 +41,20 @@ PAIRS = {
     "Helmholtz.solve_local": (Helmholtz.solve_local, JHelm.solve_local),
     "Helmholtz.solve_local_batch": (Helmholtz.solve_local_batch,
                                     JHelm.solve_local_batch),
+    "Poisson.solve": (Poisson.solve, JPoisson.solve),
+    "Poisson.apply_operator": (Poisson.apply_operator,
+                               JPoisson.apply_operator),
     "cg": (cg, j_cg),
+    "cg_host": (cg_host, j_cg_host),
+    "cg_refined": (cg_refined, j_cg_refined),
+    "cg_refined_static": (cg_refined_static, j_cg_refined_static),
+}
+# the allowed default differences: (entry, parameter) -> (port, reference)
+DEFAULTS = {
+    # planned divergence (ADVICE): only the certified call site opts in
+    ("cg_refined", "stall_cut"): (None, 4.0),
+    # the same inner precision, in each package's own dtype object
+    ("cg_refined_static", "dtype"): (torch.float32, jnp.float32),
 }
 PAIRS.update({f"parallel.{name}": (getattr(t_par, name), getattr(mod, name))
               for mod, names in (
@@ -63,8 +83,20 @@ def test_signature_matches_reference(name):
         port = port[:-1]
     assert [p[0] for p in port] == [p[0] for p in ref]
     assert [p[1] for p in port] == [p[1] for p in ref]
-    # the defaults agree (the axis name is the same string in both)
-    assert [p[2] for p in port] == [p[2] for p in ref]
+    # the defaults agree (the axis name is the same string in both), but
+    # the named differences, which hold as stated
+    for (pname, _, d_port), (_, _, d_ref) in zip(port, ref):
+        if (name, pname) in DEFAULTS:
+            assert (d_port, d_ref) == DEFAULTS[name, pname]
+        else:
+            assert d_port == d_ref, pname
+
+
+def test_the_named_default_differences_exist():
+    for (name, pname), want in DEFAULTS.items():
+        port, ref = (inspect.signature(f).parameters[pname].default
+                     for f in PAIRS[name])
+        assert (port, ref) == want
 
 
 def _poisson():
@@ -73,15 +105,15 @@ def _poisson():
     return prob
 
 
-# item None: ported since (pmg, item 3, is taken up now); the case checks
-# that the option solves
+# item None: ported since (pmg, item 3; certify, item 2; host_loop, item
+# 15); the case checks that the option solves
 UNPORTED = [
-    ("solve_local", dict(host_loop=True), "item 15"),
+    ("solve_local", dict(host_loop=True), None),
     ("solve_local", dict(precond="pmg"), None),
     ("solve_local", dict(precond="fdm"), "item 8"),
     ("solve_local", dict(compute_dtype=np.float32), "item 15"),
     ("solve_local", dict(vector_layout="en"), "item 15"),
-    ("solve_local", dict(certify=True), "item 2"),
+    ("solve_local", dict(certify=True), None),
     ("solve_local_batch", dict(precond="pmg"), None),
     ("solve_local_batch", dict(compute_dtype=np.float32), "item 15"),
     ("solve_local_batch", dict(vector_layout="en"), "item 15"),
@@ -108,6 +140,10 @@ def test_unported_parameters_raise(method, kw, item):
 
 def test_positional_call_binds_the_reference_parameter():
     """The third positional argument is host_loop in both packages (it
-    used to bind structure in the port)."""
-    with pytest.raises(NotImplementedError, match="host_loop"):
-        _poisson().solve_local(1e-8, 100, True, device="cpu")
+    used to bind structure in the port): with certify on a float32 model
+    it raises, as host_loop does."""
+    prob = Poisson(Discretization(rectangle_mesh(4, 4, 2), gll_basis_2d(2)),
+                   dtype=np.float32)
+    prob.set_dirichlet("ebc", 0.0)
+    with pytest.raises(ValueError, match="host_loop"):
+        prob.solve_local(1e-8, 100, True, certify=True, device="cpu")
