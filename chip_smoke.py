@@ -97,7 +97,19 @@ Phases (any failure exits non-zero and prints no result line):
    (``rectangle_mesh(1024, 1024, 8)``: converged, the recomputed
    residual, setup seconds); ``Poisson.solve`` with and without
    ``host_loop`` and ``solve_local(host_loop=True)`` on a float64
-   manufactured problem;
+   manufactured problem; (3s) the FDM additive Schwarz
+   (``precond="fdm"``) on the rectangle to both tolerances (fewer than 0.7x
+   plain CG's iterations at 2e-3), on the annulus and on a k = 4 batch;
+   the row-major layout (``vector_layout="en"``: Jacobi, fdm and a k = 4
+   batch through ``cg_batched``'s per-RHS mode, each within 2 iterations
+   (or 1%) of its "ne" counterpart, no kernel launched); the fdm M apply
+   alone (device and host ms, launches, bound) and a profile of fdm-PCG;
+   pmg with the fdm smoother to 1e-6; ``certify=True`` with fdm on an 8 x 8
+   rectangle (converged, the recomputed float64 residual at most 1.05 tol)
+   and on the 100k one (its flag agrees with the recomputed residual); a
+   bf16-product (``compute_dtype``) solve and apply (within 0.03 of max of
+   the float32 apply; ``backend="fused"`` refuses it); the precision tiers
+   bit for bit on the apply kernels;
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -2023,7 +2035,7 @@ def main() -> int:
     # where the certified solve's time goes: all four segments (tol 0 runs
     # the whole schedule), and one float64 anchor timed
     A_hi = prob._op_cache[("A_hi", "ne", str(dev))]
-    _, r_hi = prob._bc_cache[str(dev)]
+    _, r_hi = prob._bc_cache[str(dev)]["ne"]
     xs = [(torch.where(ctx["free_local"], torch.randn(
         (n, E), generator=g, device=dev, dtype=torch.float64), 0.0),)
         for _ in range(3)]
@@ -2104,6 +2116,229 @@ def main() -> int:
                                        seconds=dt, l2_error=err)
         check(bool(sol_g.cg.converged) and err < 1e-4,
               f"{name}: converged, l2 error below 1e-4")
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
+    # -- 3s. fdm, the (E, n) layout, compute_dtype and the precision tiers --
+    # the rest of Poisson's 2D solve surface on the 100k meshes: the FDM
+    # additive Schwarz (on "ne", the curved annulus, a k = 4 batch, pmg's
+    # second smoother, the certified solve), the row-major "en" layout
+    # (Jacobi, fdm, a batch through cg_batched's per-RHS mode), the bf16
+    # products and the precision tiers; each count against the same run's
+    # phase 3 and 3p cells
+    log(f"[3s] precond='fdm', vector_layout='en', compute_dtype, precision "
+        f"tiers, f32 {at()}")
+    t_3s = time.perf_counter()
+    s_modes = {
+        "fdm-rect": ("rect", 1, dict(precond="fdm")),
+        "fdm-annulus": ("annulus", 1, dict(precond="fdm")),
+        "fdm-batch": ("rect", K, dict(precond="fdm")),
+        "en-rect": ("rect", 1, dict(vector_layout="en")),
+        "en-fdm-rect": ("rect", 1, dict(vector_layout="en", precond="fdm")),
+        "en-batch": ("rect", K, dict(vector_layout="en")),
+        "bf16-compute": ("rect", 1, dict(compute_dtype=torch.bfloat16))}
+    s_runs = [("fdm-rect", TOL_ALL), ("fdm-rect", TOL_F32),
+              ("fdm-annulus", TOL_ALL), ("fdm-batch", TOL_ALL),
+              ("en-rect", TOL_ALL), ("en-fdm-rect", TOL_ALL),
+              ("en-batch", TOL_ALL), ("bf16-compute", TOL_ALL)]
+
+    def s_solve(name, **opts):
+        pk, k_, kw = s_modes[name]
+        p_ = problems[pk][0]
+        if k_ > 1:
+            return p_.solve_local_batch(F_of[pk], **kw, **opts)
+        return p_.solve_local(**kw, **opts)
+
+    apply_of = {"rect": "affine_apply_dss", "annulus": "general_apply_dss"}
+    for name, tol in s_runs:
+        pk, k_, _ = s_modes[name]
+        true_residual, _, bLs, r0s = checks_of[pk]
+        n_nodes = problems[pk][0].disc.n_nodes
+        # the bf16 products may floor above the tolerance: a bounded run
+        sol, dt = drive(name, lambda: s_solve(
+            name, tol=tol, max_iter=3000 if name == "bf16-compute"
+            else MAX_ITER))
+        U = sol.u.reshape(k_, n_nodes)
+        its = np.atleast_1d(sol.cg.iterations.cpu().numpy()).tolist()
+        conv = np.atleast_1d(sol.cg.converged.cpu().numpy()).tolist()
+        res = np.atleast_1d(sol.cg.residual_norm.cpu().numpy()) / r0s[:k_]
+        true_rel = np.array([true_residual(U[j], bLs[j])
+                             for j in range(k_)]) / r0s[:k_]
+        issued = sol.cg.issued
+        n_apply = launches[name].get(apply_of[pk], {}).get(n, 0) + \
+            launches[name].get(apply_of[pk] + "_batched", {}).get(n, 0)
+        n_all = sum(totals(name).values())
+        key = f"{name}@{tol:g}"
+        solves[key] = dict(iterations=its, issued=issued, seconds=dt,
+                           ms_per_issued_per_rhs=1e3 * dt / issued / k_,
+                           recurrence_rel=res.tolist(),
+                           true_rel=true_rel.tolist(), converged=conv,
+                           apply_launches_per_issued=n_apply / issued,
+                           kernel_launches=n_all)
+        log(f"  {key}: its {its} / {issued} issued, {dt:.3f} s, "
+            f"{1e3 * dt / issued / k_:.4f} ms/iteration issued per RHS "
+            f"(host clock), residual {np.array2string(res, precision=3)} "
+            f"relative (true, f32-evaluated "
+            f"{np.array2string(true_rel, precision=3)}), converged {conv}; "
+            f"{n_apply / issued:.2f} {apply_of[pk]} launches per issued "
+            f"iteration, {n_all} kernel launches in all")
+        check(bool(np.isfinite(sol.u).all()) and sol.u.size == k_ * n_nodes,
+              f"{key}: finite solutions of the mesh's shape")
+        if name != "bf16-compute":
+            check(all(conv), f"{key}: every RHS converged")
+        if name.startswith("en-") or name == "bf16-compute":
+            check(n_all == 0, f"{key}: the 'xla' operator launches no "
+                  f"kernel ({n_all})")
+        else:
+            check(n_apply >= max(its), f"{key}: {n_apply} launches of "
+                  f"{apply_of[pk]}, at least one per iteration")
+
+    def s_its(key):
+        return solves[key]["iterations"]
+
+    def close(a, b):
+        return abs(a - b) <= max(2, 0.01 * b)
+
+    f_its, p_its = s_its(f"fdm-rect@{TOL_ALL:g}")[0], s_its(
+        f"plain@{TOL_ALL:g}")[0]
+    check(f_its < 0.7 * p_its, f"fdm-rect@{TOL_ALL:g}: {f_its} iterations "
+          f"< 0.7 x plain's {p_its}")
+    log(f"  fdm-rect@{TOL_F32:g}: {s_its(f'fdm-rect@{TOL_F32:g}')[0]} "
+        f"iterations against plain's {s_its(f'plain@{TOL_F32:g}')[0]}; "
+        f"fdm-annulus@{TOL_ALL:g} "
+        f"{s_its(f'fdm-annulus@{TOL_ALL:g}')[0]} against curved-plain's "
+        f"{s_its(f'curved-plain@{TOL_ALL:g}')[0]}")
+    for en_key, ne_key in (("en-rect", "plain"), ("en-fdm-rect", "fdm-rect"),
+                           ("en-batch", "batch-plain")):
+        a_, b_ = (s_its(f"{k_}@{TOL_ALL:g}") for k_ in (en_key, ne_key))
+        check(all(close(x_, y_) for x_, y_ in zip(a_, b_)),
+              f"{en_key}@{TOL_ALL:g}: iterations {a_} within 2 (or 1%) of "
+              f"{ne_key}'s {b_}")
+    fb = s_its(f"fdm-batch@{TOL_ALL:g}")
+    check(fb[0] == f_its or close(fb[0], f_its), f"fdm-batch@{TOL_ALL:g}: "
+          f"RHS 0 ({fb[0]}) as fdm-rect ({f_its})")
+
+    # the fdm M apply alone: device and host-clock ms beside its bound (read
+    # r, w and the inverse eigenvalues, write z; the two dense transforms'
+    # flops), launches per apply; one profile of fdm-PCG
+    M_f = prob._precond(ctx, "fdm", dev)
+    rs = [torch.where(ctx["free_local"], torch.randn(
+        (n, E), generator=g, device=dev), 0.0) for _ in range(4)]
+    m_dev = gpu_ms(M_f, [(r_,) for r_ in rs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(20):
+        M_f(rs[i % 4])
+    torch.cuda.synchronize()
+    m_host = 1e3 * (time.perf_counter() - t0) / 20
+    _, m_launch = device_per_call(M_f, [(r_,) for r_ in rs])
+    m_bound, m_by = bound(16 * n * E, 2 * 2 * n * n * E)
+    prof_f = profile_solve("fdm-rect", functools.partial(s_solve,
+                                                         "fdm-rect"), 64)
+    solves["fdm_apply"] = dict(ms=m_dev, host_ms=m_host,
+                               launches_per_apply=m_launch, bound_ms=m_bound,
+                               bound_by=m_by, profile_fdm_rect_64=prof_f)
+    log(f"  fdm M apply: {m_dev:.4f} ms device, {m_host:.4f} ms host clock, "
+        f"{m_launch:.1f} launches; bound {m_bound:.4f} ms ({m_by}: read r, "
+        f"w, invD, write z; 2 x 2 x n^2 x E flops)")
+
+    # pmg with the fdm smoother (the fine level's B_f), to 1e-6
+    pf = {"pmg": {"smoother": "fdm"}}
+    sol, dt = drive("pmg-fdm-rect", lambda: prob.solve_local(
+        tol=TOL_PMG, precond=pf, max_iter=MAX_ITER))
+    M_pf = prob._pmg(ctx, pf, dev)
+    vc_pf = gpu_ms(M_pf, [(r_,) for r_ in rs])
+    its_pf = int(sol.cg.iterations)
+    its_pj = s_its(f"pmg-rect@{TOL_PMG:g}")[0]
+    true_pf = checks_of["rect"][0](sol.u, checks_of["rect"][2][0]) / \
+        checks_of["rect"][3][0]
+    solves[f"pmg-fdm-rect@{TOL_PMG:g}"] = dict(
+        iterations=its_pf, issued=sol.cg.issued, seconds=dt,
+        vcycle_ms_device=vc_pf, lmax_f=M_pf._lmax_f, true_rel=true_pf,
+        pmg_jacobi_iterations=its_pj)
+    log(f"  pmg-fdm-rect@{TOL_PMG:g}: {its_pf} its / {sol.cg.issued} "
+        f"issued (pmg-rect {its_pj}), {dt:.3f} s, V-cycle {vc_pf:.4f} ms "
+        f"device, lmax_f {M_pf._lmax_f:.4f}, true residual {true_pf:.3e}")
+    check(bool(sol.cg.converged) and isinstance(
+        M_pf._B_f, type(M_f)) and M_pf._ops["fine"]._backend == "fused",
+        "pmg-fdm-rect: converged with the fdm smoother on the apply "
+        "kernels")
+
+    # certify with fdm: a small rectangle where the reference's fixed
+    # schedule (192 iterations at most) converges, then the 100k one, where
+    # it need not: the flag must agree with the recomputed residual
+    cp = Poisson(Discretization(rectangle_mesh(8, 8, ORDER),
+                                gll_basis_2d(ORDER)), dtype=np.float32)
+    cp.set_dirichlet("ebc", lambda x, y: 0.2 * ((x + 1) + (y + 1)))
+    for name, prob_ in (("cert-fdm-8x8", cp), ("cert-fdm-rect", prob)):
+        ctx_ = prob_._local_setup(dev)
+        true_res, bnorm, u_dL64, _ = cert_check_fns(prob_, ctx_)
+        sol, dt = drive(name, lambda: prob_.solve_local(
+            tol=TOL_PMG, precond="fdm", certify=True))
+        res = sol.cg
+        rel_x = true_res(u_dL64 + res.x) / bnorm
+        segs = int(np.searchsorted(np.cumsum((64, 32, 32, 64)), res.issued)
+                   + 1)
+        solves[f"{name}@{TOL_PMG:g}"] = dict(
+            converged=res.converged, stalled=res.stalled,
+            iterations=res.iterations, issued=res.issued, segments_run=segs,
+            cycle_resnorms=list(res.cycle_resnorms), true_rel_f64_of_x=rel_x,
+            seconds=dt)
+        log(f"  {name}: converged {res.converged}, stalled {res.stalled}, "
+            f"its {res.iterations} / {res.issued} issued, {segs} segments, "
+            f"cycle_resnorms "
+            f"{[float(f'{v:.3e}') for v in res.cycle_resnorms]}, true "
+            f"float64 {rel_x:.3e} of the iterate (tol {TOL_PMG:g}), "
+            f"{dt:.3f} s")
+        check(res.converged == (rel_x <= TOL_PMG * (1 + 1e-6)),
+              f"{name}: the converged flag ({res.converged}) agrees with the "
+              f"recomputed residual {rel_x:.3e}")
+        if prob_ is cp:
+            check(res.converged and rel_x <= 1.05 * TOL_PMG,
+                  f"{name}: converged, the recomputed residual {rel_x:.3e} "
+                  f"<= 1.05 x {TOL_PMG:g}")
+    del cp
+
+    # the bf16 products: the rectangle's "xla" apply within 0.03 of max of
+    # its float32 apply (the reference's bar); backend="fused" refuses them
+    Gf_r = prob._G_host.reshape(E, 3, -1)
+    A16 = sumfac.make_local_laplacian_operator(
+        ctx["ex"], Gf_r, ctx["Dhat"], None, device=dev,
+        compute_dtype=torch.bfloat16)
+    u_ = randn()
+    e16 = rel_err(A16(u_), ctx["A_raw"](u_))[1]
+    log(f"  bf16-compute: the 'xla' apply within {e16:.2e} of max of the "
+        f"float32 apply; {A16._backend}")
+    check(A16._backend == "xla" and e16 <= 0.03, "bf16-compute: the bf16 "
+          f"apply within 0.03 of max of the float32 apply ({e16:.2e})")
+    try:
+        sumfac.make_local_laplacian_operator(
+            ctx["ex"], Gf_r, ctx["Dhat"], None, device=dev, backend="fused",
+            compute_dtype=torch.bfloat16)
+        raised = False
+    except ValueError as exc:
+        raised = "compute_dtype" in str(exc)
+    check(raised, "bf16-compute: backend='fused' with a compute_dtype "
+          "raises ValueError")
+    solves["bf16_apply_rel"] = e16
+
+    # the precision tiers: the apply kernels (one RHS and a k-stack, both
+    # meshes) give the same bits at every tier
+    for pk in ("rect", "annulus"):
+        prob_, ctx_ = problems[pk]
+        Gf_ = prob_._G_host.reshape(E, 3, -1)
+        U_ = randn(K).view(K, n, E)
+        outs = {}
+        for tier in ("highest", "high", "default"):
+            op1 = sumfac.make_local_laplacian_operator(
+                ctx_["ex"], Gf_, ctx_["Dhat"], None, device=dev,
+                precision=tier)
+            outs[tier] = (op1(U_[0]), op1.stacked(K)(U_))
+        same = all(torch.equal(a_, b_) for t_ in ("high", "default")
+                   for a_, b_ in zip(outs[t_], outs["highest"]))
+        check(same and op1._backend == "fused", f"tiers ({pk}): the apply "
+              "kernels at 'high' and 'default' are bit for bit 'highest'")
+    solves["phase_3s_seconds"] = time.perf_counter() - t_3s
+    log(f"  phase 3s took {solves['phase_3s_seconds']:.1f} s {at()}")
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
     # -- 4. manufactured solutions --------------------------------------------

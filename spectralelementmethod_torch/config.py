@@ -9,11 +9,42 @@ float32, so TF32 is switched off for matrix products and convolutions.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+#: the reference's matmul precision tiers; every one computes true float32
+#: here (ROADMAP Queue 3)
+PRECISIONS = ("highest", "high", "default")
+
+
+def check_precision(precision: str) -> str:
+    """``precision`` if it names a tier, else ``ValueError`` (the
+    reference's message).  The tiers exist for the TPU's bf16 MXU passes;
+    the port computes every one in true float32, on the kernels and in
+    PyTorch, so none is less accurate than it asks."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    return precision
+
+
+@contextmanager
+def true_f32():
+    """Keep TF32 off for the enclosed matmuls, whatever the process-wide
+    setting (the reference's ``mm_precision="float32"``: its bf16 default
+    made lambda_max(M A) 1.566 against 0.998 at f32, BASELINE.md
+    round-5a)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.

@@ -9,20 +9,21 @@ Port of the 2D main path of the JAX package's ``models/poisson.py``:
 The model and its boundary data are host numpy (as in the reference);
 :meth:`Poisson.solve_local` (one forcing) and :meth:`Poisson.
 solve_local_batch` (k forcings, one operator) run preconditioned CG on
-transposed (n, E) L-vectors on a device: the CUDA card by default, or the
-CPU with ``device="cpu"``, where every kernel runs its plain PyTorch
-version.  Ported: affine and curved (or variable-coefficient) 2D meshes
-with ``structure`` in {``auto``, ``general``, ``affine``}, the Jacobi and
-the two-level p-multigrid (``precond="pmg"`` or ``{"pmg": {...}}``,
-:mod:`..solver.pmg`) preconditioners, ``cg_kernel`` in {``auto``,
+L-vectors on a device: the CUDA card by default, or the CPU with
+``device="cpu"``, where every kernel runs its plain PyTorch version.  The
+2D solve surface is the reference's: affine and curved (or
+variable-coefficient) meshes with ``structure`` in {``auto``, ``general``,
+``affine``}; the Jacobi, the FDM additive-Schwarz (``precond="fdm"``,
+:mod:`..solver.fdm`) and the two-level p-multigrid (``precond="pmg"`` or
+``{"pmg": {...}}``, :mod:`..solver.pmg`) preconditioners; the transposed
+(n, E) and the row-major (E, n) layouts (``vector_layout``); reduced-
+precision products (``compute_dtype``); ``cg_kernel`` in {``auto``,
 ``plain``, ``fused``, ``fused1``}, ``p_dtype`` in {None,
-``torch.bfloat16``}, ``defer_x`` (affine meshes), the transposed (n, E)
-layout, ``host_loop``, the float64-certified solve (``certify=True``,
-:func:`..solver.cg.cg_refined_static`), and the global-vector
-:meth:`Poisson.apply_operator` and :meth:`Poisson.solve`.  Not yet: 3D,
-the fdm preconditioner, ``compute_dtype``, the ``en`` layout (ROADMAP
-queues); the signatures are the reference's all the same, and those
-options raise.
+``torch.bfloat16``}, ``defer_x`` (affine meshes); ``host_loop``; the
+float64-certified solve (``certify=True``,
+:func:`..solver.cg.cg_refined_static`); and the global-vector
+:meth:`Poisson.apply_operator` and :meth:`Poisson.solve`.  Not yet: 3D
+(ROADMAP Queue 1 item 9), which raises.
 """
 
 from __future__ import annotations
@@ -76,24 +77,12 @@ def fused_cg_operands(diagT, freeT, wT, p_dtype, device):
     return inv, w_free
 
 
-def _check_unported(precond="jacobi", compute_dtype=None,
-                    vector_layout="auto") -> None:
-    """Raise for the reference's ``solve_local`` options the port has not
-    taken up yet, each naming its ROADMAP item."""
-    if isinstance(precond, str) and precond == "fdm":
-        raise NotImplementedError(
-            "precond='fdm' is not ported yet (ROADMAP Queue 1 item 8)")
-    if not _is_pmg(precond) and precond != "jacobi":
+def _check_options(precond="jacobi", vector_layout="auto") -> None:
+    """Raise ``ValueError`` for an unknown ``precond`` or
+    ``vector_layout`` of ``solve_local`` and ``solve_local_batch``."""
+    if not _is_pmg(precond) and precond not in ("jacobi", "fdm"):
         raise ValueError(f"unknown precond {precond!r}")
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the precision tiers are not "
-            "ported yet (ROADMAP Queue 1 item 15)")
-    if vector_layout == "en":
-        raise NotImplementedError(
-            "vector_layout='en': the Poisson model takes the transposed "
-            "(n, E) 'ne' layout only (ROADMAP Queue 1 item 15)")
-    if vector_layout not in ("auto", "ne"):
+    if vector_layout not in ("auto",) + sumfac.LAYOUTS:
         raise ValueError(f"unknown vector_layout {vector_layout!r}")
 
 
@@ -346,44 +335,83 @@ class Poisson(BoundaryConditionMixin):
             raise ValueError("mesh is not affine but structure='affine'")
         return structure
 
-    def _local_setup(self, device, structure: str = "auto"):
-        """Operators and preconditioner of the L-vector solve on
-        ``device``, cached in ``_op_cache`` (cleared by set_dirichlet) under
-        the resolved structure: an affine and a general operator of one
-        mesh never share an entry."""
-        from ..ops.exchange import make_exchange
+    def _layout(self, vector_layout: str) -> str:
+        """``vector_layout`` resolved as the reference does: ``"auto"`` is
+        ``"ne"`` on a roll-class exchange (:class:`..ops.exchange.
+        RollExchange`, tails or not), else ``"en"``."""
+        from ..ops.exchange import RollExchange, make_exchange
 
         if self._exchange is None:
             self._exchange = make_exchange(self.disc)
+        if vector_layout != "auto":
+            return vector_layout
+        return "ne" if isinstance(self._exchange, RollExchange) else "en"
+
+    def _local_setup(self, device, structure: str = "auto",
+                     compute_dtype=None, vector_layout: str = "ne"):
+        """Operators and Jacobi preconditioner of the L-vector solve on
+        ``device``, in the layout ``vector_layout`` (``"ne"``: (n, E);
+        ``"en"``: (E, n); ``"auto"`` as :meth:`_layout`), cached in
+        ``_op_cache`` (cleared by set_dirichlet) under the resolved
+        structure, the ``compute_dtype`` and the layout: an affine and a
+        general operator of one mesh never share an entry."""
+        layout = self._layout(vector_layout)
         structure = self._structure(structure)
-        key = ("ctx", structure, str(device))
+        key = ("ctx", structure, str(compute_dtype), layout, str(device))
         ctx = self._op_cache.get(key)
         if ctx is not None:
             return ctx
         disc, ex = self.disc, self._exchange
         dt = torch_dtype(self.dtype)
+        transposed = layout == "ne"
         gih = torch.as_tensor(ex.gather_hier, device=device)
 
         def to_local(u_global):
             u = torch.as_tensor(np.asarray(u_global), device=device).to(dt)
-            return u[gih].T.contiguous()
+            lv = u[gih]
+            return lv.T.contiguous() if transposed else lv
 
         Gf = self._G_host.reshape(disc.E, 3, -1)
         Dhat = sumfac.make_stacked_derivative(self._D0_host, self._D1_host)
-        free_np = np.ascontiguousarray(
-            (~self._dirichlet_mask)[ex.gather_hier].T)
+        free_np = (~self._dirichlet_mask)[ex.gather_hier]
+        free_np = np.ascontiguousarray(free_np.T if transposed else free_np)
         free_local = torch.as_tensor(free_np, device=device)
         A_raw = sumfac.make_local_laplacian_operator(
-            ex, Gf, Dhat, None, device=device, structure=structure)
+            ex, Gf, Dhat, None, device=device, structure=structure,
+            vector_layout=layout, compute_dtype=compute_dtype)
         # CG iterates are masked by induction (M masks its output, x0 = 0):
         # skip the apply's input-mask pass (the factor slabs are shared)
         A = A_raw.masked(free_local, assume_masked_input=True)
         M = jacobi_preconditioner(to_local(self.operator_diagonal()),
                                   free_local)
         ctx = dict(ex=ex, to_local=to_local, A=A, A_raw=A_raw, M=M,
-                   free_local=free_local, free_np=free_np, Dhat=Dhat)
+                   free_local=free_local, free_np=free_np, Dhat=Dhat,
+                   vector_layout=layout, transposed=transposed)
         self._op_cache[key] = ctx
         return ctx
+
+    def _precond(self, ctx, precond, device):
+        """The preconditioner of ``precond`` for the solve context ``ctx``:
+        its Jacobi ``M``, the FDM additive Schwarz in its layout (cached
+        under the reference's ``("M", "fdm", layout)`` and the device) or
+        the pmg V-cycle (the ``"ne"`` layout only: ``"en"`` raises
+        ``ValueError``, as in the reference)."""
+        if _is_pmg(precond):
+            if not ctx["transposed"]:
+                raise ValueError("precond='pmg' requires the 'ne' layout")
+            return self._pmg(ctx, precond, device)
+        if precond != "fdm":
+            return ctx["M"]
+        from ..solver.fdm import make_fdm_preconditioner
+
+        layout = ctx["vector_layout"]
+        key = ("M", "fdm", layout, str(device))
+        M = self._op_cache.get(key)
+        if M is None:
+            M = self._op_cache[key] = make_fdm_preconditioner(
+                ctx["ex"], self._G_host, self.disc.basis, ctx["free_local"],
+                dtype=self.dtype, vector_layout=layout, device=device)
+        return M
 
     def _pmg(self, ctx, precond, device):
         """The p-multigrid preconditioner of ``precond`` for the solve
@@ -404,6 +432,12 @@ class Poisson(BoundaryConditionMixin):
                 device=device, **pmg_kw)
         return M
 
+    def _back(self, ctx):
+        """L-vector -> global (n_nodes,) numpy, in the context's layout."""
+        ex = ctx["ex"]
+        return (ex.global_from_local_T if ctx["transposed"]
+                else ex.global_from_local)
+
     def solve_local(self, tol: float = 1e-12, max_iter: int | None = None,
                     host_loop: bool = False,
                     precond: str = "jacobi",
@@ -415,29 +449,42 @@ class Poisson(BoundaryConditionMixin):
                     defer_x: int | str = 0,
                     certify: bool = False,
                     device=None) -> PoissonSolution:
-        """Solve with PCG on element-local (n, E) L-vectors.
+        """Solve with PCG on element-local L-vectors.
 
         The parameters are the reference's, in its order, with ``device``
-        last.  Not ported yet, and raising ``NotImplementedError`` with
-        their ROADMAP item: ``precond="fdm"``, ``compute_dtype`` and
-        ``vector_layout="en"``; ``vector_layout`` ``"auto"`` is ``"ne"``.
+        last.
         ``certify=True`` (float32 models) returns a solution whose
         convergence is certified against the float64-evaluated true
         residual (:meth:`_certified_solve_2d`,
-        :func:`..solver.cg.cg_refined_static`); it ignores ``max_iter``,
+        :func:`..solver.cg.cg_refined_static`) with the preconditioner
+        ``precond`` asks for, in either layout; it ignores ``max_iter``,
         ``cg_kernel``, ``p_dtype`` and ``defer_x``, raises ``ValueError``
         with ``host_loop=True``, and on a float64 model does nothing, as
         in the reference.  ``host_loop=True`` runs
         :func:`..solver.cg.cg_host` (one host read per iteration) with the
-        exchange's weighted ``dot_T``; an explicit fused ``cg_kernel``
-        ignores it, and ``"auto"`` then never fuses.
-        ``precond``: ``"jacobi"``, or ``"pmg"`` / ``{"pmg": {...}}`` — the
-        two-level p-multigrid V-cycle
+        exchange's weighted ``dot_T`` (``dot`` on ``"en"``); an explicit
+        fused ``cg_kernel`` ignores it, and ``"auto"`` then never fuses.
+        ``precond``: ``"jacobi"``; ``"fdm"`` — the element-local FDM
+        additive Schwarz (:func:`..solver.fdm.make_fdm_preconditioner`,
+        in the solve's layout), built once and cached; or ``"pmg"`` /
+        ``{"pmg": {...}}`` — the two-level p-multigrid V-cycle
         (:func:`..solver.pmg.make_pmg_preconditioner`, with the dict's
-        options), built once per option set and cached; pmg runs plain
-        ``cg`` (the fused kernels hard-code Jacobi: ``cg_kernel`` ``"fused"``
-        or ``"fused1"`` with pmg raises ``ValueError``, ``"auto"`` takes
-        plain CG), as in the reference.
+        options; the ``"ne"`` layout only, ``"en"`` raises ``ValueError``
+        as in the reference), built once per option set and cached.  fdm
+        and pmg run plain ``cg`` (``cg_host`` under ``host_loop``): the
+        fused kernels hard-code Jacobi, so ``cg_kernel`` ``"fused"`` or
+        ``"fused1"`` with either raises ``ValueError`` and ``"auto"`` takes
+        plain CG, as in the reference.
+        ``vector_layout``: ``"ne"`` — transposed (n, E) L-vectors (the
+        apply kernels); ``"en"`` — row-major (E, n) ones through
+        :class:`..ops.sumfac.LaplacianEN` (its ``"xla"`` backend, as the
+        reference's ``"auto"``; Jacobi or fdm, plain CG, the exchange's
+        ``dss`` and (E, n) weights); ``"auto"`` — ``"ne"`` on a roll-class
+        exchange, else ``"en"``, the reference's rule.
+        ``compute_dtype`` (e.g. ``torch.bfloat16``): the operator's
+        products round their inputs to it and accumulate in float32
+        (:func:`..ops.sumfac.make_local_laplacian_operator`); the (n, E)
+        operator is then ``"xla"``, as the reference's rule has it.
         ``device``: where the solve runs — ``None`` is the CUDA card (and
         raises when there is none), ``"cpu"`` runs the plain PyTorch
         versions of the kernels.
@@ -447,28 +494,28 @@ class Poisson(BoundaryConditionMixin):
         takes the full-factor apply otherwise
         (:func:`..ops.kernels.general_apply_dss`), ``"general"`` forces
         the latter, ``"affine"`` requires an affine mesh.
-        The operator's backend follows the reference's rule
+        The (n, E) operator's backend follows the reference's rule
         (:func:`..ops.sumfac.ne_backend`): the apply kernels for a float32
-        model on a tail-free roll-class exchange (on the card,
-        ``NotImplementedError`` for an order without an apply kernel),
-        else the ``"xla"`` operator (float64 models, exchanges with
-        tails); the fused CG
-        kernels take the former only, and ``cg_kernel="auto"`` then runs
-        plain CG.
+        model on a tail-free roll-class exchange without a
+        ``compute_dtype`` (on the card, ``NotImplementedError`` for an
+        order without an apply kernel), else the ``"xla"`` operator
+        (float64 models, exchanges with tails, ``compute_dtype``); the
+        fused CG kernels take the former only, and ``cg_kernel="auto"``
+        then runs plain CG.
         ``cg_kernel``: ``"plain"`` — one apply per iteration plus PyTorch
         vector ops; ``"fused"`` — each iteration is a kernel pair, kernel
         A (:func:`..ops.kernels.cg_kernel_a`, or on a curved mesh
         :func:`..ops.kernels.cg_kernel_a_general`) and kernel B
-        (:func:`..ops.kernels.cg_kernel_b`), float32 models only; as in
-        the reference, the pair follows the mesh whatever ``structure``
-        says.  ``"fused1"`` — one kernel per iteration
-        (:func:`..ops.kernels.cg_kernel_single`: the residual update is
-        deferred into the next iteration's kernel, which also computes
-        every dot product), float32 models on affine meshes only (a curved
-        mesh raises, as in the reference).  ``"auto"`` — fused (the pair)
-        when ``p_dtype`` asks for bf16 direction storage on the card, as
-        the reference engages its fused kernels only in that mode; it
-        never picks ``"fused1"``.
+        (:func:`..ops.kernels.cg_kernel_b`), float32 models, Jacobi and
+        ``"ne"`` only; as in the reference, the pair follows the mesh
+        whatever ``structure`` and ``compute_dtype`` say.  ``"fused1"`` —
+        one kernel per iteration (:func:`..ops.kernels.cg_kernel_single`:
+        the residual update is deferred into the next iteration's kernel,
+        which also computes every dot product), float32 models on affine
+        meshes only (a curved mesh raises, as in the reference).
+        ``"auto"`` — fused (the pair) when ``p_dtype`` asks for bf16
+        direction storage on the card, as the reference engages its fused
+        kernels only in that mode; it never picks ``"fused1"``.
         ``p_dtype``: ``torch.bfloat16`` stores the fused-CG search
         direction in bf16 (Ap is computed from the stored direction, so
         the r recurrence stays exact).
@@ -487,21 +534,23 @@ class Poisson(BoundaryConditionMixin):
         dev = resolve_device(device)
         disc = self.disc
         self._check_2d("solve_local")
-        _check_unported(precond, compute_dtype, vector_layout)
+        _check_options(precond, vector_layout)
+        layout = self._layout(vector_layout)
         if certify and np.dtype(self.dtype) == np.float32:
             # before the float32 right-hand side is staged: the certified
             # path builds its own float64 seed
             if host_loop:
                 raise ValueError("certify=True is a device path "
                                  "(host_loop=False)")
-            return self._certified_solve_2d(tol, precond, structure, dev)
+            return self._certified_solve_2d(tol, precond, structure,
+                                            compute_dtype, layout, dev)
         if cg_kernel not in ("auto", "plain", "fused", "fused1"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
 
-        ctx = self._local_setup(dev, structure)
+        ctx = self._local_setup(dev, structure, compute_dtype, layout)
         ex, to_local = ctx["ex"], ctx["to_local"]
-        A, A_raw, M = ctx["A"], ctx["A_raw"], ctx["M"]
+        A, A_raw = ctx["A"], ctx["A_raw"]
         free_local = ctx["free_local"]
 
         # rhs and Dirichlet lift in local form
@@ -521,16 +570,17 @@ class Poisson(BoundaryConditionMixin):
         want_fused = cg_kernel in ("fused", "fused1") or (
             cg_kernel == "auto" and not host_loop and p_dtype is not None
             and dev.type == "cuda")
-        pmg = _is_pmg(precond)
-        if cg_kernel in ("fused", "fused1") and (pmg or not f32):
+        jacobi_ne = precond == "jacobi" and layout == "ne"
+        if cg_kernel in ("fused", "fused1") and not (jacobi_ne and f32):
             raise ValueError(f"cg_kernel={cg_kernel!r} requires "
                              "precond='jacobi', vector_layout='ne' and a "
                              "float32 model")
         # the fused pair follows the mesh, not ``structure`` (the
         # reference's _build_fused_cg)
-        fop = self._local_setup(dev)["A"]
-        if cg_kernel == "auto" and (pmg or fop._backend != "fused" or (
-                defer_x and fop.structure == "general")):
+        fop = self._local_setup(dev)["A"] if jacobi_ne else None
+        if cg_kernel == "auto" and (not jacobi_ne or fop._backend != "fused"
+                                    or (defer_x
+                                        and fop.structure == "general")):
             want_fused = False
         if want_fused and f32:
             key = ("cg_fused1" if single else "cg_fused", str(p_dtype),
@@ -551,49 +601,51 @@ class Poisson(BoundaryConditionMixin):
                            max_iter=max_iter, p_dtype=p_dtype,
                            defer_x=defer_x, A=A)
         else:
-            if pmg:
-                M = self._pmg(ctx, precond, dev)
+            M = self._precond(ctx, precond, dev)
             if host_loop:
                 res = cg_host(A, r, M=M, tol=tol, max_iter=max_iter,
-                              dot=ex.dot_T)
+                              dot=ex.dot_T if ctx["transposed"] else ex.dot)
             else:
-                w = ex.weights_T(self.dtype, dev)
+                w = ex._weights_as(self.dtype, dev,
+                                   transposed=ctx["transposed"])
                 res = cg(A, r, M=M, tol=tol, max_iter=max_iter, dot_weight=w)
         uL = u_dL + res.x.to(u_dL.dtype)
-        u = ex.global_from_local_T(uL.cpu().numpy())
-        return PoissonSolution(u, res)
+        return PoissonSolution(self._back(ctx)(uL.cpu().numpy()), res)
 
-    def _certified_solve_2d(self, tol, precond, structure,
-                            device) -> PoissonSolution:
+    def _certified_solve_2d(self, tol, precond, structure, compute_dtype,
+                            layout, device) -> PoissonSolution:
         """The float64-certified mixed-precision solve (``certify=True``,
         float32 models).
 
         :func:`..solver.cg.cg_refined_static` on the solve's float32
-        operator (the apply kernels) and preconditioner (Jacobi or the
-        cached pmg V-cycle), anchored on ``A_hi``: the ``"xla"`` (n, E)
-        operator of float64 factors with the same values (for an affine
-        mesh rebuilt as the exact rank-1 field ``a (x) W``, so it stays
-        affine; a raw float32 -> float64 upcast fails the affine test),
-        cached in ``_op_cache``.  The float64 seed ``r_hi = free ? b -
-        A_hi(u_d) : 0`` and the lift at the model dtype are cached in
-        ``_bc_cache`` (emptied by ``set_dirichlet`` and ``set_neumann``),
-        so a repeat solve is bit for bit the same.  The dot weights are
-        the exchange's float32 weights on the device.
+        operator (the apply kernels on ``"ne"``, or the ``"xla"`` operator
+        of the layout and ``compute_dtype``) and preconditioner (Jacobi,
+        fdm or the cached pmg V-cycle), anchored on ``A_hi``: the
+        ``"xla"`` operator of the layout with float64 factors of the same
+        values (for an affine mesh rebuilt as the exact rank-1 field ``a (x)
+        W``, so it stays affine; a raw float32 -> float64 upcast fails the
+        affine test), cached in ``_op_cache`` under the layout.  The
+        float64 seed ``r_hi = free ? b - A_hi(u_d) : 0`` and the lift at
+        the model dtype are cached in ``_bc_cache[device][layout]``
+        (emptied by ``set_dirichlet`` and ``set_neumann``), so a repeat
+        solve is bit for bit the same.  The dot weights are the exchange's
+        float32 weights on the device.
 
         ``sol.cg`` is the float64-certified result (its ``x`` float64);
         ``u`` is ``u_d + x`` at the model dtype.  Unlike the reference, no
         host-ladder fallback above :func:`..solver.cg.
         hbm_residency_regime`: that fallback works around TPU compile
-        limits, so every size runs ``cg_refined_static`` on the fused
+        limits, so every size runs ``cg_refined_static`` on the solve's
         operator (ROADMAP Queue 3).
         """
         from ..utils.stages import stage
 
         disc = self.disc
-        ctx = self._local_setup(device, structure)
+        ctx = self._local_setup(device, structure, compute_dtype, layout)
         ex, A, free_local = ctx["ex"], ctx["A"], ctx["free_local"]
-        M = self._pmg(ctx, precond, device) if _is_pmg(precond) else ctx["M"]
-        key = ("A_hi", "ne", str(device))
+        transposed = ctx["transposed"]
+        M = self._precond(ctx, precond, device)
+        key = ("A_hi", layout, str(device))
         A_hi = self._op_cache.get(key)
         if A_hi is None:
             with stage("certify/A_hi"):
@@ -607,26 +659,31 @@ class Poisson(BoundaryConditionMixin):
                     sumfac.make_local_laplacian_operator(
                         ex, Gf64, np.asarray(ctx["Dhat"], np.float64),
                         free_local, assume_masked_input=True, device=device,
-                        backend="xla")
-        seed = self._bc_cache.get(str(device))
+                        vector_layout=layout, backend="xla")
+        seeds = self._bc_cache.setdefault(str(device), {})
+        seed = seeds.get(layout)
         if seed is None:
             with stage("certify/seed"):
+                local = (ex.local_T_from_global if transposed
+                         else ex.local_from_global)
+
                 def to64(v):
-                    return torch.as_tensor(ex.local_T_from_global(
-                        np.asarray(v, np.float64)), device=device)
+                    return torch.as_tensor(np.ascontiguousarray(local(
+                        np.asarray(v, np.float64))), device=device)
 
                 b = np.asarray(self._b, np.float64) + self._neumann
                 u_dL64 = to64(np.where(self._dirichlet_mask,
                                        self._dirichlet_vals, 0.0))
                 r_hi = torch.where(free_local, to64(b) - A_hi(u_dL64), 0.0)
-                seed = self._bc_cache[str(device)] = (
-                    u_dL64.to(torch_dtype(self.dtype)), r_hi)
+                seed = seeds[layout] = (u_dL64.to(torch_dtype(self.dtype)),
+                                        r_hi)
         u_dL, r_hi = seed
-        res = cg_refined_static(A, r_hi, A_hi=A_hi, M=M, tol=tol,
-                                dot_weight=ex.weights_T(torch.float32,
-                                                        device))
+        res = cg_refined_static(
+            A, r_hi, A_hi=A_hi, M=M, tol=tol,
+            dot_weight=ex._weights_as(torch.float32, device,
+                                      transposed=transposed))
         uL = u_dL + res.x.to(u_dL.dtype)
-        return PoissonSolution(ex.global_from_local_T(uL.cpu().numpy()), res)
+        return PoissonSolution(self._back(ctx)(uL.cpu().numpy()), res)
 
     def solve_local_batch(self, forcings, tol: float = 1e-12,
                           max_iter: int | None = None,
@@ -650,21 +707,27 @@ class Poisson(BoundaryConditionMixin):
         or scalars), or a (k, n_nodes) array of nodal forcing values (the
         weak RHS is formed here in either case).  The parameters are the
         reference's, in its order, with ``device`` last; ``device``,
-        ``structure``, ``precond`` and the unported options
-        (``compute_dtype``, ``vector_layout="en"``) as in
-        :meth:`solve_local`.  pmg takes plain batched CG with the stacked
-        V-cycle (the reference's ``jax.vmap(M)``: one batched launch per
-        apply of each level for the whole stack).
+        ``structure``, ``precond``, ``compute_dtype`` and
+        ``vector_layout`` as in :meth:`solve_local`.  On ``"ne"`` the plain
+        ladder runs :func:`..solver.cg.cg_batched` in whole-batch mode on
+        the k-stack operator (one launch per apply for the stack), with the
+        preconditioner on the whole stack: Jacobi, fdm (one batched product
+        per transform) or the stacked V-cycle (the reference's
+        ``jax.vmap(M)``: one batched launch per apply of each level).  On
+        ``"en"`` it runs ``cg_batched`` in its per-RHS mode with the
+        single-vector operator and preconditioner, as the reference vmaps
+        them.
         ``cg_kernel``: ``"plain"`` — :func:`..solver.cg.cg_batched` over the
         k-stack apply (:func:`..ops.kernels.affine_apply_dss_batched` or
         :func:`..ops.kernels.general_apply_dss_batched`); ``"fused"`` —
         :func:`..solver.cg.cg_fused_batched` over the batched kernel pair
-        of the mesh (float32 models; ``p_dtype=torch.bfloat16`` stores the
-        k directions in bf16); ``"auto"`` — fused when ``p_dtype`` asks for
-        bf16 on the card and the mesh is curved, or k >= 2, or the iterate
-        is past :func:`..solver.cg.hbm_residency_regime`, as the reference
-        decides.  ``defer_x``: m >= 2 dividing 64 defers every RHS's
-        solution update (fused, affine meshes: on a curved mesh an
+        of the mesh (float32 models, Jacobi, ``"ne"``;
+        ``p_dtype=torch.bfloat16`` stores the k directions in bf16);
+        ``"auto"`` — fused when ``p_dtype`` asks for bf16 on the card for a
+        Jacobi ``"ne"`` solve and the mesh is curved, or k >= 2, or the
+        iterate is past :func:`..solver.cg.hbm_residency_regime`, as the
+        reference decides.  ``defer_x``: m >= 2 dividing 64 defers every
+        RHS's solution update (fused, affine meshes: on a curved mesh an
         explicit m raises and ``"auto"`` drops it, as in the reference);
         ``"auto"`` resolves by :func:`..solver.cg.auto_defer_x_batched`.
 
@@ -674,15 +737,13 @@ class Poisson(BoundaryConditionMixin):
         dev = resolve_device(device)
         disc = self.disc
         self._check_2d("solve_local_batch")
-        _check_unported(precond=precond, compute_dtype=compute_dtype,
-                        vector_layout=vector_layout)
+        _check_options(precond, vector_layout)
         if cg_kernel not in ("auto", "plain", "fused"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
         _check_p_dtype(p_dtype)
-
-        ctx = self._local_setup(dev, structure)
+        ctx = self._local_setup(dev, structure, compute_dtype, vector_layout)
         ex, to_local = ctx["ex"], ctx["to_local"]
-        free_local = ctx["free_local"]
+        free_local, transposed = ctx["free_local"], ctx["transposed"]
 
         # weak RHS rows: b_j = scatter(f_j detJxW) + the shared Neumann data
         coords = [disc.x_coeffs[:, d] for d in range(disc.mesh.ndim)]
@@ -710,22 +771,20 @@ class Poisson(BoundaryConditionMixin):
         if defer_auto:
             defer_x = auto_defer_x_batched(ex.E, disc.n_loc, k)
         f32 = np.dtype(self.dtype) == np.float32
+        jacobi_ne = precond == "jacobi" and transposed
         # the fused pair follows the mesh, not ``structure`` (the
         # reference's routing)
-        fop = self._local_setup(dev)["A"]
-        curved = fop.structure == "general"
-        pmg = _is_pmg(precond)
+        fop = self._local_setup(dev)["A"] if jacobi_ne else None
+        curved = fop is not None and fop.structure == "general"
         if cg_kernel == "auto":
-            cg_kernel = ("fused" if p_dtype is not None and f32 and not pmg
+            cg_kernel = ("fused" if p_dtype is not None and f32 and jacobi_ne
                          and dev.type == "cuda" and fop._backend == "fused"
                          and (curved or k >= 2
                               or hbm_residency_regime(ex.E, disc.n_loc))
                          else "plain")
-        if cg_kernel == "fused" and (pmg or not f32):
+        if cg_kernel == "fused" and not (jacobi_ne and f32):
             raise ValueError("batched fused CG requires the 'ne' layout, "
                              "precond='jacobi' and float32")
-        # the masked operator on the k-stack (buffers shared with ctx)
-        A_wb = ctx["A"].stacked(k)
 
         if cg_kernel == "fused":
             if curved and defer_x:
@@ -744,6 +803,8 @@ class Poisson(BoundaryConditionMixin):
                                              dev))
             kA, kB, inv, w_free = fused
             n = disc.n_loc
+            # the masked operator on the k-stack (buffers shared with ctx)
+            A_wb = ctx["A"].stacked(k)
 
             def A_flat(xf):
                 # the masked operator on flat (k n, E) stacks, for the
@@ -755,13 +816,15 @@ class Poisson(BoundaryConditionMixin):
                                    p_dtype=p_dtype, defer_x=defer_x,
                                    A=A_flat)
         else:
-            M = self._pmg(ctx, precond, dev) if pmg else ctx["M"]
-            w = ex.weights_T(self.dtype, dev)
-            res = cg_batched(A_wb, R, M=M, tol=tol, max_iter=max_iter,
-                             dot_weight=w, whole_batch=True)
+            M = self._precond(ctx, precond, dev)
+            w = ex._weights_as(self.dtype, dev, transposed=transposed)
+            A = ctx["A"].stacked(k) if transposed else ctx["A"]
+            res = cg_batched(A, R, M=M, tol=tol, max_iter=max_iter,
+                             dot_weight=w, whole_batch=transposed)
         # one device-to-host copy for the whole batch
         X = (res.x.to(u_dL.dtype) + u_dL).cpu().numpy()
-        u = np.stack([ex.global_from_local_T(X[j]) for j in range(k)])
+        back = self._back(ctx)
+        u = np.stack([back(X[j]) for j in range(k)])
         return PoissonSolution(u, res)
 
     def _fused_cg_operands(self, ex, free_np, p_dtype, device):

@@ -87,6 +87,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..config import check_precision
 from .exchange import DSSPlan, roll_dss_T
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -1025,7 +1026,8 @@ def cg_kernel_b_batched(r, Ap, inv, w_free, alpha):
 
 def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
                           plan: DSSPlan, *, defer_x: bool = False,
-                          factors: AffineFactors | None = None):
+                          factors: AffineFactors | None = None,
+                          precision: str = "high"):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused`: kernel A bound to one
     affine operator (``Kst``, ``aT``, ``plan`` and ``factors``, the
     :class:`AffineFactors` its kernel reads on a CUDA device), and kernel
@@ -1034,7 +1036,11 @@ def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
     ``defer_x=True``: ``kA(r, p, inv, beta) -> (p', Ap', dparts)`` without
     the x update, for ``cg_fused(defer_x=m)``; otherwise
     ``kA(r, p, inv, x, beta, alpha_prev) -> (p', Ap', x', dparts)``.
-    ``kA.defer_x`` records which, ``kA.factors`` the factors."""
+    ``kA.defer_x`` records which, ``kA.factors`` the factors.
+    ``precision``: the reference's tier (its default ``"high"``), recorded
+    as ``kA.precision``; the kernels compute true float32 at every tier and
+    an unknown one raises ``ValueError``."""
+    check_precision(precision)
     if defer_x:
         def kA(r, p, inv, beta):
             return cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan,
@@ -1044,17 +1050,20 @@ def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
             return cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan,
                                factors=factors)
     kA.defer_x, kA.n_rhs, kA.factors = bool(defer_x), 1, factors
+    kA.precision = precision
     return kA, cg_kernel_b
 
 
 def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
                                   plan: DSSPlan, n_rhs: int, *,
                                   defer_x: bool = False,
-                                  factors: AffineFactors | None = None):
+                                  factors: AffineFactors | None = None,
+                                  precision: str = "high"):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused_batched` on (k * n, E)
     stacks of ``n_rhs`` right-hand sides (per-RHS scalars (k,), partials
-    (G, k)); ``defer_x`` and ``factors`` as in
+    (G, k)); ``defer_x``, ``factors`` and ``precision`` as in
     :func:`make_fused_cg_kernels`."""
+    check_precision(precision)
     if n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     if defer_x:
@@ -1066,6 +1075,7 @@ def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
             return cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst,
                                        aT, plan, factors=factors)
     kA.defer_x, kA.n_rhs, kA.factors = bool(defer_x), int(n_rhs), factors
+    kA.precision = precision
     return kA, cg_kernel_b_batched
 
 
@@ -1256,7 +1266,8 @@ def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
 def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
                                   hier: torch.Tensor, plan: DSSPlan,
                                   n_rhs: int | None = None, *,
-                                  factors: GeneralFactors | None = None):
+                                  factors: GeneralFactors | None = None,
+                                  precision: str = "high"):
     """``(kA, kB)`` on a curved mesh: the general kernel A bound to one
     operator (``gT``, ``Dh``, ``hier``, ``plan`` and ``factors``, the
     :class:`GeneralFactors` its kernel reads on a CUDA device) and the
@@ -1268,7 +1279,8 @@ def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
     general kernels have no deferred-x mode: ``kA.defer_x`` is False and
     ``kA.offers_defer_x`` makes :func:`..solver.cg.cg_fused` and
     ``cg_fused_batched`` refuse ``defer_x``.  ``kA.factors`` records the
-    factors."""
+    factors; ``precision`` as in :func:`make_fused_cg_kernels`."""
+    check_precision(precision)
     if n_rhs is not None and n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     fn = (cg_kernel_a_general if n_rhs is None
@@ -1280,7 +1292,7 @@ def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
 
     kA.defer_x, kA.offers_defer_x = False, False
     kA.n_rhs = 1 if n_rhs is None else int(n_rhs)
-    kA.factors = factors
+    kA.factors, kA.precision = factors, precision
     return kA, cg_kernel_b if n_rhs is None else cg_kernel_b_batched
 
 
@@ -1564,16 +1576,18 @@ def cg_kernel_single_deferred(r, Ap, p, inv, w_free, alpha_prev, beta, Kst,
 
 def make_fused_cg_kernel_single(Kst: torch.Tensor, aT: torch.Tensor,
                                 plan: DSSPlan, *, defer_x: bool = False,
-                                factors: AffineFactors | None = None):
+                                factors: AffineFactors | None = None,
+                                precision: str = "high"):
     """``kAB`` for :func:`..solver.cg.cg_fused` with ``kB=None``: the single
     kernel bound to one affine operator (``Kst``, ``aT``, ``plan`` and
-    ``factors``, as in :func:`make_fused_cg_kernels`).
+    ``factors``, as in :func:`make_fused_cg_kernels`; ``precision`` too).
 
     ``kAB(r, Ap, p, x, inv, w_free, alpha_prev, beta) -> (r', p', Ap', x',
     parts)``; with ``defer_x=True``, ``kAB(r, Ap, p, inv, w_free,
     alpha_prev, beta) -> (r', p', Ap', parts)`` for ``cg_fused(defer_x=m)``.
     ``kAB.single`` is True, ``kAB.defer_x`` records which and
     ``kAB.factors`` the factors."""
+    check_precision(precision)
     if defer_x:
         def kAB(r, Ap, p, inv, w_free, alpha_prev, beta):
             return cg_kernel_single_deferred(r, Ap, p, inv, w_free,
@@ -1584,6 +1598,7 @@ def make_fused_cg_kernel_single(Kst: torch.Tensor, aT: torch.Tensor,
             return cg_kernel_single(r, Ap, p, x, inv, w_free, alpha_prev,
                                     beta, Kst, aT, plan, factors=factors)
     kAB.single, kAB.defer_x, kAB.factors = True, bool(defer_x), factors
+    kAB.precision = precision
     return kAB
 
 

@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from ..basis import gll_basis_2d
-from ..config import canonical_device, resolve_device, torch_dtype
+from ..config import (canonical_device, check_precision, resolve_device,
+                      torch_dtype)
 from ..mesh.geometry import Quadrilateral
 from . import kernels
 from .exchange import DSSPlan, edges_first_order
@@ -274,6 +275,13 @@ def _general_factors(Dh, hier, device) -> kernels.GeneralFactors | None:
                            np.shape(Dh)[-1], device)
 
 
+def _rounded(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x`` rounded to ``compute_dtype`` and held in float32: products of
+    such operands are exact in float32 and their sums accumulate there, the
+    reference's ``preferred_element_type=float32`` dots."""
+    return x.to(compute_dtype).to(torch.float32)
+
+
 class LaplacianT(torch.nn.Module):
     """Weak Laplacian on (n, E) L-vectors, or on (n_rhs, n, E) stacks
     (:meth:`stacked`): the Dirichlet masking shared by the affine and the
@@ -293,6 +301,13 @@ class LaplacianT(torch.nn.Module):
     iterates, which saves one pass per apply).  ``plan`` is the exchange's
     :class:`.DSSPlan` on the operator's device.
 
+    ``compute_dtype`` (the ``"xla"`` operator only): the dtype the product
+    rounds its inputs to (the vector, the scaled vector or the fluxes, and
+    the element matrices), accumulating in float32 and returning the
+    vector's dtype, as the reference's reduced-precision products do.
+    ``precision``: the reference's tier (:data:`..config.PRECISIONS`);
+    every tier computes true float32 here.
+
     ``max_halo`` (the reference's, on its single-RHS applies): an integer
     sends the classes with |delta| above it through the far update
     (``far_plan`` is then the far half of the plan); ``None`` or
@@ -310,8 +325,17 @@ class LaplacianT(torch.nn.Module):
 
     def __init__(self, plan: DSSPlan | None, n: int, free_local=None,
                  assume_masked_input: bool = False, max_halo="auto",
-                 far_mode: str = "auto", *, exchange=None, device=None):
+                 far_mode: str = "auto", *, exchange=None, device=None,
+                 compute_dtype=None, precision: str = "highest"):
         super().__init__()
+        #: the precision tier asked for (every tier computes true float32)
+        self.precision = check_precision(precision)
+        #: the dtype the "xla" product rounds its inputs to, or None
+        self.compute_dtype = torch_dtype(compute_dtype)
+        if plan is not None and compute_dtype is not None:
+            raise ValueError(
+                f"compute_dtype={compute_dtype!r} is an 'xla' option: the "
+                "apply kernels compute in float32 (use precision=)")
         if plan is None:
             if exchange is None:
                 raise ValueError("the 'xla' operator (plan=None) takes the "
@@ -434,11 +458,12 @@ class AffineLaplacianT(LaplacianT):
     def __init__(self, Kcat, a, plan: DSSPlan | None, free_local=None,
                  assume_masked_input: bool = False, dtype=torch.float32,
                  max_halo="auto", far_mode: str = "auto", *, exchange=None,
-                 device=None):
+                 device=None, compute_dtype=None, precision: str = "highest"):
         Kcat = np.asarray(Kcat, dtype=np.float64)
         n = Kcat.shape[0]
         super().__init__(plan, n, free_local, assume_masked_input, max_halo,
-                         far_mode, exchange=exchange, device=device)
+                         far_mode, exchange=exchange, device=device,
+                         compute_dtype=compute_dtype, precision=precision)
         dev = self.device
         Kst = np.stack([Kcat[:, c * n:(c + 1) * n] for c in range(3)])
         self.register_buffer(
@@ -451,7 +476,12 @@ class AffineLaplacianT(LaplacianT):
                         if self._backend == "fused" else None)
 
     def _local(self, uT):
-        return kernels._local_product(uT, self.Kst, self.aT)
+        cd = self.compute_dtype
+        if cd is None:
+            return kernels._local_product(uT, self.Kst, self.aT)
+        S = sum(torch.matmul(_rounded(self.Kst[c], cd),
+                             _rounded(uT * self.aT[c], cd)) for c in range(3))
+        return S.to(uT.dtype)
 
     def _apply(self, uT):
         return self._split_apply(
@@ -511,11 +541,13 @@ class GeneralLaplacianT(LaplacianT):
     def __init__(self, Gf, Dhat, hier, plan: DSSPlan | None,
                  free_local=None, assume_masked_input: bool = False,
                  dtype=torch.float32, max_halo="auto",
-                 far_mode: str = "auto", *, exchange=None, device=None):
+                 far_mode: str = "auto", *, exchange=None, device=None,
+                 compute_dtype=None, precision: str = "highest"):
         Gf = np.asarray(Gf)
         E, three, n = Gf.shape
         super().__init__(plan, n, free_local, assume_masked_input, max_halo,
-                         far_mode, exchange=exchange, device=device)
+                         far_mode, exchange=exchange, device=device,
+                         compute_dtype=compute_dtype, precision=precision)
         if three != 3 or E != self.E:
             raise ValueError(f"factors of shape {Gf.shape}; expected "
                              f"({self.E}, 3, n)")
@@ -535,7 +567,16 @@ class GeneralLaplacianT(LaplacianT):
             "hier", torch.as_tensor(hier.astype(np.int32), device=dev))
 
     def _local(self, uT):
-        return kernels._general_local(uT, self.gT, self.Dh)
+        cd = self.compute_dtype
+        if cd is None:
+            return kernels._general_local(uT, self.gT, self.Dh)
+        n, g = self.n_loc, self.gT
+        D = _rounded(self.Dh, cd)
+        grads = torch.matmul(D, _rounded(uT, cd))
+        ur, us = grads[..., :n, :], grads[..., n:, :]
+        flux = torch.cat([_rounded(g[0] * ur + g[1] * us, cd),
+                          _rounded(g[1] * ur + g[2] * us, cd)], dim=-2)
+        return torch.matmul(D.T, flux).to(uT.dtype)
 
     def _apply(self, uT):
         return self._split_apply(
@@ -593,14 +634,22 @@ class LaplacianEN(torch.nn.Module):
       when ``Dhat`` has no such form; on a CUDA device that raises).
 
     ``free_local`` (optional (E, n) bool) masks input and output, as in
-    :class:`LaplacianT`.  ``_structure`` and ``_backend`` name the resolved
-    choice, as the reference's operator does.
+    :class:`LaplacianT`; ``compute_dtype`` (``"xla"`` only) and
+    ``precision`` as there.  ``_structure`` and ``_backend`` name the
+    resolved choice, as the reference's operator does.
     """
 
     def __init__(self, Gf, Dhat, hier, dss, *, backend: str = "xla",
                  affine=None, free_local=None, dtype=torch.float32,
-                 device="cpu"):
+                 device="cpu", compute_dtype=None,
+                 precision: str = "highest"):
         super().__init__()
+        self.precision = check_precision(precision)
+        self.compute_dtype = torch_dtype(compute_dtype)
+        if backend == "pallas" and compute_dtype is not None:
+            raise ValueError(
+                f"compute_dtype={compute_dtype!r} is an 'xla' option: the "
+                "element-local kernel computes in float32 (use precision=)")
         Gf = np.asarray(Gf)
         if Gf.ndim != 3 or Gf.shape[1] != 3:
             raise ValueError(f"factors of shape {Gf.shape}; expected "
@@ -627,9 +676,24 @@ class LaplacianEN(torch.nn.Module):
                 np.asarray(a, np.float64), device=device).to(dtype))
             self.register_buffer("Kcat", torch.as_tensor(
                 np.asarray(Kcat, np.float64), device=device).to(dtype))
+        #: the factor slabs rounded to compute_dtype, built once
+        self.register_buffer(
+            "g_rounded", None if self.compute_dtype is None
+            or affine is not None else _rounded(self.g, self.compute_dtype))
         self.register_buffer(
             "free", None if free_local is None
             else torch.as_tensor(free_local, device=device))
+
+    def masked(self, free_local, assume_masked_input: bool = False):
+        """This operator with another Dirichlet mask (None: unmasked); the
+        other buffers are shared.  ``assume_masked_input`` is accepted and
+        ignored: the (E, n) operator masks its input, as the reference's
+        does."""
+        op = copy.copy(self)
+        op._buffers = dict(self._buffers)
+        op.free = (None if free_local is None
+                   else torch.as_tensor(free_local, device=self.Dh.device))
+        return op
 
     def local(self, uL: torch.Tensor) -> torch.Tensor:
         """The element-local product, without the DSS."""
@@ -640,13 +704,24 @@ class LaplacianEN(torch.nn.Module):
             return kernels.laplacian_local_batched(uL, self.g, self.Dh,
                                                    self.hier,
                                                    factors=self.factors)
+        cd = self.compute_dtype
         if self._structure == "affine":
             n = self.Kcat.shape[0]
-            V = torch.matmul(uL, self.Kcat)                   # (..., E, 3n)
+            V = (torch.matmul(uL, self.Kcat) if cd is None else torch.matmul(
+                _rounded(uL, cd), _rounded(self.Kcat, cd)))   # (..., E, 3n)
             a = self.a
             return (a[:, 0:1] * V[..., :n] + a[:, 1:2] * V[..., n:2 * n]
-                    + a[:, 2:3] * V[..., 2 * n:])
-        return kernels.laplacian_local_plain(uL, self.g, self.Dh, self.hier)
+                    + a[:, 2:3] * V[..., 2 * n:]).to(uL.dtype)
+        if cd is None:
+            return kernels.laplacian_local_plain(uL, self.g, self.Dh,
+                                                 self.hier)
+        n = self.Dh.shape[1]
+        D, g = _rounded(self.Dh, cd), self.g_rounded
+        grads = torch.matmul(_rounded(uL, cd), D.T)          # (..., E, 2n)
+        ur, us = grads[..., :n], grads[..., n:]
+        flux = torch.cat([_rounded(g[0] * ur + g[1] * us, cd),
+                          _rounded(g[1] * ur + g[2] * us, cd)], dim=-1)
+        return torch.matmul(flux, D).to(uL.dtype)
 
     def forward(self, uL: torch.Tensor) -> torch.Tensor:
         if self.free is not None:
@@ -696,7 +771,8 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
                                   vector_layout: str = "ne",
                                   backend: str = "auto",
                                   compute_dtype=None, max_halo="auto",
-                                  far_mode: str = "auto"):
+                                  far_mode: str = "auto",
+                                  precision: str = "highest"):
     """Weak Laplacian acting on hierarchical L-vectors.
 
     ``Gf``: (E, 3, n) lex-flattened geometric factors; their dtype is the
@@ -722,8 +798,9 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
       float64, exchanges with tails and the generic
       :class:`.LocalExchange`; no kernel is launched;
     * ``"auto"`` — the reference's ``fused_ok`` rule: ``"fused"`` for
-      float32 factors on a tail-free roll-class exchange (raising as
-      ``"fused"`` does for an order without a kernel), else ``"xla"``.
+      float32 factors on a tail-free roll-class exchange without a
+      ``compute_dtype`` (raising as ``"fused"`` does for an order without a
+      kernel), else ``"xla"``.
 
     The choice is made here, once, from the operator's static properties,
     and recorded as the operator's ``_backend``; nothing retries another
@@ -736,15 +813,19 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
     ``free_local``: optional bool mask in the operator's layout for
     symmetric Dirichlet elimination; ``assume_masked_input`` (the (n, E)
     operators only, as in the reference) skips its input pass.
-    ``compute_dtype`` (reduced-precision
-    products) is not ported: anything but None raises.  ``max_halo`` and
+    ``compute_dtype`` (e.g. ``torch.bfloat16``; the ``"xla"`` operators of
+    both layouts): the product's inputs are rounded to it, the sums
+    accumulate in float32 and the result has the vector's dtype, as in the
+    reference; ``backend="fused"`` or ``"pallas"`` with one raises
+    ``ValueError`` (the kernels compute in float32; the reference's rule).
+    ``precision``: ``"highest"``, ``"high"`` or ``"default"`` (another
+    raises ``ValueError``); every tier computes true float32, on the
+    kernels and in PyTorch, where the TPU's lower tiers take bf16 passes
+    (a deliberate divergence, ROADMAP Queue 3).  ``max_halo`` and
     ``far_mode`` (the fused (n, E) operators only) as in
     :class:`LaplacianT`.
     """
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the precision tiers are not "
-            "ported yet (ROADMAP, ground rules)")
+    check_precision(precision)
     if structure not in STRUCTURES:
         raise ValueError(f"unknown structure {structure!r}")
     if vector_layout not in LAYOUTS:
@@ -781,14 +862,17 @@ def make_local_laplacian_operator(exchange, Gf, Dhat, free_local=None,
                              "'en' layout has no split")
         return LaplacianEN(Gf, Dhat, exchange.hier, exchange.dss,
                            backend=backend, affine=affine,
-                           free_local=free_local, dtype=dtype, device=dev)
-    backend = ne_backend(exchange, dtype, Gf.shape[-1], dev, backend)
+                           free_local=free_local, dtype=dtype, device=dev,
+                           compute_dtype=compute_dtype, precision=precision)
+    backend = ne_backend(exchange, dtype, Gf.shape[-1], dev, backend,
+                         compute_dtype)
     if backend == "fused":
         where = dict(plan=exchange.plan(dev))
     else:
         where = dict(plan=None, exchange=exchange, device=dev)
     kw = dict(assume_masked_input=assume_masked_input, dtype=dtype,
-              max_halo=max_halo, far_mode=far_mode)
+              max_halo=max_halo, far_mode=far_mode,
+              compute_dtype=compute_dtype, precision=precision)
     if affine is not None:
         return AffineLaplacianT(affine[1], affine[0],
                                 free_local=free_local, **where, **kw)
@@ -802,17 +886,17 @@ NE_BACKENDS = ("auto", "fused", "xla")
 
 
 def ne_backend(exchange, dtype, n: int, device,
-               backend: str = "auto") -> str:
+               backend: str = "auto", compute_dtype=None) -> str:
     """``backend`` of an (n, E) operator on ``device`` resolved to
     ``"fused"`` or ``"xla"`` by the reference's ``fused_ok`` rule: the apply
-    kernels take float32 factors (``dtype``) and a tail-free roll-class
-    exchange.  ``"auto"`` takes ``"fused"`` where both hold, else
-    ``"xla"``; ``"fused"`` raises ``ValueError`` where one fails; ``"xla"``
-    stays.  A fused operator on a CUDA device also needs an apply kernel
-    compiled for its n (:data:`.kernels.APPLY_N`): without one it raises
-    ``NotImplementedError``, whichever of ``"auto"`` and ``"fused"`` chose
-    it (the reference's rule has no such limit, so ``"auto"`` does not
-    turn to ``"xla"`` for it).  For an exchange of p = 1 elements (4 nodes
+    kernels take float32 factors (``dtype``), a tail-free roll-class
+    exchange and no ``compute_dtype``.  ``"auto"`` takes ``"fused"`` where
+    all hold, else ``"xla"``; ``"fused"`` raises ``ValueError`` where one
+    fails; ``"xla"`` stays.  A fused operator on a CUDA device also needs
+    an apply kernel compiled for its n (:data:`.kernels.APPLY_N`): without
+    one it raises ``NotImplementedError``, whichever of ``"auto"`` and
+    ``"fused"`` chose it (the reference's rule has no such limit, so
+    ``"auto"`` does not turn to ``"xla"`` for it).  For an exchange of p = 1 elements (4 nodes
     each) it builds the p = 1 kernels' class tables of the exchange's plan
     (:func:`.kernels.p1_classes`, one RHS and stacks) here, so a plan
     beyond their limits raises ``ValueError`` when the operator is built
@@ -824,6 +908,9 @@ def ne_backend(exchange, dtype, n: int, device,
     why = []
     if torch_dtype(dtype) != torch.float32:
         why.append(f"float32 factors, got {torch_dtype(dtype)}")
+    if compute_dtype is not None:
+        why.append(f"no compute_dtype override (got {compute_dtype}; the "
+                   "kernels compute in float32: use precision=)")
     if not hasattr(exchange, "plan") or exchange.n_edge_tail or \
             exchange.n_vert_tail:
         why.append("a tail-free roll-class exchange (RollExchange), got "
@@ -852,7 +939,8 @@ def make_multi_rhs_laplacian_T(exchange, Gf, Dhat, n_rhs: int,
                                free_local=None,
                                assume_masked_input: bool = False,
                                device=None, structure: str = "auto",
-                               backend: str = "auto"):
+                               backend: str = "auto", compute_dtype=None,
+                               precision: str = "highest"):
     """Batched-RHS transposed weak Laplacian: (k, n, E) -> (k, n, E).
 
     The ``n_rhs`` right-hand sides share one operator (the affine blocks
@@ -862,11 +950,12 @@ def make_multi_rhs_laplacian_T(exchange, Gf, Dhat, n_rhs: int,
     :func:`.kernels.general_apply_dss_batched` for the whole stack, which
     reads the slabs once per element tile for all k; the ``"xla"`` one by
     batched tensor operations and ``dss_T``.  ``free_local`` masks each
-    RHS.  Arguments, ``backend`` among them, as in
-    :func:`make_local_laplacian_operator`.
+    RHS.  Arguments, ``backend``, ``compute_dtype`` and ``precision`` among
+    them, as in :func:`make_local_laplacian_operator`.
     """
     if n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     return make_local_laplacian_operator(
         exchange, Gf, Dhat, free_local, assume_masked_input, device,
-        structure, backend=backend).stacked(n_rhs)
+        structure, backend=backend, compute_dtype=compute_dtype,
+        precision=precision).stacked(n_rhs)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import check_precision
 from ..ops import kernels, sumfac
 
 ELEM_AXIS = "elements"
@@ -231,20 +232,17 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     affine scales of the exchange's (padded) elements; ``mesh``: a
     :func:`.sharding.device_mesh` (its ``size`` shards, its ``device``);
     ``free_local``: optional (n, E) bool Dirichlet mask.  Returns ``A(uT)``
-    on (n_loc, E) float32 tensors.  ``precision`` other than ``"highest"``
-    raises (the kernel is true f32; the precision tiers are ROADMAP Queue 1
-    item 15), and so does ``interpret=True`` (a Pallas mode; CPU tensors run
-    the kernel's plain version).
+    on (n_loc, E) float32 tensors.  ``precision``: ``"highest"``, ``"high"``
+    or ``"default"`` (another raises ``ValueError``); the kernel computes
+    true float32 at every tier (ROADMAP Queue 3).  ``interpret=True`` raises
+    (a Pallas mode; CPU tensors run the kernel's plain version).
 
     Unlike the reference, the halo is not rounded up to 128 lanes and needs
     no tiling search, so a shard block only has to be as wide as ``H``.
     Redundant compute: each shard re-applies the operator on its 2H halo
     columns, a 2 H S / E fraction.
     """
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r}: the precision tiers are not ported "
-            "yet (ROADMAP Queue 1 item 15)")
+    check_precision(precision)
     if interpret:
         raise ValueError("interpret=True is a Pallas mode; CPU tensors run "
                          "the block kernel's plain version")
@@ -329,13 +327,10 @@ def make_sharded_local_operator(exchange, Gf, Dhat, mesh,
     Dirichlet mask.  Returns ``A(uT)`` on (n_loc, E) tensors of the factors'
     dtype (float64 works: no kernel is involved).  The local product runs
     per shard block in plain PyTorch; only the DSS strips cross blocks.
-    ``precision`` other than ``"highest"`` raises (ROADMAP Queue 1 item
-    15).
+    ``precision`` as in :func:`make_sharded_fused_operator`: every tier
+    computes in the factors' dtype.
     """
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision={precision!r}: the precision tiers are not ported "
-            "yet (ROADMAP Queue 1 item 15)")
+    check_precision(precision)
     ex = _check_exchange(exchange)
     n, E = ex.n_loc, ex.E
     S = int(mesh.size)

@@ -12,9 +12,10 @@ Port of the main-path solvers of the JAX package's ``solver/cg.py``:
   caught up once per m iterations) and the true-residual restart; or one
   kernel per iteration (``kB=None``), the residual update deferred into
   the next kernel;
-* :func:`cg_batched` (whole-batch mode) and :func:`cg_fused_batched` — the
-  same for a stack of k right-hand sides sharing one operator, with
-  per-RHS scalars and freezing and one host ladder;
+* :func:`cg_batched` and :func:`cg_fused_batched` — the same for a stack
+  of k right-hand sides sharing one operator, with per-RHS scalars and
+  freezing and one host ladder (``cg_batched``: a batched operator, or
+  one that acts on one vector and is called per RHS);
 * :func:`cg_host` — PCG with a plain host loop (one host read of the
   residual norm per iteration), for small and one-off solves;
 * :func:`cg_refined` and :func:`cg_refined_static` — mixed-precision
@@ -26,8 +27,7 @@ Port of the main-path solvers of the JAX package's ``solver/cg.py``:
 
 Each iteration is a Python loop over device tensors: the scalars (alpha,
 beta, the stopping state) stay on the device and are read back once per
-block.  ``cg_batched``'s vmapped mode is not ported yet (ROADMAP Queue 1
-item 5).
+block.
 """
 
 from __future__ import annotations
@@ -464,21 +464,23 @@ def cg_batched(
     """Solve ``A x_j = b_j`` for a (k, ...) stack of right-hand sides from
     ``x0 = 0``.
 
-    Whole-batch mode (``whole_batch=True``, the only one ported): ``A`` and
-    ``M`` act on the full stack each iteration (the multi-RHS operator of
-    :func:`..ops.sumfac.make_multi_rhs_laplacian_T`); ``dot_weight`` is
-    unbatched and broadcasts over k.  Each RHS carries its own alpha, beta
-    and stopping state and freezes independently (alpha = 0); one host
-    read of the three (k,) vectors per ladder block serves all k solves,
-    and the ladder runs until every RHS is converged, diverged or out of
-    budget.  The best block-boundary state is kept per RHS.  The fields of
-    the result are batched: ``x`` (k, ...), the rest (k,).
+    By default (the reference's vmapped mode) ``A`` and ``M`` act on ONE
+    unbatched vector each, as in :func:`cg`, and each iteration calls them
+    once per RHS (the reference's ``jax.vmap`` over the batch: the same
+    numbers).  ``whole_batch=True`` passes the full stack to ``A`` and
+    ``M`` each iteration instead (the multi-RHS operator of
+    :func:`..ops.sumfac.make_multi_rhs_laplacian_T`, one launch for the
+    stack).  ``dot_weight`` is unbatched and broadcasts over k.  Each RHS
+    carries its own alpha, beta and stopping state and freezes
+    independently (alpha = 0); one host read of the three (k,) vectors per
+    ladder block serves all k solves, and the ladder runs until every RHS
+    is converged, diverged or out of budget.  The best block-boundary state
+    is kept per RHS.  The fields of the result are batched: ``x`` (k,
+    ...), the rest (k,).
     """
     if not whole_batch:
-        raise NotImplementedError(
-            "cg_batched's vmapped mode (A and M on one unbatched vector "
-            "each) is not ported (ROADMAP Queue 1 item 5); pass "
-            "whole_batch=True with batched A and M")
+        A = _per_rhs(A)
+        M = None if M is None else _per_rhs(M)
     if M is None:
         M = _identity
     w = dot_weight
@@ -537,6 +539,14 @@ def cg_batched(
 
     s = best_state
     return CGResult(s.x, s.k, torch.sqrt(s.rn2), s.rn2 <= s.stop2, issued)
+
+
+def _per_rhs(f: Callable) -> Callable:
+    """``f`` of one vector, applied to each vector of a (k, ...) stack."""
+    def apply(X):
+        return torch.stack([f(x) for x in X])
+
+    return apply
 
 
 def _keep_best(rn2, best_rn2, state, best_state, select):

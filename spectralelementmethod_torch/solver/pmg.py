@@ -8,9 +8,11 @@ by default) space sharing the same mesh (Lottes & Fischer 2005 lineage).
 * **transfers** are one ``(n_c, n_f) @ (n_f, E)`` matmul each, the coarse
   basis evaluated at the fine GLL lattice, tensorized and permuted to the
   L-vector node order at setup;
-* **smoothing** is fixed-degree Chebyshev acceleration of point Jacobi
-  (:func:`chebyshev_smoother`), a fixed polynomial in ``B A``, so the
-  V-cycle stays linear and symmetric and plain CG applies;
+* **smoothing** is fixed-degree Chebyshev acceleration of point Jacobi or
+  of the FDM additive Schwarz (:func:`chebyshev_smoother`,
+  ``smoother="fdm"``: :func:`.fdm.make_fdm_preconditioner`), a fixed
+  polynomial in ``B A``, so the V-cycle stays linear and symmetric and
+  plain CG applies;
 * the **coarse level** reuses the fine affine scales with order-p_c
   reference matrices (or, on curved meshes and variable coefficients,
   rediscretizes on the coarse mesh); on uniform tensor-product meshes it is
@@ -31,33 +33,20 @@ Construction is host numpy (as in the reference); the returned
 (k, n_f, E) stack of them (the reference's ``jax.vmap(M)``: the operators'
 ``.stacked(k)``, one batched launch per apply, batched transfers and grid
 solve, one ``lmax`` estimate).  The 3D factory (:class:`GridFDM3D`,
-``make_pmg_preconditioner_3d``), the FDM smoother and sharded coarse
-padding are not ported yet; they raise with their ROADMAP item.
+``make_pmg_preconditioner_3d``) and sharded coarse padding are not ported
+yet; they raise with their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import functools
-from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from ..config import resolve_device, torch_dtype
+from ..config import true_f32 as _true_f32
 from ..utils.stages import stage as _host_stage
-
-
-@contextmanager
-def _true_f32():
-    """Keep TF32 off for the enclosed matmuls (the reference's
-    ``mm_precision="float32"``: its bf16 default made lambda_max(M A)
-    1.566 against 0.998 at f32, BASELINE.md round-5a)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _staged_factory(fn):
@@ -537,8 +526,10 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
     diag_global : (n_nodes,) fine assembled operator diagonal.
     p_coarse : coarse polynomial order (must divide the fine order); None
         is 1 in 2D.
-    smoother : "jacobi" (Chebyshev-accelerated point Jacobi); "fdm" is not
-        ported yet (ROADMAP Queue 1 item 8) and raises.
+    smoother : "jacobi" (Chebyshev-accelerated point Jacobi) or "fdm"
+        (Chebyshev-accelerated FDM additive Schwarz in the cycle dtype,
+        :func:`.fdm.make_fdm_preconditioner` on the "ne" layout; the lmax
+        estimate runs on its ``B_f A_f``).
     degree : Chebyshev smoothing degree (applies of A per half-sweep).
     alpha : smoothing targets ``[lmax/alpha, lmax]``.
     coarse : "fdm" forces the exact tensor-grid solve (ValueError if
@@ -563,8 +554,7 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         "auto" takes the apply kernels where the reference's rule admits
         them, "fused" requires them, "xla" takes the plain product.
     mm_precision : "float32" or None: the transfers and the grid solve run
-        in true float32 (TF32 off); any other tier raises (ROADMAP Queue 1
-        item 15).
+        in true float32 (TF32 off); any other tier raises (ROADMAP Queue 3).
     lmax_iters / lmax_safety : power-iteration count and safety factor of
         :func:`estimate_lmax`.
     """
@@ -581,11 +571,7 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
             "yet " + _ITEM.format(9))
     if disc.mesh.ndim != 2:
         raise NotImplementedError("pmg supports 2D meshes")
-    if smoother == "fdm":
-        raise NotImplementedError(
-            "smoother='fdm' (the FDM additive-Schwarz smoother) is not "
-            "ported yet " + _ITEM.format(8))
-    if smoother != "jacobi":
+    if smoother not in ("jacobi", "fdm"):
         raise ValueError(f"unknown smoother {smoother!r}")
     if coarse_pad_to is not None:
         raise NotImplementedError(
@@ -594,8 +580,8 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
     if mm_precision not in ("float32", None):
         raise NotImplementedError(
             f"mm_precision={mm_precision!r}: the V-cycle's matmuls run in "
-            "true float32 (TF32 off); the other precision tiers are not "
-            "ported yet " + _ITEM.format(15))
+            "true float32 (TF32 off); a reduced tier is a pinned divergence "
+            "(ROADMAP Queue 3)")
     if coarse not in ("auto", "fdm", "chebyshev"):
         raise ValueError(f"unknown coarse solve {coarse!r}")
     dev = resolve_device(device)
@@ -722,8 +708,15 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
             lap_f_cyc, ex_f.dss_T, on(kM_f_np.T), free_f)
 
     # ---- smoother ------------------------------------------------------------
-    B_f = jacobi_preconditioner(
-        on(np.asarray(diag_global)[ex_f.gather_hier].T), free_f)
+    if smoother == "fdm":
+        from .fdm import make_fdm_preconditioner
+
+        B_f = make_fdm_preconditioner(ex_f, np.asarray(Gf), basis_f, free_f,
+                                      dtype=cyc, vector_layout="ne",
+                                      device=dev)
+    else:
+        B_f = jacobi_preconditioner(
+            on(np.asarray(diag_global)[ex_f.gather_hier].T), free_f)
     with _true_f32():
         lmax_f = estimate_lmax(A_f_cyc, B_f, (n_f, Ef), dtype=cyc,
                                iters=lmax_iters, safety=lmax_safety,

@@ -364,9 +364,16 @@ def test_unported_batch_options_raise():
     sol = port.solve_local_batch(FORCINGS, tol=1e-5, precond="pmg",
                                  device="cpu")
     assert bool(sol.cg.converged.all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.solve_local_batch(FORCINGS, vector_layout="en", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cg.cg_batched(lambda v: v, torch.zeros((2, 3)))
+    # the en batch and cg_batched's per-RHS mode are ported since (ROADMAP
+    # Queue 1 item 5): the en batch takes the ne batch's iterations
+    sol = port.solve_local_batch(FORCINGS, tol=1e-5, vector_layout="en",
+                                 device="cpu")
+    ne = port.solve_local_batch(FORCINGS, tol=1e-5, device="cpu")
+    assert bool(sol.cg.converged.all())
+    assert np.abs(sol.cg.iterations.numpy()
+                  - ne.cg.iterations.numpy()).max() <= 2
+    res = port_cg.cg_batched(lambda v: 2.0 * v, torch.ones((2, 3)))
+    assert torch.equal(res.x, torch.full((2, 3), 0.5))
+    assert res.iterations.tolist() == [1, 1]
     with pytest.raises(TypeError, match="device"):
         kernels._per_rhs(0.5, 2, "beta", torch.device("cpu"))

@@ -265,8 +265,11 @@ def test_interop_matches_reference():
 def test_unported_and_refused_options_raise(what):
     """float64 factors with ``backend="pallas"`` raise (a deliberate
     divergence: the reference's kernel returns an f64-typed result of f32
-    accuracy), as do ``precond="pmg"`` on the ``"en"`` layout (as in the
-    reference; on ``"ne"`` it solves) and a ``compute_dtype``."""
+    accuracy), as does ``precond="pmg"`` on the ``"en"`` layout (as in the
+    reference; on ``"ne"`` it solves).  A ``compute_dtype`` is ported
+    since (ROADMAP Queue 1 item 15): the (E, n) operator builds, its bf16
+    products stay within 0.03 of max of the float64 ones, and the
+    element-local kernel refuses it."""
     _, tp = _pair()
     if what == "pallas_f64":
         with pytest.raises(ValueError, match="float32"):
@@ -280,7 +283,19 @@ def test_unported_and_refused_options_raise(what):
         ex = exchange.make_exchange(tp.disc)
         Gf = tp._G_host.reshape(tp.disc.E, 3, -1)
         Dhat = sumfac.make_stacked_derivative(tp._D0_host, tp._D1_host)
-        with pytest.raises(NotImplementedError, match="precision tiers"):
+        A16 = sumfac.make_local_laplacian_operator(
+            ex, Gf, Dhat, device="cpu", vector_layout="en",
+            compute_dtype=torch.bfloat16)
+        A = sumfac.make_local_laplacian_operator(
+            ex, Gf, Dhat, device="cpu", vector_layout="en")
+        u = torch.as_tensor(np.random.RandomState(1).standard_normal(
+            (ex.E, ex.n_loc)))
+        got, ref = A16(u), A(u)
+        assert got.dtype == torch.float64 and A16._backend == "xla"
+        assert float((got - ref).abs().max()) <= 0.03 * float(
+            ref.abs().max())
+        with pytest.raises(ValueError, match="compute_dtype"):
             sumfac.make_local_laplacian_operator(
-                ex, Gf, Dhat, device="cpu", vector_layout="en",
+                ex, Gf.astype(np.float32), Dhat, device="cpu",
+                vector_layout="en", backend="pallas",
                 compute_dtype=torch.bfloat16)

@@ -352,19 +352,37 @@ def test_signature_and_defaults_match_reference():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(smoother="fdm"), NotImplementedError, "item 8"),
+    # the fdm smoother is ported since (ROADMAP Queue 1 item 8): it builds
+    # and the V-cycle applies (tests/test_torch_fdm.py holds its solve
+    # against the reference's)
+    pytest.param(dict(smoother="fdm"), None, None,
+                 id="kw0-NotImplementedError-item 8"),
     (dict(coarse_pad_to=128), NotImplementedError, "item 12"),
-    (dict(mm_precision="bfloat16"), NotImplementedError, "item 15"),
+    # the other mm_precision tiers: a pinned divergence (ROADMAP Queue 3)
+    pytest.param(dict(mm_precision="bfloat16"), NotImplementedError,
+                 "ROADMAP Queue 3", id="kw2-NotImplementedError-item 15"),
     (dict(coarse="lu"), ValueError, "coarse"),
     (dict(p_coarse=3), ValueError, "divide")])
 def test_unported_options_raise(kw, exc, match):
     _, port = _pair("grid")
     ctx = port._local_setup(CPU)
-    with pytest.raises(exc, match=match):
-        pmg.make_pmg_preconditioner(
+
+    def build():
+        return pmg.make_pmg_preconditioner(
             port.disc, ctx["ex"], port._G_host.reshape(port.disc.E, 3, -1),
             ctx["A"], ~port._dirichlet_mask, port.operator_diagonal(),
             device="cpu", **kw)
+
+    if exc is None:
+        M = build()
+        r = torch.where(ctx["free_local"], torch.ones_like(
+            ctx["free_local"], dtype=torch.float64), 0.0)
+        z = M(r)
+        assert z.shape == r.shape and bool(torch.isfinite(z).all())
+        assert float(torch.sum(z * r)) > 0
+        return
+    with pytest.raises(exc, match=match):
+        build()
 
 
 # -- the (n, E) operators' backend rule ----------------------------------------
