@@ -109,7 +109,20 @@ Phases (any failure exits non-zero and prints no result line):
    and on the 100k one (its flag agrees with the recomputed residual); a
    bf16-product (``compute_dtype``) solve and apply (within 0.03 of max of
    the float32 apply; ``backend="fused"`` refuses it); the precision tiers
-   bit for bit on the apply kernels;
+   bit for bit on the apply kernels; (3t) the 3D hexahedral path on
+   ``box_mesh(27, 27, 27, 8)`` (E = 19,683, 10.2M nodes, float32, the
+   reference bench's 3D problem): Jacobi CG to 1e-5 within 5% of the
+   reference's 618 iterations, fdm under 0.6x and pmg (to 1e-6, the exact
+   ``GridFDM3D`` coarse solve) under 0.5x Jacobi's, the certified pmg
+   solve (converged, its float64 iterate's residual recomputed by a
+   float64 operator built here at most 1.05 tol), a k = 4 fdm batch (each
+   RHS within 2 iterations of its single solve), the variable-coefficient
+   (general) structure and a shuffled element order through
+   ``PairScatterExchange`` (its DSS against the plane-roll DSS to float32
+   rounding, its iterations within 2 of the box order's); every 3D solve
+   launches none of the kernels above; each structure's apply, local
+   product and DSS timed beside its bound, launches per apply, and one
+   64-iteration profile of Jacobi CG;
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -189,6 +202,19 @@ TOL_PMG = 1e-6
 PMG_ITS = 18
 PMG_LMAX30 = 2.4329
 PMG_LAM_MA = 0.998
+# phase 3t, the 3D path: the reference's recorded 3D cell (BASELINE.md:177,
+# :197; bench.py --ndim 3 at 19,683 elements): box_mesh(27, 27, 27, 8),
+# Jacobi CG to 1e-5 in 618 iterations; the bar is 5%
+NX3 = 27
+JAC3_ITS = 618
+TOL3 = 1e-5
+PROFILE3_ITERS = 64
+# the 3D local apply's flops per element (bench.py:233-236: six (p1, p1)
+# products over p1^2 lines and ~15 pointwise per node)
+def flops3(p1: int) -> int:
+    return 12 * p1**4 + 15 * p1**3
+
+
 # kernels that no solve of the system calls, so that no path launches them
 # (their rows report the launches they got, 0)
 OFF_PATH = {"vector_laplacian_local": (
@@ -256,7 +282,10 @@ def gpu_ms(fn, args_list, reps: int = 20) -> float:
 
 def device_events(fn, args_list) -> list:
     """The profiler's device events (by name: count, device time) of one
-    call of ``fn`` per entry of ``args_list``, after one warm-up pass."""
+    call of ``fn`` per entry of ``args_list``, after one warm-up pass.  A
+    trace that holds no device event at all (the profiler's device buffer
+    can come back empty after many good traces) is taken again, up to
+    twice; a trace with events is never retaken."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -264,13 +293,18 @@ def device_events(fn, args_list) -> list:
     for a in args_list:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for a in args_list:
-            fn(*a)
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for a in args_list:
+                fn(*a)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+        if ev:
+            break
+        log("  (the profiler recorded no device event; tracing again)")
+    return ev
 
 
 def device_kernels(fn, args_list) -> dict[str, int]:
@@ -320,6 +354,261 @@ def bf16_ulp_ok(got, ref) -> bool:
     r = ref.float()
     e = torch.floor(torch.log2(r.abs().clamp_min(1e-30)))
     return bool(((got.float() - r).abs() <= torch.exp2(e - 7)).all())
+
+
+def phase_3t(dev, at, drive, profile_solve, solves) -> None:
+    """The 3D hexahedral path on ``box_mesh(NX3, NX3, NX3, ORDER)``
+    (float32, the reference bench's problem: forcing 1, Dirichlet 0 on
+    "ebc"): Jacobi, fdm and pmg solves, the certified solve, a k = K fdm
+    batch, the variable-coefficient (general) structure and the shuffled
+    element order (PairScatterExchange), each structure's apply and DSS
+    timed beside its bound, launches and one profile of Jacobi CG."""
+    import torch
+
+    from spectralelementmethod_torch.basis import gll_basis_3d
+    from spectralelementmethod_torch.core.discretization import (
+        Discretization)
+    from spectralelementmethod_torch.mesh import box_mesh
+    from spectralelementmethod_torch.models.poisson import Poisson
+    from spectralelementmethod_torch.ops import kernels, sumfac
+    from spectralelementmethod_torch.ops.exchange import (
+        BoxRollExchange3D, PairScatterExchange, make_exchange)
+    from spectralelementmethod_torch.parallel import reorder_elements
+    from spectralelementmethod_torch.solver.cg import cg
+    from spectralelementmethod_torch.solver.pmg import GridFDM3D
+    from spectralelementmethod_torch.utils import stages
+
+    t_3t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()     # the phase's own peak
+    out = solves.setdefault("phase_3t", {})
+    log(f"[3t] the 3D path: box_mesh({NX3}, {NX3}, {NX3}, {ORDER}), "
+        f"float32, Dirichlet 0 on 'ebc', forcing 1 {at()}")
+    setup = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val = fn()
+        torch.cuda.synchronize()
+        setup[name] = time.perf_counter() - t0
+        return val
+
+    stages.snapshot(reset=True)
+    mesh = timed("mesh", lambda: box_mesh(NX3, NX3, NX3, ORDER))
+    basis = gll_basis_3d(ORDER)
+    disc = timed("discretization", lambda: Discretization(mesh, basis))
+    prob = timed("model", lambda: Poisson(disc, dtype=np.float32))
+    prob.set_dirichlet("ebc", 0.0)
+    ctx = timed("operators", lambda: prob._local_setup_3d("jacobi", dev))
+    ex, A_raw = ctx["ex"], ctx["A_raw"]
+    E, n, p1 = disc.E, disc.n_loc, ORDER + 1
+    out["setup_s"] = dict(setup, stages=stages.snapshot(reset=True))
+    log(f"  E={E}, n={n}, {disc.n_nodes} nodes, {E * n} local DOFs "
+        f"({4 * E * n / 1e6:.1f} MB per float32 L-vector); setup "
+        f"{ {k: round(v, 2) for k, v in setup.items()} } {at()}")
+    check(type(ex) is BoxRollExchange3D and A_raw.structure == "separable",
+          f"box27: the plane-roll exchange (deltas {ex.deltas}) and the "
+          "separable apply")
+
+    W3 = np.asarray(basis.weight_grid(), np.float64)
+
+    def float64_check(prob_, ctx_):
+        """(the true residual of a float64 L-vector over the lift's, the
+        lift, global -> float64 L-vector) by a float64 general operator of
+        the model's factor values (the rank-1 field a (x) W on an affine
+        mesh), built here apart from the solve's operators."""
+        ex_, free_ = ctx_["ex"], ctx_["free"]
+        found, a_ = prob_._scales_3d()
+        G64 = (a_[:, :, None, None, None] * W3 if found != "general"
+               else np.asarray(prob_._G_host, np.float64))
+        A64 = sumfac.make_laplacian_3d(ex_, G64, basis, dtype=np.float64,
+                                       device=dev, structure="general",
+                                       free=free_)
+        w_ = ex_._weights_as(torch.float32, dev)
+
+        def l64(v):
+            return torch.as_tensor(ex_.local_from_global(
+                np.asarray(v, np.float64)), device=dev)
+
+        b_ = l64(np.asarray(prob_._b, np.float64) + prob_._neumann)
+
+        def res(uL64):
+            r_ = torch.where(free_, b_ - A64(uL64), 0.0)
+            return float(torch.sqrt(torch.sum(w_ * r_ * r_)))
+
+        u_dL = l64(np.where(prob_._dirichlet_mask, prob_._dirichlet_vals,
+                            0.0))
+        r0 = res(u_dL)
+        return (lambda uL64: res(uL64) / r0), u_dL, l64
+
+    chk = float64_check(prob, ctx)
+
+    def solve3(name, prob_, ctx_, tol, chk_, **kw):
+        sol, dt = drive(name, lambda: prob_.solve_local(
+            tol=tol, max_iter=MAX_ITER, **kw))
+        n_launch = sum(kernels.launch_counts().values())
+        res = sol.cg
+        its = int(res.iterations)
+        rec = dict(iterations=its, issued=int(res.issued), seconds=dt,
+                   converged=bool(res.converged),
+                   true_rel=chk_[0](chk_[2](sol.u)),
+                   kernel_launches=n_launch)
+        out[name] = rec
+        log(f"  {name}: {its} its / {res.issued} issued, converged "
+            f"{bool(res.converged)}, {dt:.3f} s ({1e3 * dt / max(its, 1):.3f}"
+            f" ms per iteration with setup), true residual "
+            f"{rec['true_rel']:.3e} (float64, of the float32 solution), "
+            f"{n_launch} kernel launches {at()}")
+        check(bool(res.converged) and np.isfinite(sol.u).all()
+              and sol.u.shape == (prob_.disc.n_nodes,) and n_launch == 0,
+              f"{name}: converged, finite, of the mesh's shape, no kernel "
+              "of the 2D table launched")
+        return sol, its
+
+    # -- the solves on the box ------------------------------------------------
+    _, its_j = solve3(f"box27-jacobi@{TOL3:g}", prob, ctx, TOL3, chk)
+    check(abs(its_j - JAC3_ITS) <= 0.05 * JAC3_ITS,
+          f"box27-jacobi: {its_j} iterations within 5% of the reference's "
+          f"{JAC3_ITS}")
+    sol_f, its_f = solve3(f"box27-fdm@{TOL3:g}", prob, ctx, TOL3, chk,
+                          precond="fdm")
+    check(its_f < 0.6 * its_j, f"box27-fdm: {its_f} iterations < 0.6 x "
+          f"Jacobi's {its_j}")
+    _, its_p = solve3(f"box27-pmg@{TOL_PMG:g}", prob, ctx, TOL_PMG, chk,
+                      precond="pmg")
+    M_p = prob._op_cache[("M", "pmg3d", (), str(dev))]
+    out["pmg"] = dict(coarse_kind=M_p._coarse_kind, lmax_f=M_p._lmax_f,
+                      levels=list(M_p._levels))
+    check(its_p < 0.5 * its_j and M_p._coarse_kind == "fdm"
+          and isinstance(M_p._coarse, GridFDM3D),
+          f"box27-pmg: {its_p} iterations < 0.5 x Jacobi's {its_j}, the "
+          f"exact GridFDM3D coarse solve engaged (lmax_f "
+          f"{M_p._lmax_f:.4f})")
+
+    # -- the certified solve: twice (warm, timed), its float64 iterate's
+    # true residual recomputed by the float64 check operator
+    w32 = ex._weights_as(torch.float32, dev)
+    stages.snapshot(reset=True)
+    for call in ("warm", "timed"):
+        sol, dt = drive(f"box27-cert-{call}", lambda: prob.solve_local(
+            tol=TOL_PMG, precond="pmg", certify=True))
+        if call == "warm":
+            cert_stages = stages.snapshot(reset=True)
+    res = sol.cg
+    rel_x = chk[0](chk[1] + res.x)
+    segs = int(np.searchsorted(np.cumsum((64, 32, 32, 64)), res.issued) + 1)
+    out["box27-cert"] = dict(
+        converged=res.converged, stalled=res.stalled,
+        iterations=res.iterations, issued=res.issued, segments_run=segs,
+        cycle_resnorms=list(res.cycle_resnorms), true_rel_f64_of_x=rel_x,
+        seconds_timed=dt, warm_stages=cert_stages)
+    log(f"  box27-cert@{TOL_PMG:g}: converged {res.converged}, stalled "
+        f"{res.stalled}, its {res.iterations} / {res.issued} issued, {segs} "
+        f"segments, cycle_resnorms "
+        f"{[float(f'{v:.3e}') for v in res.cycle_resnorms]}, true float64 "
+        f"{rel_x:.3e} of the iterate, timed {dt:.3f} s {at()}")
+    check(res.converged and not res.stalled
+          and rel_x <= 1.05 * TOL_PMG,
+          f"box27-cert: converged, not stalled, the recomputed float64 "
+          f"residual {rel_x:.3e} <= 1.05 x {TOL_PMG:g}")
+
+    # -- the k = K fdm batch, each RHS against its single solve ---------------
+    F = np.concatenate([np.ones((1, disc.n_nodes)),
+                        np.random.RandomState(7).standard_normal(
+                            (K - 1, disc.n_nodes))])
+    solb, dtb = drive("box27-batch-fdm", lambda: prob.solve_local_batch(
+        F, tol=TOL3, precond="fdm", max_iter=MAX_ITER))
+    its_b = solb.cg.iterations.cpu().numpy().tolist()
+    ctx_f = prob._local_setup_3d("fdm", dev)
+    u_dL = torch.zeros((E, n), device=dev)
+    singles = [its_f]
+    for j in range(1, K):
+        bj = disc.scatter_add(disc.gather(F[j]) * disc.detJxW).astype(
+            np.float32) + prob._neumann
+        r_j = torch.where(ctx_f["free"], ctx_f["to_local"](bj)
+                          - ctx_f["A_raw"](u_dL), 0.0)
+        singles.append(int(cg(ctx_f["A"], r_j, M=ctx_f["M"], tol=TOL3,
+                              max_iter=MAX_ITER, dot_weight=w32).iterations))
+    out["box27-batch-fdm"] = dict(iterations=its_b, single=singles,
+                                  seconds=dtb, converged=solb.cg.converged
+                                  .cpu().numpy().tolist())
+    log(f"  box27-batch-fdm (k={K}): its {its_b}, single solves {singles}, "
+        f"{dtb:.3f} s {at()}")
+    check(bool(solb.cg.converged.all()) and all(
+        abs(a - b) <= 2 for a, b in zip(its_b, singles)),
+        "box27-batch-fdm: every RHS converged within 2 iterations of its "
+        "single solve")
+
+    # -- the general structure and the shuffled order -------------------------
+    gprob = Poisson(disc, coefficient=lambda x, y, z: 1.0 + 0.25 * x * x,
+                    dtype=np.float32)
+    gprob.set_dirichlet("ebc", 0.0)
+    gctx = gprob._local_setup_3d("jacobi", dev)
+    check(gctx["A_raw"].structure == "general",
+          "box27-general: c = 1 + x^2 / 4 takes the general apply")
+    solve3(f"box27-general-jacobi@{TOL3:g}", gprob, gctx, TOL3,
+           float64_check(gprob, gctx))
+
+    perm = np.random.RandomState(3).permutation(E)
+    t0 = time.perf_counter()
+    sdisc = Discretization(reorder_elements(mesh, perm), basis)
+    sprob = Poisson(sdisc, dtype=np.float32)
+    sprob.set_dirichlet("ebc", 0.0)
+    sctx = sprob._local_setup_3d("jacobi", dev)
+    out["shuffled_setup_s"] = time.perf_counter() - t0
+    sex = sctx["ex"]
+    check(type(sex) is PairScatterExchange and type(make_exchange(
+        sdisc)) is PairScatterExchange,
+        "box27-shuffled: make_exchange falls back to PairScatterExchange")
+    g = torch.Generator(device=dev).manual_seed(3)
+    v = torch.randn((E, n), generator=g, device=dev)
+    idx = torch.as_tensor(perm, device=dev)
+    d_roll, d_pair = ex.dss(v), sex.dss(v[idx])
+    err = float((d_pair - d_roll[idx]).abs().max())
+    scale = float(d_roll.abs().max())
+    out["shuffled_dss_max_abs_err"] = err
+    log(f"  box27-shuffled: PairScatterExchange DSS against the plane-roll "
+        f"DSS on the same vector: max abs err {err:.3e} (max {scale:.3e})")
+    check(err <= 8 * np.finfo(np.float32).eps * scale,
+          "box27-shuffled: the two DSS agree to float32 rounding")
+    _, its_s = solve3(f"box27-shuffled-jacobi@{TOL3:g}", sprob, sctx, TOL3,
+                      float64_check(sprob, sctx))
+    check(abs(its_s - its_j) <= 2, f"box27-shuffled: {its_s} iterations "
+          f"within 2 of the box order's {its_j}")
+
+    # -- each structure: apply, local product and DSS timed beside bounds -----
+    L = 4 * E * n
+    for label, prob_, ctx_ in (("separable", prob, ctx),
+                               ("general", gprob, gctx),
+                               ("pair-scatter", sprob, sctx)):
+        A_, ex_ = ctx_["A_raw"], ctx_["ex"]
+        us = [torch.randn((E, n), generator=g, device=dev) for _ in range(4)]
+        args = [(u_,) for u_ in us]
+        ms_apply = gpu_ms(A_, args)
+        ms_local = gpu_ms(A_.local, args)
+        ms_dss = gpu_ms(ex_.dss, args)
+        _, l_apply = device_per_call(A_, args)
+        _, l_dss = device_per_call(ex_.dss, args)
+        slabs = 6 * L if A_.structure == "general" else 0
+        b_apply, by_apply = bound(2 * L + slabs, E * flops3(p1))
+        b_dss, by_dss = bound(2 * L, 0)
+        prof = profile_solve(f"box27-{label}-jacobi", prob_.solve_local,
+                             PROFILE3_ITERS)
+        out[f"apply_{label}"] = dict(
+            ms=ms_apply, local_ms=ms_local, dss_ms=ms_dss,
+            launches_per_apply=l_apply, launches_per_dss=l_dss,
+            bound_ms=b_apply, bound_by=by_apply, dss_bound_ms=b_dss,
+            profile_jacobi=prof)
+        log(f"  {label}: apply {ms_apply:.4f} ms device (local product "
+            f"{ms_local:.4f}, DSS {ms_dss:.4f}), bound {b_apply:.4f} ms "
+            f"({by_apply}; DSS {b_dss:.4f}), {l_apply:.1f} launches per "
+            f"apply, {l_dss:.1f} per DSS; Jacobi CG "
+            f"{prof['device_ms_per_iter']:.4f} ms device and "
+            f"{prof['launches_per_iter']:.1f} launches per iteration")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_3t
+    log(f"  phase 3t took {out['seconds']:.1f} s, peak device memory "
+        f"{out['peak_gib']:.2f} GiB {at()}")
 
 
 def main() -> int:
@@ -2339,6 +2628,10 @@ def main() -> int:
               "kernels at 'high' and 'default' are bit for bit 'highest'")
     solves["phase_3s_seconds"] = time.perf_counter() - t_3s
     log(f"  phase 3s took {solves['phase_3s_seconds']:.1f} s {at()}")
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
+    # -- 3t. the 3D hexahedral path -------------------------------------------
+    phase_3t(dev, at, drive, profile_solve, solves)
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
     # -- 4. manufactured solutions --------------------------------------------

@@ -12,7 +12,11 @@ operator (either layout, either exchange form) from the factors, the
 mass-weighted reaction and the exchange tables;
 :func:`sharded_fused_operator_from_numpy` builds the element-sharded fused
 operator (and with it each shard's block inputs) from the stiffness
-blocks, the affine scales, the stacked class masks and the class tables.
+blocks, the affine scales, the stacked class masks and the class tables;
+:func:`operator_3d_from_numpy` builds the 3D box operator (separable,
+affine or general) and its plane-roll exchange from the packed factors or
+the affine scales, the derivative matrices and 1D weights, the
+lexicographic gather map and the plane-roll offsets and masks.
 Fed the JAX package's arrays, both packages then compute the same
 function on the same data, independently of the port's own (copied) host
 setup; that is how the tests hold each kernel's plain version against its
@@ -36,9 +40,9 @@ import torch
 from .config import resolve_device, torch_dtype
 from .models.helmholtz import LocalHelmholtzOperator
 from .models.poisson import fused_cg_operands
-from .ops.exchange import DSSPlan, gather_dss, roll_dss_T
-from .ops.sumfac import (AffineLaplacianT, GeneralLaplacianT, LaplacianEN,
-                         LaplacianT)
+from .ops.exchange import BoxRollExchange3D, DSSPlan, gather_dss, roll_dss_T
+from .ops.sumfac import (AffineLaplacianT, GeneralLaplacianT, Laplacian3D,
+                         LaplacianEN, LaplacianT, assembled_1d_stiffness)
 from .parallel.halo import make_sharded_fused_operator
 from .solver.cg import jacobi_preconditioner
 
@@ -299,3 +303,73 @@ def sharded_fused_operator_from_numpy(Kcat, a, class_masks, edge_classes,
                          edge_len)
     return make_sharded_fused_operator(tables, Kcat, a, mesh,
                                        free_local=free_local)
+
+
+class Interop3D(NamedTuple):
+    exchange: BoxRollExchange3D  # plane-roll DSS from the given tables
+    A_raw: Laplacian3D           # unmasked 3D operator (residual seeds)
+    A: Laplacian3D               # output-masked (unmasked if free is None)
+    M: Callable | None           # Jacobi preconditioner (diag given)
+    to_local: Callable           # (n_nodes,) numpy -> (E, n) tensor
+
+
+def operator_3d_from_numpy(structure: str, D, w, gather_lex, deltas,
+                           mask_lo, mask_hi, n_nodes: int, *, G=None,
+                           a=None, diag=None, free=None, E_real=None,
+                           device=None, dtype=np.float64) -> Interop3D:
+    """The port's 3D operator and exchange from numpy arrays (a hexahedral
+    box mesh in lexicographic (E, n) L-vector storage).
+
+    ``structure``: ``"separable"`` (reads ``a``, ``D`` and ``w``: the 1D
+    stiffness matrices are assembled here, :func:`.ops.sumfac.
+    assembled_1d_stiffness`), ``"affine"`` (``a``, ``w`` and ``D``) or
+    ``"general"`` (``G``, (E, 6, p0, p1, p2) packed factors, and ``D``);
+    ``a`` (E, 6): the affine scales; ``D``: the three derivative matrices;
+    ``w``: the three 1D weight vectors; ``gather_lex`` (E, n): the global
+    node of each local node; ``deltas``, ``mask_lo``, ``mask_hi`` ((3, E)
+    bool): the plane-roll offsets and neighbour masks; ``n_nodes``: the
+    global node count; ``diag`` (n_nodes,): the assembled operator
+    diagonal (for ``M``); ``free`` (n_nodes,): True off Dirichlet nodes;
+    ``E_real``: elements before padding.  Factor or scale rows past the
+    given ones (padding) are zero.
+    """
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    gather_lex = np.asarray(gather_lex)
+    E = gather_lex.shape[0]
+    D = [np.asarray(Dd, np.float64) for Dd in D]
+    w = [np.asarray(wd, np.float64).reshape(-1) for wd in w]
+    shape = tuple(len(wd) for wd in w)
+    ex = BoxRollExchange3D.from_tables(gather_lex, n_nodes, shape, deltas,
+                                       mask_lo, mask_hi, E_real)
+
+    def on(x):
+        return torch.as_tensor(np.array(x), device=dev).to(dt)
+
+    def padded(x):
+        x = np.asarray(x)
+        out = np.zeros((E,) + x.shape[1:], x.dtype)
+        out[:x.shape[0]] = x
+        return out
+
+    kw = dict(D=[on(Dd) for Dd in D])
+    if structure == "general":
+        kw["G"] = on(padded(np.asarray(G).reshape((-1, 6) + shape)))
+    else:
+        kw["a"] = on(padded(a))
+        kw["W3"] = on(w[0][:, None, None] * w[1][None, :, None]
+                      * w[2][None, None, :])
+        kw["K"] = [on(assembled_1d_stiffness(Dd, wd))
+                   for Dd, wd in zip(D, w)]
+        kw["wd"] = [on(wd) for wd in w]
+    A_raw = Laplacian3D(ex, structure, shape, **kw)
+    free_t = (None if free is None else torch.as_tensor(
+        np.asarray(free, bool)[gather_lex], device=dev))
+    gil = torch.as_tensor(gather_lex, device=dev)
+
+    def to_local(u_global):
+        return torch.as_tensor(np.asarray(u_global), device=dev).to(dt)[gil]
+
+    M = (None if diag is None
+         else jacobi_preconditioner(to_local(diag), free_t))
+    return Interop3D(ex, A_raw, A_raw.masked(free_t), M, to_local)

@@ -22,8 +22,18 @@ precision products (``compute_dtype``); ``cg_kernel`` in {``auto``,
 ``torch.bfloat16``}, ``defer_x`` (affine meshes); ``host_loop``; the
 float64-certified solve (``certify=True``,
 :func:`..solver.cg.cg_refined_static`); and the global-vector
-:meth:`Poisson.apply_operator` and :meth:`Poisson.solve`.  Not yet: 3D
-(ROADMAP Queue 1 item 9), which raises.
+:meth:`Poisson.apply_operator` and :meth:`Poisson.solve`.
+
+On a hexahedral (3D) mesh the same entry points run the reference's 3D
+path: lexicographic (E, n) L-vectors, the sum-factorized
+:class:`..ops.sumfac.Laplacian3D` (separable, affine or general by the
+reference's rule) with the exchange's DSS, the Jacobi, fdm
+(:func:`..solver.fdm.make_fdm_preconditioner_3d`) and pmg
+(:func:`..solver.pmg.make_pmg_preconditioner_3d`) preconditioners, the
+whole-batch k-RHS solve and ``certify=True``; plain CG only, so the 2D
+options it does not take (``cg_kernel`` fused, ``p_dtype``, ``defer_x``,
+``structure``, ``vector_layout="ne"``, ``compute_dtype``) raise
+``ValueError`` naming the option.
 """
 
 from __future__ import annotations
@@ -95,6 +105,28 @@ def _is_pmg(precond) -> bool:
 def _pmg_kwargs(precond) -> dict:
     """The options of a pmg ``precond`` (the dict's ``"pmg"`` entry)."""
     return dict(precond.get("pmg", {})) if isinstance(precond, dict) else {}
+
+
+def _check_3d_options(cg_kernel="auto", p_dtype=None, defer_x=0,
+                      structure="auto", vector_layout="auto",
+                      compute_dtype=None) -> None:
+    """Raise ``ValueError`` naming an option that the 3D path does not
+    take.  The reference's 3D path ignores them silently; the port refuses
+    them (a pinned divergence, ROADMAP Queue 3): it runs plain CG on
+    lexicographic (E, n) L-vectors (``vector_layout`` ``"auto"`` or
+    ``"en"``), with the structure the mesh gives, in the model's dtype."""
+    for name, value, ok in (
+            ("cg_kernel", cg_kernel, cg_kernel in ("auto", "plain")),
+            ("p_dtype", p_dtype, p_dtype is None),
+            ("defer_x", defer_x, defer_x == 0),
+            ("structure", structure, structure == "auto"),
+            ("vector_layout", vector_layout, vector_layout in ("auto", "en")),
+            ("compute_dtype", compute_dtype, compute_dtype is None)):
+        if not ok:
+            raise ValueError(
+                f"{name}={value!r} is not taken by the 3D path (plain CG "
+                "on (E, n) L-vectors with the structure the mesh gives, in "
+                "the model's dtype)")
 
 
 def _check_p_dtype(p_dtype) -> None:
@@ -185,7 +217,7 @@ class BoundaryConditionMixin:
 
 
 class Poisson(BoundaryConditionMixin):
-    """Poisson problem on a discretized 2D mesh.
+    """Poisson problem on a discretized 2D or 3D mesh.
 
     Parameters
     ----------
@@ -227,6 +259,9 @@ class Poisson(BoundaryConditionMixin):
                                       dtype=dtype)
         self._D0_host = np.asarray(disc.basis.subbases[0].D1, dtype=dtype)
         self._D1_host = np.asarray(disc.basis.subbases[1].D1, dtype=dtype)
+        if ndim == 3:
+            self._D2_host = np.asarray(disc.basis.subbases[2].D1,
+                                       dtype=dtype)
 
         f_gll = _as_callable(forcing)(*coords)
         # weak forcing: ∫ f phi = scatter(f * detJxW) at collocated GLL
@@ -253,25 +288,26 @@ class Poisson(BoundaryConditionMixin):
         if st is None:
             st = self._dev_cache[str(device)] = dict(
                 G=self._vec(np.array(self._G_host), device),
-                D0=self._vec(np.array(self._D0_host), device),
-                D1=self._vec(np.array(self._D1_host), device),
+                D=[self._vec(np.array(D), device) for D in self._D_hosts()],
                 gix=torch.as_tensor(self.disc.gather_nodes, device=device))
         return st
+
+    def _D_hosts(self) -> list:
+        """The host derivative matrices, one per axis."""
+        return [self._D0_host, self._D1_host] + (
+            [self._D2_host] if self.disc.mesh.ndim == 3 else [])
 
     def apply_operator(self, u, device=None) -> torch.Tensor:
         """Raw weak Laplacian ``A u`` of a global (n_nodes,) vector (no BC
         masking), on ``device``: gather, local product, scatter-add
-        (:func:`..ops.sumfac.laplacian_apply`)."""
+        (:func:`..ops.sumfac.laplacian_apply`, or
+        :func:`..ops.sumfac.laplacian_apply_3d` on a hexahedral mesh)."""
         dev = resolve_device(device)
-        self._check_2d("apply_operator")
         st = self._on(dev)
-        return sumfac.laplacian_apply(self._vec(u, dev), st["gix"], st["G"],
-                                      st["D0"], st["D1"], self.disc.n_nodes)
-
-    def _check_2d(self, what: str) -> None:
-        if self.disc.mesh.ndim != 2:
-            raise NotImplementedError(
-                f"3D {what} is not ported yet (ROADMAP Queue 1, the 3D path)")
+        apply = (sumfac.laplacian_apply_3d if self.disc.mesh.ndim == 3
+                 else sumfac.laplacian_apply)
+        return apply(self._vec(u, dev), st["gix"], st["G"], *st["D"],
+                     self.disc.n_nodes)
 
     def operator_diagonal(self) -> np.ndarray:
         """Assembled operator diagonal (host numpy, cached)."""
@@ -280,8 +316,10 @@ class Poisson(BoundaryConditionMixin):
             from ..utils.stages import stage
 
             with stage("model/diagonal"):
-                de = sumfac.laplacian_diag_local_host(
-                    self._G_host, self._D0_host, self._D1_host)
+                diag_local = (sumfac.laplacian_diag_local_host_3d
+                              if self.disc.mesh.ndim == 3
+                              else sumfac.laplacian_diag_local_host)
+                de = diag_local(self._G_host, *self._D_hosts())
                 d = np.zeros(self.disc.n_nodes, dtype=de.dtype)
                 np.add.at(d, self.disc.gather_nodes.ravel(), de.ravel())
                 self._diag_host = d.astype(self.dtype)
@@ -293,18 +331,21 @@ class Poisson(BoundaryConditionMixin):
               host_loop: bool = False, device=None) -> PoissonSolution:
         """Jacobi PCG on global (n_nodes,) vectors, on ``device``:
         :func:`..solver.cg.cg`, or :func:`..solver.cg.cg_host` with
-        ``host_loop``.  The Dirichlet DOFs are eliminated symmetrically
-        (:func:`..ops.sumfac.make_poisson_operator`); the stopping rule is
-        ``||r|| <= tol ||b||`` in the Euclidean norm, as in the reference."""
+        ``host_loop``, in 2D and 3D.  The Dirichlet DOFs are eliminated
+        symmetrically (input and output masked around
+        :meth:`apply_operator`, as :func:`..ops.sumfac.
+        make_poisson_operator` does); the stopping rule is ``||r|| <= tol
+        ||b||`` in the Euclidean norm, as in the reference."""
         dev = resolve_device(device)
         disc = self.disc
-        self._check_2d("solve")
-        st = self._on(dev)
         free = torch.as_tensor(~self._dirichlet_mask, device=dev)
         u_d = self._vec(np.where(self._dirichlet_mask, self._dirichlet_vals,
                                  0.0), dev)
-        A = sumfac.make_poisson_operator(st["gix"], st["G"], st["D0"],
-                                         st["D1"], disc.n_nodes, free)
+
+        def A(u):
+            v = self.apply_operator(sumfac.masked(u, free), dev)
+            return sumfac.masked(v, free)
+
         b = self._vec(self._b, dev) + self._vec(self._neumann, dev)
         # eliminate Dirichlet DOFs: r_f = (b - A u_d)|_free
         r = sumfac.masked(b - self.apply_operator(u_d, dev), free)
@@ -452,7 +493,9 @@ class Poisson(BoundaryConditionMixin):
         """Solve with PCG on element-local L-vectors.
 
         The parameters are the reference's, in its order, with ``device``
-        last.
+        last.  On a 3D mesh: :meth:`_solve_local_3d` (``precond``,
+        ``host_loop``, ``certify`` and ``max_iter`` as below; the other
+        options at their defaults, or ``vector_layout="en"``).
         ``certify=True`` (float32 models) returns a solution whose
         convergence is certified against the float64-evaluated true
         residual (:meth:`_certified_solve_2d`,
@@ -533,7 +576,11 @@ class Poisson(BoundaryConditionMixin):
         """
         dev = resolve_device(device)
         disc = self.disc
-        self._check_2d("solve_local")
+        if disc.mesh.ndim == 3:
+            _check_3d_options(cg_kernel, p_dtype, defer_x, structure,
+                              vector_layout, compute_dtype)
+            return self._solve_local_3d(tol, max_iter, host_loop, precond,
+                                        certify, dev)
         _check_options(precond, vector_layout)
         layout = self._layout(vector_layout)
         if certify and np.dtype(self.dtype) == np.float32:
@@ -731,12 +778,23 @@ class Poisson(BoundaryConditionMixin):
         explicit m raises and ``"auto"`` drops it, as in the reference);
         ``"auto"`` resolves by :func:`..solver.cg.auto_defer_x_batched`.
 
+        On a 3D mesh: :meth:`_solve_local_batch_3d` (``cg_kernel``
+        ``"auto"`` or ``"plain"``; the other options as in
+        :meth:`solve_local`'s 3D branch).
+
         Returns a :class:`PoissonSolution` whose ``u`` is (k, n_nodes) and
         whose ``cg`` fields are batched (k leading axis).
         """
         dev = resolve_device(device)
         disc = self.disc
-        self._check_2d("solve_local_batch")
+        if disc.mesh.ndim == 3:
+            if cg_kernel not in ("auto", "plain"):
+                raise ValueError("3D batched solves support cg_kernel="
+                                 "'plain' only (no fused 3D kernels)")
+            _check_3d_options(cg_kernel, p_dtype, defer_x, structure,
+                              vector_layout, compute_dtype)
+            return self._solve_local_batch_3d(forcings, tol, max_iter,
+                                              precond, dev)
         _check_options(precond, vector_layout)
         if cg_kernel not in ("auto", "plain", "fused"):
             raise ValueError(f"unknown cg_kernel {cg_kernel!r}")
@@ -832,6 +890,227 @@ class Poisson(BoundaryConditionMixin):
         diagT = np.asarray(self.operator_diagonal())[ex.gather_hier].T
         return fused_cg_operands(diagT, free_np, ex.weights.T, p_dtype,
                                  device)
+
+    # -- 3D: hexahedral meshes, lexicographic (E, n) L-vectors ----------------
+
+    def _scales_3d(self):
+        """``(structure, a)`` of :func:`..ops.sumfac.structure_3d` on the
+        model's factors, computed once (a pass over the (E, 6, n) slabs)."""
+        sc = getattr(self, "_scales3d", None)
+        if sc is None:
+            sc = self._scales3d = sumfac.structure_3d(
+                self._G_host, self.disc.basis.weight_grid())
+        return sc
+
+    def _local_setup_3d(self, precond, device) -> dict:
+        """The 3D L-vector solve's operators and preconditioner on
+        ``device`` (shared by :meth:`_solve_local_3d` and
+        :meth:`_solve_local_batch_3d`).
+
+        The exchange is :func:`..ops.exchange.make_exchange`'s (the
+        plane-roll :class:`..ops.exchange.BoxRollExchange3D` on a
+        lexicographic box, else :class:`..ops.exchange.
+        PairScatterExchange`).  The operator is a :class:`..ops.sumfac.
+        Laplacian3D` of the structure the reference's rule gives
+        (``"separable"``, ``"affine"`` or ``"general"``), built once and
+        cached in ``_op_cache`` under ``("A3d", device)`` as the pair
+        ``(A_raw, A)`` (unmasked; output-masked).  ``precond``:
+        ``"jacobi"`` (``("M", "jac3d", device)``), ``"fdm"``
+        (:func:`..solver.fdm.make_fdm_preconditioner_3d`, ``("M", "fdm3d",
+        device)``) or ``"pmg"`` / ``{"pmg": {...}}``
+        (:func:`..solver.pmg.make_pmg_preconditioner_3d` with the dict's
+        options, ``("M", "pmg3d", sorted options, device)``).
+        """
+        from ..ops.exchange import make_exchange
+
+        disc, dv = self.disc, str(device)
+        if self._exchange is None:
+            self._exchange = make_exchange(disc)
+        ex = self._exchange
+        dt = torch_dtype(self.dtype)
+
+        def to_local(u_global):
+            lv = ex.local_from_global(np.asarray(u_global, self.dtype))
+            return torch.as_tensor(np.ascontiguousarray(lv),
+                                   device=device).to(dt)
+
+        free = torch.as_tensor((~self._dirichlet_mask)[ex.gather_lex],
+                               device=device)
+        cached = self._op_cache.get(("A3d", dv))
+        if cached is None:
+            A_raw = sumfac.make_laplacian_3d(
+                ex, self._G_host, disc.basis, dtype=self.dtype, device=device,
+                scales=self._scales_3d())
+            # no input mask: CG iterates satisfy the Dirichlet mask by
+            # induction, as in the reference
+            cached = self._op_cache[("A3d", dv)] = (A_raw, A_raw.masked(free))
+        A_raw, A = cached
+
+        if precond == "fdm":
+            from ..solver.fdm import make_fdm_preconditioner_3d
+
+            key = ("M", "fdm3d", dv)
+            M = self._op_cache.get(key)
+            if M is None:
+                M = self._op_cache[key] = make_fdm_preconditioner_3d(
+                    ex, self._G_host, disc.basis, free, dtype=self.dtype,
+                    device=device)
+        elif _is_pmg(precond):
+            from ..solver.pmg import make_pmg_preconditioner_3d
+
+            pmg_kw = _pmg_kwargs(precond)
+            key = ("M", "pmg3d", tuple(sorted(pmg_kw.items())), dv)
+            M = self._op_cache.get(key)
+            if M is None:
+                M = self._op_cache[key] = make_pmg_preconditioner_3d(
+                    disc, ex, A, ~self._dirichlet_mask,
+                    np.asarray(self.operator_diagonal()), dtype=self.dtype,
+                    device=device, **pmg_kw)
+        elif precond == "jacobi":
+            key = ("M", "jac3d", dv)
+            M = self._op_cache.get(key)
+            if M is None:
+                M = self._op_cache[key] = jacobi_preconditioner(
+                    to_local(self.operator_diagonal()), free)
+        else:
+            raise ValueError(f"3D precond must be 'jacobi', 'fdm' or 'pmg', "
+                             f"got {precond!r}")
+        return dict(ex=ex, to_local=to_local, free=free, A_raw=A_raw, A=A,
+                    M=M)
+
+    def _solve_local_3d(self, tol, max_iter, host_loop, precond, certify,
+                        device) -> PoissonSolution:
+        """The 3D branch of :meth:`solve_local`: PCG on (E, n) L-vectors
+        with the local sum-factorized apply and the exchange's DSS, no
+        global gather or scatter inside the iteration.
+
+        The residual seed ``free ? b - A_raw(u_d) : 0`` and the lift are
+        cached per device in ``_bc_cache`` (emptied by ``set_dirichlet`` and
+        ``set_neumann``; the reference keys its cache on the boundary
+        data).  ``max_iter`` defaults to ``max(200, 20 sqrt(ndof))``;
+        :func:`..solver.cg.cg` with the exchange's dot weights, or
+        :func:`..solver.cg.cg_host` with its ``dot`` under ``host_loop``.
+        ``certify`` on a float32 model runs :meth:`_certified_solve_3d`.
+        """
+        ctx = self._local_setup_3d(precond, device)
+        ex, free = ctx["ex"], ctx["free"]
+        A, M = ctx["A"], ctx["M"]
+        if certify and np.dtype(self.dtype) == np.float32:
+            if host_loop:
+                raise ValueError("certify=True is a device path "
+                                 "(host_loop=False)")
+            return self._certified_solve_3d(ctx, tol, device)
+
+        seeds = self._bc_cache.setdefault(str(device), {})
+        seed = seeds.get("3d")
+        if seed is None:
+            to_local = ctx["to_local"]
+            u_dL = to_local(np.where(self._dirichlet_mask,
+                                     self._dirichlet_vals, 0.0))
+            bL = to_local(np.asarray(self._b) + self._neumann)
+            seed = seeds["3d"] = (u_dL, torch.where(
+                free, bL - ctx["A_raw"](u_dL), 0.0))
+        u_dL, r = seed
+
+        if max_iter is None:
+            max_iter = max(200, 20 * int(np.sqrt(self.disc.ndof)))
+        if host_loop:
+            res = cg_host(A, r, M=M, tol=tol, max_iter=max_iter, dot=ex.dot)
+        else:
+            res = cg(A, r, M=M, tol=tol, max_iter=max_iter,
+                     dot_weight=ex._weights_as(self.dtype, device))
+        uL = u_dL + res.x
+        return PoissonSolution(ex.global_from_local(uL.cpu().numpy()), res)
+
+    def _certified_solve_3d(self, ctx, tol, device) -> PoissonSolution:
+        """The float64-certified mixed-precision 3D solve (``certify=True``,
+        float32 models).
+
+        :func:`..solver.cg.cg_refined_static` on the float32 operator and
+        preconditioner of ``ctx``, anchored on ``A_hi``: the same system in
+        float64, built once and cached in ``_op_cache`` under ``("A_hi3d",
+        device)`` — separable from the float32 factors' scales (in float64;
+        a raw float32 -> float64 upcast of the slabs fails the affine test)
+        on an axis-aligned affine mesh, else general from the upcast slabs,
+        as the reference's.  The float64 seed and the
+        lift are cached per device in ``_bc_cache``; the dot weights are
+        the exchange's float32 weights.  ``sol.cg`` is the certified result
+        (its ``x`` float64); ``u`` is ``u_d + x`` at the model dtype.
+        """
+        from ..utils.stages import stage
+
+        disc, ex, free = self.disc, ctx["ex"], ctx["free"]
+        key = ("A_hi3d", str(device))
+        A_hi = self._op_cache.get(key)
+        if A_hi is None:
+            with stage("certify/A_hi"):
+                found, a = self._scales_3d()
+                separable = found == "separable"
+                A_hi = self._op_cache[key] = sumfac.make_laplacian_3d(
+                    ex, None if separable else np.asarray(
+                        self._G_host, np.float64), disc.basis,
+                    dtype=np.float64, device=device,
+                    structure="separable" if separable else "general",
+                    free=free, scales=(found, a))
+        seeds = self._bc_cache.setdefault(str(device), {})
+        seed = seeds.get("3d_hi")
+        if seed is None:
+            with stage("certify/seed"):
+                def to64(v):
+                    return torch.as_tensor(np.ascontiguousarray(
+                        ex.local_from_global(np.asarray(v, np.float64))),
+                        device=device)
+
+                b = np.asarray(self._b, np.float64) + self._neumann
+                u_dL64 = to64(np.where(self._dirichlet_mask,
+                                       self._dirichlet_vals, 0.0))
+                r_hi = torch.where(free, to64(b) - A_hi(u_dL64), 0.0)
+                seed = seeds["3d_hi"] = (
+                    u_dL64.to(torch_dtype(self.dtype)), r_hi)
+        u_dL, r_hi = seed
+        res = cg_refined_static(
+            ctx["A"], r_hi, A_hi=A_hi, M=ctx["M"], tol=tol,
+            dot_weight=ex._weights_as(torch.float32, device))
+        uL = u_dL + res.x.to(u_dL.dtype)
+        return PoissonSolution(ex.global_from_local(uL.cpu().numpy()), res)
+
+    def _solve_local_batch_3d(self, forcings, tol, max_iter, precond,
+                              device) -> PoissonSolution:
+        """The 3D branch of :meth:`solve_local_batch`: whole-batch
+        :func:`..solver.cg.cg_batched` with the operator and the
+        preconditioner of :meth:`_local_setup_3d` on the (k, E, n) stack
+        (each takes a stack as it is: the reference's ``jax.vmap``)."""
+        disc = self.disc
+        ctx = self._local_setup_3d(precond, device)
+        ex, to_local, free = ctx["ex"], ctx["to_local"], ctx["free"]
+
+        coords = [disc.x_coeffs[:, d] for d in range(3)]
+        nodal = (not callable(forcings) and hasattr(forcings, "__len__")
+                 and np.asarray(forcings[0]).ndim == 1)
+        if nodal:
+            forcings = np.asarray(forcings, dtype=np.float64)
+        rows = []
+        for f in forcings:
+            f_gll = (disc.gather(np.asarray(f)) if nodal
+                     else np.broadcast_to(
+                         np.asarray(_as_callable(f)(*coords)),
+                         disc.detJxW.shape))
+            b = disc.scatter_add(
+                np.asarray(f_gll * disc.detJxW)).astype(self.dtype)
+            rows.append(b + self._neumann)
+        u_dL = to_local(np.where(self._dirichlet_mask, self._dirichlet_vals,
+                                 0.0))
+        Au_d = ctx["A_raw"](u_dL)       # the shared lift: one raw apply
+        R = torch.stack([torch.where(free, to_local(b) - Au_d, 0.0)
+                         for b in rows])
+        if max_iter is None:
+            max_iter = max(200, 20 * int(np.sqrt(disc.ndof)))
+        res = cg_batched(ctx["A"], R, M=ctx["M"], tol=tol, max_iter=max_iter,
+                         dot_weight=ex._weights_as(self.dtype, device),
+                         whole_batch=True)
+        X = (res.x + u_dL).cpu().numpy()
+        u = np.stack([ex.global_from_local(X[j]) for j in range(len(X))])
+        return PoissonSolution(u, res)
 
     # -- post-processing -------------------------------------------------------
 

@@ -20,6 +20,14 @@ weights) are numpy copies of the reference's.  The device half is:
   product and its weights;
 * :class:`DSSPlan` — the class tables on one device, as the hand-written
   CUDA kernels of :mod:`.kernels` and their plain versions read them.
+
+Hexahedral (3D) meshes keep lexicographic ``(E, n_loc)`` L-vectors:
+:class:`BoxRollExchange3D` sums the shared DOFs by six element-axis plane
+rolls on a lexicographic box, and :class:`PairScatterExchange` (any
+conforming mesh, the fallback :func:`make_exchange` takes when the box
+check fails) by a partner gather for copies of multiplicity 2 and a
+compact ``index_add_`` for the rest.  Both are plain PyTorch, as the
+reference's are XLA.
 """
 
 from __future__ import annotations
@@ -723,6 +731,246 @@ def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
     return out
 
 
+class PairScatterExchange:
+    """Dimension-generic L-vector DSS in **lexicographic** local order.
+
+    Covers any conforming single-geometry NCube mesh, in particular 3D
+    hexahedra, whose shared DOFs come in three kinds: face interiors (always
+    2 copies), edge interiors and vertices (variable valence).  The split is
+    by multiplicity, not topology:
+
+    * copies of multiplicity 2 exchange through one flat partner gather
+      (3D face interiors dominate the shared-DOF count);
+    * copies of multiplicity >= 3 scatter-add into a compacted array (one
+      slot per distinct shared node, ``index_add_``) and gather back;
+    * multiplicity-1 copies (element interiors, domain boundary) are
+      untouched.
+
+    Partners are matched per global node, so the 8 ways a hex face can glue
+    to its neighbour need no bookkeeping.  The host tables are numpy copies
+    of the reference's; the device copies are made per device on first
+    use.  The exchange acts on (E, n_loc) L-vectors or (..., E, n_loc)
+    stacks of them, each on its own.
+    """
+
+    def __init__(self, disc, pad_to: int | None = None):
+        self.disc = disc
+        self._tables(disc.gather_nodes, disc.n_nodes, disc.shape, pad_to)
+
+    def _tables(self, gather_nodes, n_nodes: int, shape,
+                pad_to: int | None) -> None:
+        """The host tables from the (E, n_loc) lexicographic gather map."""
+        gather_nodes = np.asarray(gather_nodes)
+        E, n = gather_nodes.shape
+        Ep = E if pad_to is None else int(pad_to)
+        if Ep < E:
+            raise ValueError(f"pad_to={Ep} < E={E}")
+        self.E, self.E_real = Ep, E
+        self.n_loc = n
+        self.n_nodes = int(n_nodes)
+        self.shape = tuple(shape)
+
+        gather = np.zeros((Ep, n), dtype=np.int64)
+        gather[:E] = gather_nodes
+        #: (Ep, n_loc) global node ids, lexicographic local order (pad rows
+        #: alias node 0; their values never enter reductions)
+        self.gather_lex = gather
+
+        gids = gather.reshape(-1).copy()
+        if Ep > E:
+            # fresh singleton ids for pad copies: they must never join a
+            # real node's reduction or multiplicity
+            gids[E * n:] = n_nodes + np.arange((Ep - E) * n)
+        mult = np.bincount(gids)
+        m_copy = mult[gids]
+
+        two = np.nonzero(m_copy == 2)[0]
+        order = np.argsort(gids[two], kind="stable")
+        st = two[order].reshape(-1, 2)
+        self._pair_idx = np.concatenate([st[:, 0], st[:, 1]])
+        self._pair_partner = np.concatenate([st[:, 1], st[:, 0]])
+
+        hi = np.nonzero(m_copy >= 3)[0]
+        uniq, seg = np.unique(gids[hi], return_inverse=True)
+        self._multi_idx = hi
+        self._multi_seg = seg.astype(np.int64).reshape(-1)
+        self._n_multi = int(uniq.size)
+
+        w = (1.0 / m_copy).reshape(Ep, n)
+        w[E:] = 0.0
+        self._weights_np = w
+
+    # -- conversions (host) ------------------------------------------------
+
+    def local_from_global(self, u_global) -> np.ndarray:
+        """(n_nodes[, k]) -> (E, n_loc[, k]) consistent L-vector."""
+        return np.asarray(u_global)[self.gather_lex]
+
+    def global_from_local(self, uL) -> np.ndarray:
+        """Consistent (E, n_loc[, k]) L-vector -> global (n_nodes[, k])
+        (pad rows are dropped)."""
+        uL = np.asarray(uL)[:self.E_real]
+        out = np.zeros((self.n_nodes,) + uL.shape[2:], dtype=uL.dtype)
+        out[self.gather_lex[:self.E_real].reshape(-1)] = uL.reshape(
+            (-1,) + uL.shape[2:])
+        return out
+
+    # -- the exchange --------------------------------------------------------
+
+    _on = LocalExchange._on
+
+    def dss(self, vL: torch.Tensor) -> torch.Tensor:
+        """Direct stiffness summation on an (E, n_loc) L-vector or an
+        (..., E, n_loc) stack: the partner gather for the pairs, the
+        compact scatter-add for the rest."""
+        dev = vL.device
+        lead = vL.shape[:-2]
+        flat = vL.reshape(*lead, self.E * self.n_loc)
+        pi = self._on("_pair_idx", dev)
+        mi, ms = self._on("_multi_idx", dev), self._on("_multi_seg", dev)
+        out = flat.clone()
+        out[..., pi] = flat[..., pi] + flat[..., self._on("_pair_partner",
+                                                          dev)]
+        seg = torch.zeros((*lead, self._n_multi), dtype=vL.dtype,
+                          device=dev).index_add_(-1, ms, flat[..., mi])
+        out[..., mi] = seg[..., ms]
+        return out.reshape(vL.shape)
+
+    def dot(self, uL: torch.Tensor, vL: torch.Tensor) -> torch.Tensor:
+        """Global inner product from consistent (E, n_loc) L-vectors (a
+        stack sums over all of it)."""
+        prod = uL * vL
+        return torch.sum(prod * self._weights_as(prod.dtype, prod.device))
+
+    def norm(self, uL: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(self.dot(uL, uL))
+
+    @property
+    def weights(self) -> np.ndarray:
+        """(E, n_loc) inverse-multiplicity dot weights (float64, host)."""
+        return self._weights_np
+
+    _weights_as = LocalExchange._weights_as
+
+
+class BoxRollExchange3D(PairScatterExchange):
+    """Tensor-product plane-roll DSS for structured box hex meshes.
+
+    On a structured grid DSS factorizes axis by axis: exchanging the two
+    full (m x m) face planes of axis a with the a-neighbours (one
+    element-axis roll each way), then repeating for the other two axes,
+    accumulates every shared-DOF sum (edge DOFs through two stages, vertex
+    DOFs through three).  Six plane rolls replace the node-level gathers of
+    :class:`PairScatterExchange`.
+
+    Requires (validated in ``__init__`` from the mesh, raising
+    ``NotImplementedError`` so :func:`make_exchange` falls back):
+
+    * every face pair connects face ``2a+1`` (axis-a high) of element ``e``
+      to face ``2a`` of element ``e + delta_a`` with one uniform positive
+      ``delta_a`` per axis (lexicographic box element order);
+    * identity node orientation across every pair.
+    """
+
+    def __init__(self, disc, pad_to: int | None = None):
+        super().__init__(disc, pad_to=pad_to)
+        mesh = disc.mesh
+        if mesh.ndim != 3 or len(self.shape) != 3:
+            raise NotImplementedError("BoxRollExchange3D is 3D-only")
+        E = self.E_real
+        pairs = np.asarray(mesh.face_pairs())
+        g = self.gather_lex[:E].reshape((E,) + self.shape)
+
+        self.deltas: list[int] = []
+        mask_lo = np.zeros((3, self.E), bool)   # has a -a neighbour
+        mask_hi = np.zeros((3, self.E), bool)   # has a +a neighbour
+        covered = 0
+        for a in range(3):
+            lo_f, hi_f = 2 * a, 2 * a + 1
+            sel = ((np.minimum(pairs[:, 1], pairs[:, 3]) == lo_f)
+                   & (np.maximum(pairs[:, 1], pairs[:, 3]) == hi_f))
+            sub = pairs[sel]
+            covered += int(sel.sum())
+            if sub.size == 0:
+                raise NotImplementedError(f"axis {a} has no face pairs")
+            hi_first = sub[:, 1] == hi_f
+            e_hi = np.where(hi_first, sub[:, 0], sub[:, 2])
+            e_lo = np.where(hi_first, sub[:, 2], sub[:, 0])
+            deltas = e_lo - e_hi
+            d = int(deltas[0])
+            if d <= 0 or not np.all(deltas == d):
+                raise NotImplementedError(
+                    f"axis {a} face-pair offsets are not one uniform "
+                    f"positive delta (use a lexicographic box order)")
+            plane_hi = np.take(g[e_hi], -1, axis=1 + a)
+            plane_lo = np.take(g[e_lo], 0, axis=1 + a)
+            if not np.array_equal(plane_hi, plane_lo):
+                raise NotImplementedError(
+                    f"axis {a} face gluing is not identity-oriented")
+            self.deltas.append(d)
+            mask_hi[a, e_hi] = True
+            mask_lo[a, e_lo] = True
+        if covered != len(pairs):
+            raise NotImplementedError(
+                "mesh has face pairs outside the axis-aligned box pattern")
+        self._mask_lo = mask_lo
+        self._mask_hi = mask_hi
+
+    @classmethod
+    def from_tables(cls, gather_lex, n_nodes: int, shape, deltas, mask_lo,
+                    mask_hi, E_real: int | None = None
+                    ) -> "BoxRollExchange3D":
+        """The exchange from its tables alone (another implementation's):
+        the (E, n_loc) lexicographic gather map (pad rows past ``E_real``),
+        the global node count, the (p0, p1, p2) node grid, the three
+        plane-roll offsets and the (3, E) neighbour masks.  Nothing is
+        validated against a mesh."""
+        gather_lex = np.asarray(gather_lex)
+        E = gather_lex.shape[0]
+        Er = E if E_real is None else int(E_real)
+        ex = cls.__new__(cls)
+        ex.disc = None
+        ex._tables(gather_lex[:Er], n_nodes, shape, E)
+        ex.deltas = [int(d) for d in deltas]
+        ex._mask_lo = np.array(mask_lo, bool).reshape(3, E)
+        ex._mask_hi = np.array(mask_hi, bool).reshape(3, E)
+        return ex
+
+    def _planes(self, u: torch.Tensor, first: int, elem: int, mask_shape,
+                roll=torch.roll) -> torch.Tensor:
+        """The six plane exchanges on ``u`` in place: the three node axes
+        start at dimension ``first``, the element axis of a plane is
+        ``elem``; the (E,) masks are viewed as ``mask_shape``; ``roll(x,
+        shift, dims)`` rolls a plane along its element axis (the sharded
+        exchange passes its block roll)."""
+        dev = u.device
+        for a in range(3):
+            d = self.deltas[a]
+            ml = self._on("_mask_lo", dev)[a].reshape(mask_shape)
+            mh = self._on("_mask_hi", dev)[a].reshape(mask_shape)
+            lo = u.select(first + a, 0)
+            hi = u.select(first + a, self.shape[a] - 1)
+            recv_lo = torch.where(ml, roll(hi, d, dims=elem), 0.0)
+            recv_hi = torch.where(mh, roll(lo, -d, dims=elem), 0.0)
+            lo += recv_lo
+            hi += recv_hi
+        return u
+
+    def dss(self, vL: torch.Tensor) -> torch.Tensor:
+        """Plane-roll DSS on an (E, n_loc) L-vector or an (..., E, n_loc)
+        stack."""
+        L = vL.dim() - 2
+        u = vL.reshape(*vL.shape[:-1], *self.shape).clone()
+        return self._planes(u, L + 1, L, (-1, 1, 1)).reshape(vL.shape)
+
+    def dss_T(self, vT: torch.Tensor) -> torch.Tensor:
+        """Plane-roll DSS on a transposed (n_loc, E) L-vector (or a stack):
+        the same six plane exchanges with the elements last."""
+        L = vT.dim() - 2
+        u = vT.reshape(*vT.shape[:-2], *self.shape, vT.shape[-1]).clone()
+        return self._planes(u, L, -1, (-1,)).reshape(vT.shape)
+
+
 def _make_exchange_impl(disc, threshold: float = 0.25,
                         pad_to: int | None = None,
                         min_class_fraction: float | None = None):
@@ -735,8 +983,13 @@ def _make_exchange_impl(disc, threshold: float = 0.25,
     tiling) is not ported: the CUDA kernels take any element count.
     """
     if len(disc.shape) != 2:
-        raise NotImplementedError(
-            "3D exchanges are not ported yet (ROADMAP Queue 1, the 3D path)")
+        # 3D (and any non-quad NCube): the plane-roll DSS on structured box
+        # meshes, the multiplicity-split pair/scatter exchange otherwise
+        # (the reference's selection rule on the mesh)
+        try:
+            return BoxRollExchange3D(disc, pad_to=pad_to)
+        except NotImplementedError:
+            return PairScatterExchange(disc, pad_to=pad_to)
     try:
         ex = RollExchange(disc, pad_to=pad_to,
                           min_class_fraction=min_class_fraction)

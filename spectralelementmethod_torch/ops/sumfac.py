@@ -1,7 +1,7 @@
 """Matrix-free Laplacian on L-vectors and global vectors (PyTorch port).
 
-Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D solves
-run.  The global-vector helpers (:func:`gather`, :func:`scatter_add`,
+Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D and 3D
+solves run.  The global-vector helpers (:func:`gather`, :func:`scatter_add`,
 :func:`laplacian_apply_local`, :func:`laplacian_apply`,
 :func:`make_poisson_operator`, :func:`laplacian_diag_local`,
 :func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` /
@@ -30,6 +30,16 @@ row-major (E, n) L-vectors (``vector_layout="en"``) the operator is
 (``backend="xla"``) or by the hand-written element-local kernel
 (``backend="pallas"``, :func:`.kernels.laplacian_local`), then the
 exchange's ``dss``.
+
+On hexahedra (3D) the local products act along one axis of (E, p0, p1, p2)
+fields at a time (:func:`apply_axis`: batched ``torch.matmul``/``bmm``, as
+the reference's einsums are XLA): :func:`laplacian_apply_local_3d` (full
+factors), :func:`laplacian_apply_local_3d_affine` (six scales per
+element) and :func:`laplacian_apply_local_3d_separable` (axis-aligned
+boxes: three assembled 1D stiffness products), the transposed forms the
+reference's tests call, and :class:`Laplacian3D`, the operator on (E, n)
+L-vectors built by :func:`make_laplacian_3d` with the reference's
+structure rule (:func:`structure_3d`).
 
 The host helpers are numpy copies of the reference's, with one deliberate
 divergence: :func:`affine_factorization` measures each element against its
@@ -959,3 +969,319 @@ def make_multi_rhs_laplacian_T(exchange, Gf, Dhat, n_rhs: int,
         exchange, Gf, Dhat, free_local, assume_masked_input, device,
         structure, backend=backend, compute_dtype=compute_dtype,
         precision=precision).stacked(n_rhs)
+
+
+# ---------------------------------------------------------------------------
+# 3D hexahedra: (E, p0, p1, p2) local fields, lexicographic (E, n) L-vectors
+#
+# The reference computes its 3D applies outside any Pallas kernel (batched
+# einsums, then the exchange's DSS); so does the port.  Every product runs
+# along one axis of the trailing three as one batched GEMM: along the last
+# axis a (E p0 p1, p2) x (p2, p2) product, along the first two a strided
+# batch against one (p, p) matrix (batch stride 0), so no operand is
+# permuted or copied.  Leading stack dimensions (k, E, ...) pass through.
+
+
+def apply_axis(B: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:
+    """``B`` (m, p) applied along trailing axis ``axis`` (0, 1 or 2) of
+    (..., p0, p1, p2) fields: ``out[..., i, ...] = sum_j B[i, j] u[..., j,
+    ...]`` on that axis."""
+    *lead, p0, p1, p2 = u.shape
+    B = B.to(u.dtype)
+    m = B.shape[0]
+    if axis == 2:
+        return torch.matmul(u, B.T)
+    if axis == 0:
+        x = u.reshape(-1, p0, p1 * p2)
+        out = torch.bmm(B.expand(x.shape[0], m, p0), x)
+        return out.reshape(*lead, m, p1, p2)
+    x = u.reshape(-1, p1, p2)
+    out = torch.bmm(B.expand(x.shape[0], m, p1), x)
+    return out.reshape(*lead, p0, m, p2)
+
+
+def grad_3d(ue, D0, D1, D2):
+    """Parametric gradient of (E, p0, p1, p2) local fields."""
+    return apply_axis(D0, ue, 0), apply_axis(D1, ue, 1), apply_axis(D2, ue, 2)
+
+
+def grad_transpose_3d(f0, f1, f2, D0, D1, D2):
+    """Adjoint of :func:`grad_3d`."""
+    return (apply_axis(D0.T, f0, 0) + apply_axis(D1.T, f1, 1)
+            + apply_axis(D2.T, f2, 2))
+
+
+def laplacian_apply_local_3d(ue, G, D0, D1, D2):
+    """Local 3D weak Laplacian; ``G``: (E, 6, *shape) packed upper triangle
+    [G00, G01, G02, G11, G12, G22] (``laplacian_factors``)."""
+    u0, u1, u2 = grad_3d(ue, D0, D1, D2)
+    g = [G[:, c] for c in range(6)]
+    f0 = g[0] * u0 + g[1] * u1 + g[2] * u2
+    f1 = g[1] * u0 + g[3] * u1 + g[4] * u2
+    f2 = g[2] * u0 + g[4] * u1 + g[5] * u2
+    return grad_transpose_3d(f0, f1, f2, D0, D1, D2)
+
+
+def _scales_3d(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(E, 6) per-element scales as (6, E, 1, 1, 1) in ``like``'s dtype."""
+    return a.to(like.dtype).T.reshape(6, -1, 1, 1, 1)
+
+
+def laplacian_apply_local_3d_affine(ue, a, W3, D0, D1, D2):
+    """Affine-mesh local 3D weak Laplacian: every factor field is the
+    weight grid scaled per element (``G_i(e) = a_i(e) W3``), so the apply
+    reads six scalars per element instead of six factor slabs.  ``a``: (E,
+    6) scales; ``W3``: (p0, p1, p2) weight grid."""
+    u0, u1, u2 = grad_3d(ue, D0, D1, D2)
+    s = _scales_3d(a, ue)
+    w = W3.to(ue.dtype)
+    f0 = w * (s[0] * u0 + s[1] * u1 + s[2] * u2)
+    f1 = w * (s[1] * u0 + s[3] * u1 + s[4] * u2)
+    f2 = w * (s[2] * u0 + s[4] * u1 + s[5] * u2)
+    return grad_transpose_3d(f0, f1, f2, D0, D1, D2)
+
+
+def assembled_1d_stiffness(D, w):
+    """1D assembled GLL stiffness ``K = D^T diag(w) D`` (float64 numpy)."""
+    D = np.asarray(D, dtype=np.float64)
+    w = np.asarray(w, dtype=np.float64).reshape(-1)
+    return D.T @ (w[:, None] * D)
+
+
+def laplacian_apply_local_3d_separable(ue, a, K0, K1, K2, w0, w1, w2):
+    """Separable affine local 3D weak Laplacian (diagonal-mass tensor form).
+
+    For affine cells with zero cross factors (axis-aligned boxes: ``a1 =
+    a2 = a4 = 0``) and the GLL-collocated quadrature the weak Laplacian
+    factorizes exactly:
+
+        A_e = a0 K0 (x) W1 (x) W2 + a3 W0 (x) K1 (x) W2 + a5 W0 (x) W1 (x) K2
+
+    with the 1D assembled stiffness ``Kd`` (:func:`assembled_1d_stiffness`)
+    and the diagonal 1D masses ``Wd = diag(wd)``: three (p1, p1) products
+    and a combine.  ``a``: (E, 6) scales (only 0, 3 and 5 are read; the
+    caller verifies the cross terms vanish); ``wd``: 1D weights.
+    """
+    dt = ue.dtype
+    w0, w1, w2 = (torch.as_tensor(w, device=ue.device).to(dt)
+                  for w in (w0, w1, w2))
+    s = _scales_3d(a, ue)
+    v = (s[0] * (w1[:, None] * w2[None, :])) * apply_axis(K0, ue, 0)
+    v = v + (s[3] * (w0[:, None, None] * w2[None, None, :])) * apply_axis(
+        K1, ue, 1)
+    return v + (s[5] * (w0[:, None, None] * w1[None, :, None])) * apply_axis(
+        K2, ue, 2)
+
+
+def laplacian_apply_3d(u, gather_nodes, G, D0, D1, D2, n_nodes):
+    """Global matrix-free 3D weak Laplacian: scatter(local(gather(u)))."""
+    ue = gather(u, gather_nodes, G.shape[-3:])
+    return scatter_add(laplacian_apply_local_3d(ue, G, D0, D1, D2),
+                       gather_nodes, n_nodes)
+
+
+def laplacian_diag_local_host_3d(G, D0, D1, D2):
+    """Numpy host diagonal of the local 3D weak Laplacian."""
+    G = np.asarray(G)
+    D0, D1, D2 = (np.asarray(D) for D in (D0, D1, D2))
+    d = np.einsum("emqr,mp->epqr", G[:, 0], D0**2)
+    d += np.einsum("epnr,nq->epqr", G[:, 3], D1**2)
+    d += np.einsum("epqk,kr->epqr", G[:, 5], D2**2)
+    dd0 = np.diag(D0)[:, None, None]
+    dd1 = np.diag(D1)[None, :, None]
+    dd2 = np.diag(D2)[None, None, :]
+    d += 2.0 * G[:, 1] * dd0 * dd1
+    d += 2.0 * G[:, 2] * dd0 * dd2
+    d += 2.0 * G[:, 4] * dd1 * dd2
+    return d
+
+
+# -- the transposed (p0, p1, p2, E) forms ------------------------------------
+# The reference measured this layout slower on its TPU and only its tests
+# call these; the port keeps them for parity.
+
+
+def grad_3d_T(uT, D0, D1, D2):
+    """Parametric gradient in the transposed (p0, p1, p2, E) layout."""
+    u0 = torch.einsum("ma,abce->mbce", D0, uT)
+    u1 = torch.einsum("nb,abce->ance", D1, uT)
+    u2 = torch.einsum("kc,abce->abke", D2, uT)
+    return u0, u1, u2
+
+
+def grad_transpose_3d_T(f0, f1, f2, D0, D1, D2):
+    """Adjoint of :func:`grad_3d_T`."""
+    return (torch.einsum("mp,mqre->pqre", D0, f0)
+            + torch.einsum("nq,pnre->pqre", D1, f1)
+            + torch.einsum("kr,pqke->pqre", D2, f2))
+
+
+def laplacian_apply_local_3d_affine_T(uT, aT, W3, D0, D1, D2):
+    """Affine local 3D weak Laplacian on transposed (n_loc, E) storage.
+    ``aT``: (6, E) scales; ``W3``: (p0, p1, p2) weight grid."""
+    n_loc = uT.shape[0]
+    u0, u1, u2 = grad_3d_T(uT.reshape(tuple(W3.shape) + (-1,)), D0, D1, D2)
+    s = aT.to(uT.dtype)
+    w = W3.to(uT.dtype)[..., None]
+    f0 = w * (s[0] * u0 + s[1] * u1 + s[2] * u2)
+    f1 = w * (s[1] * u0 + s[3] * u1 + s[4] * u2)
+    f2 = w * (s[2] * u0 + s[4] * u1 + s[5] * u2)
+    return grad_transpose_3d_T(f0, f1, f2, D0, D1, D2).reshape(n_loc, -1)
+
+
+def laplacian_apply_local_3d_T(uT, G_T, D0, D1, D2):
+    """General local 3D weak Laplacian on transposed (n_loc, E) storage.
+    ``G_T``: (6,) + shape + (E,) packed upper-triangle factors."""
+    n_loc = uT.shape[0]
+    u0, u1, u2 = grad_3d_T(uT.reshape(tuple(G_T.shape[1:4]) + (-1,)),
+                           D0, D1, D2)
+    f0 = G_T[0] * u0 + G_T[1] * u1 + G_T[2] * u2
+    f1 = G_T[1] * u0 + G_T[3] * u1 + G_T[4] * u2
+    f2 = G_T[2] * u0 + G_T[4] * u1 + G_T[5] * u2
+    return grad_transpose_3d_T(f0, f1, f2, D0, D1, D2).reshape(n_loc, -1)
+
+
+def laplacian_apply_local_3d_separable_T(uT, aT, K0, K1, K2, w0, w1, w2):
+    """Separable affine local 3D weak Laplacian on transposed (n_loc, E)
+    storage.  ``aT``: (6, E) scales (rows 0, 3 and 5 are read)."""
+    w0, w1, w2 = (torch.as_tensor(w, device=uT.device).to(uT.dtype)
+                  for w in (w0, w1, w2))
+    n_loc = uT.shape[0]
+    u = uT.reshape((len(w0), len(w1), len(w2), -1))
+    t0 = torch.einsum("ma,abce->mbce", K0, u) * (
+        w1[:, None] * w2[None, :])[None, :, :, None]
+    t1 = torch.einsum("nb,abce->ance", K1, u) * (
+        w0[:, None] * w2[None, :])[:, None, :, None]
+    t2 = torch.einsum("kc,abce->abke", K2, u) * (
+        w0[:, None] * w1[None, :])[:, :, None, None]
+    s = aT.to(uT.dtype)
+    return (s[0] * t0.reshape(n_loc, -1) + s[3] * t1.reshape(n_loc, -1)
+            + s[5] * t2.reshape(n_loc, -1))
+
+
+# -- the 3D L-vector operator -------------------------------------------------
+
+STRUCTURES_3D = ("separable", "affine", "general")
+
+
+class Laplacian3D:
+    """Weak Laplacian on lexicographic (E, n) L-vectors of a hexahedral mesh,
+    or on (..., E, n) stacks of them: the local product, then the
+    exchange's :meth:`dss`, then (when ``free`` is given) the Dirichlet
+    mask on the output.  As the reference's 3D operator, the input is not
+    masked: CG iterates satisfy the mask by induction, and the residual
+    seeds pass the Dirichlet lift through the unmasked operator.
+
+    ``structure`` (the reference's ``_structure``, chosen by
+    :func:`structure_3d`): ``"separable"`` — axis-aligned affine boxes,
+    :func:`laplacian_apply_local_3d_separable` from ``a``, ``K`` and
+    ``wd``; ``"affine"`` — affine cells with cross terms,
+    :func:`laplacian_apply_local_3d_affine` from ``a``, ``W3`` and ``D``;
+    ``"general"`` — curved cells or a variable coefficient,
+    :func:`laplacian_apply_local_3d` from the (E, 6, *shape) slabs ``G``.
+    Element rows past the mesh's (padding) carry zero scales or slabs.
+    ``dss`` replaces the exchange's DSS (the element-sharded one of
+    :func:`..parallel.halo.make_halo_dss_3d`).
+    """
+
+    def __init__(self, exchange, structure: str, shape, *, a=None, K=None,
+                 wd=None, W3=None, D=None, G=None, free=None, dss=None):
+        if structure not in STRUCTURES_3D:
+            raise ValueError(f"unknown 3D structure {structure!r}")
+        self.structure = structure
+        self.dss = exchange.dss if dss is None else dss
+        self.shape = tuple(shape)
+        self.a, self.K, self.wd, self.W3, self.D, self.G = a, K, wd, W3, D, G
+        self.free = free
+
+    def masked(self, free) -> "Laplacian3D":
+        """This operator with the output mask ``free`` (None: unmasked);
+        the other tensors are shared."""
+        op = copy.copy(self)
+        op.free = free
+        return op
+
+    def local(self, uL: torch.Tensor) -> torch.Tensor:
+        """The element-local product of (..., E, n) L-vectors (no DSS)."""
+        ue = uL.reshape(*uL.shape[:-1], *self.shape)
+        if self.structure == "separable":
+            ve = laplacian_apply_local_3d_separable(ue, self.a, *self.K,
+                                                    *self.wd)
+        elif self.structure == "affine":
+            ve = laplacian_apply_local_3d_affine(ue, self.a, self.W3, *self.D)
+        else:
+            ve = laplacian_apply_local_3d(ue, self.G, *self.D)
+        return ve.reshape(uL.shape)
+
+    def __call__(self, uL: torch.Tensor) -> torch.Tensor:
+        v = self.dss(self.local(uL))
+        return v if self.free is None else torch.where(self.free, v, 0.0)
+
+
+def structure_3d(G, W3) -> tuple[str, np.ndarray]:
+    """The reference's 3D structure rule on (E, 6, ...) factors ``G``:
+    ``("separable", a)`` for affine cells without cross terms, ``("affine",
+    a)`` for affine cells with them, ``("general", a)`` otherwise; ``a`` the
+    (E, 6) scales of :func:`affine_factorization`."""
+    G = np.asarray(G)
+    a, affine = affine_factorization(G.reshape(G.shape[0], 6, -1),
+                                     np.asarray(W3).reshape(-1))
+    no_cross = bool(np.abs(a[:, [1, 2, 4]]).max()
+                    <= 1e-12 * (np.abs(a).max() + 1e-300))
+    if not affine:
+        return "general", a
+    return ("separable" if no_cross else "affine"), a
+
+
+def make_laplacian_3d(exchange, G, basis, *, dtype, device,
+                      structure: str | None = None, free=None,
+                      scales=None) -> Laplacian3D:
+    """The 3D weak Laplacian of the (E_real, 6, *shape) factors ``G`` on
+    ``exchange``'s (E, n) L-vectors, on ``device`` in ``dtype``.
+
+    ``structure`` None takes the reference's rule (:func:`structure_3d`);
+    ``"general"`` forces the full-factor apply.  ``scales``: the ``(found,
+    a)`` of :func:`structure_3d` on ``G`` when the caller has it (one pass
+    over the factors fewer; ``G`` may then be None unless the structure is
+    general).  The scales, stiffness matrices and weights of the separable
+    form are built in float64 and cast to ``dtype``, as the reference's;
+    element rows past the mesh's (padding) get zero scales or slabs.
+    """
+    dt = torch_dtype(dtype)
+    E, Er = exchange.E, exchange.E_real
+    shape = tuple(basis.coeff_shape)
+    W3 = np.array(basis.weight_grid())
+    found, a_np = structure_3d(G, W3) if scales is None else scales
+    structure = found if structure is None else structure
+    if structure not in STRUCTURES_3D:
+        raise ValueError(f"unknown 3D structure {structure!r}")
+    if structure != "general" and found == "general":
+        raise ValueError(f"mesh is not affine but structure={structure!r}")
+
+    def on(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device).to(dt)
+
+    def padded(x):
+        """``x``'s rows on the exchange's E (zero rows for padding)."""
+        if E == Er:
+            return x
+        out = np.zeros((E,) + x.shape[1:], x.dtype)
+        out[:Er] = x
+        return out
+
+    # the derivative matrices at the model's dtype, as the reference's
+    # host copies (its separable stiffness is built from them in float64)
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    Dh = [np.array(basis.subbases[d].D1, dtype=npdt) for d in range(3)]
+    kw = dict(D=[on(D) for D in Dh])
+    if structure == "general":
+        kw["G"] = on(padded(np.asarray(G).reshape((Er, 6) + shape)))
+    else:
+        kw["a"] = on(padded(np.asarray(a_np, np.float64)[:Er]))
+        kw["W3"] = on(W3)
+        if structure == "separable":
+            ws = [np.array(basis.subbases[d].quad_wts) for d in range(3)]
+            kw["K"] = [on(assembled_1d_stiffness(Dh[d], ws[d]))
+                       for d in range(3)]
+            kw["wd"] = [on(w) for w in ws]
+    return Laplacian3D(exchange, structure, shape, free=free, **kw)

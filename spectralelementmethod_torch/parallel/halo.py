@@ -14,6 +14,8 @@ simulated shards (shards on several cards are ROADMAP work).
   per-block shifts plus the ring's strip copies (the wrap-around pair
   elided where the class masks discard it, :func:`_class_uses_wrap`);
 * :func:`make_halo_dss_T` — the roll-class DSS built on it;
+* :func:`block_roll` and :func:`make_halo_dss_3d` — any-offset block
+  rolls and the 3D plane-roll DSS built on them;
 * :func:`make_sharded_local_operator` — the per-shard local product
   (plain PyTorch, any dtype) and the halo DSS;
 * :func:`make_sharded_fused_operator` — per shard, the strips, the block
@@ -76,6 +78,61 @@ def global_roll(x, delta: int, axis_name: str, n_shards: int,
                     else torch.zeros_like(blk[..., :d]))
             out.append(torch.cat([recv, blk[..., :Eb - d]], dim=-1))
     return torch.cat(out, dim=-1)
+
+
+
+def block_roll(x: torch.Tensor, shift: int, n_shards: int,
+               dim: int = 0) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=dim)`` over an axis split into
+    ``n_shards`` equal blocks, for any ``shift``: each block of the result
+    is the concatenation of copies from the (at most two) source blocks
+    that hold its elements — the 3D plane rolls, whose offsets (``ny nz``
+    along the first axis) may exceed a shard's block."""
+    if n_shards == 1:
+        return torch.roll(x, shift, dims=dim)
+    E = x.shape[dim]
+    if E % n_shards:
+        raise ValueError(f"E={E} not divisible by {n_shards} shards; pad the "
+                         "exchange (pad_to)")
+    Eb = E // n_shards
+    blocks = x.split(Eb, dim)
+    out = []
+    for i in range(n_shards):
+        q, r = divmod((i * Eb - shift) % E, Eb)
+        parts = [blocks[q].narrow(dim, r, Eb - r)]
+        if r:
+            parts.append(blocks[(q + 1) % n_shards].narrow(dim, 0, r))
+        out.append(torch.cat(parts, dim))
+    return torch.cat(out, dim)
+
+
+def make_halo_dss_3d(exchange, axis_name: str = ELEM_AXIS,
+                     n_shards: int = 1):
+    """Plane-roll DSS of lexicographic (E, n) 3D L-vectors (or stacks) over
+    ``n_shards`` element blocks: :meth:`..ops.exchange.BoxRollExchange3D.
+    dss` with every element-axis roll of a face plane made by
+    :func:`block_roll` (per-block copies, the reference's
+    collective-permutes made visible).  ``axis_name`` names the mesh axis
+    and is not read here."""
+    from ..ops.exchange import BoxRollExchange3D
+
+    ex = exchange
+    if not isinstance(ex, BoxRollExchange3D):
+        raise ValueError("the 3D halo DSS requires a BoxRollExchange3D "
+                         "(a lexicographic box element order)")
+    if ex.E % n_shards:
+        raise ValueError(f"E={ex.E} not divisible by {n_shards} shards; pad "
+                         "the exchange (pad_to)")
+
+    def roll(x, shift, dims):
+        return block_roll(x, shift, n_shards, dims)
+
+    def dss(vL: torch.Tensor) -> torch.Tensor:
+        L = vL.dim() - 2
+        u = vL.reshape(*vL.shape[:-1], *ex.shape).clone()
+        return ex._planes(u, L + 1, L, (-1, 1, 1), roll).reshape(vL.shape)
+
+    return dss
 
 
 def _class_uses_wrap(mask, delta: int) -> bool:

@@ -7,9 +7,10 @@ production multi-chip path).  The reference shards over a
 on one device: ``size`` shards, each a contiguous column block of the
 (n, E) L-vectors, and :mod:`.halo` moves the boundary strips between them
 as explicit copies.  Shards on several cards (``torch.distributed``),
-``hybrid_device_mesh`` (multi-slice TPU fleets), the replicated-vector
-``sharded_poisson_problem`` and the 3D ``sharded_local_poisson_problem_3d``
-are not ported (ROADMAP Queue 1).
+``hybrid_device_mesh`` (multi-slice TPU fleets) and the replicated-vector
+``sharded_poisson_problem`` are not ported (ROADMAP Queue 1).  The 3D
+:func:`sharded_local_poisson_problem_3d` shards the lexicographic (E, n)
+L-vectors of a box mesh the same way, in element blocks.
 """
 
 from __future__ import annotations
@@ -126,8 +127,9 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
     dev = mesh.device
     disc = problem.disc
     if disc.mesh.ndim != 2:
-        raise NotImplementedError(
-            "sharded 3D solves are not ported yet (ROADMAP Queue 1)")
+        raise ValueError("sharded_local_poisson_problem takes a 2D "
+                         "discretization (3D: sharded_local_poisson_"
+                         "problem_3d)")
     E, n_loc = disc.E, disc.n_loc
     Ep = pad_elements(E, mesh.size)
     ex = getattr(problem, "_exchange", None)
@@ -184,6 +186,74 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
         # the Dirichlet mask around the one unmasked operator, which also
         # lifts the boundary values into r
         return torch.where(free_d, A_raw(torch.where(free_d, u, 0.0)), 0.0)
+
+    r = torch.where(free_d, bL_d - A_raw(u_dL_d), 0.0)
+    M = jacobi_preconditioner(diag_d, free_d)
+    return A, r, M, u_dL_d, ex, mesh
+
+
+def sharded_local_poisson_problem_3d(problem, mesh=None,
+                                     axis: str = ELEM_AXIS):
+    """Element-sharded 3D L-vector CG setup of a hexahedral
+    :class:`..models.poisson.Poisson` problem.
+
+    Every iteration-state tensor is an (E_pad, n_loc) lexicographic
+    L-vector; the shards are ``mesh.size`` contiguous element blocks of the
+    box order on one device (the reference shards the element axis over a
+    device mesh).  The operator is the general local 3D apply
+    (:func:`..ops.sumfac.laplacian_apply_local_3d`, the reference's) and
+    the plane-roll DSS with its rolls crossing the shard edges as explicit
+    copies (:func:`.halo.make_halo_dss_3d`); the element count is padded to
+    a multiple of the shards with inert elements (zero factors and
+    weights).  Requires a lexicographic box element order
+    (:class:`..ops.exchange.BoxRollExchange3D` validates; no fallback).
+
+    Returns ``(A, r, M, u_dL, exchange, mesh)``; solve with ``cg(A, r,
+    M=M, dot=exchange.dot)`` and recover the solution with
+    ``exchange.global_from_local(u_dL + x)``.
+    """
+    from ..ops.exchange import BoxRollExchange3D
+    from ..solver.cg import jacobi_preconditioner
+    from .halo import make_halo_dss_3d
+
+    if mesh is None:
+        mesh = device_mesh()
+    dev = mesh.device
+    disc = problem.disc
+    if disc.mesh.ndim != 3:
+        raise ValueError("sharded_local_poisson_problem_3d requires a "
+                         "3D discretization")
+    E, n_loc = disc.E, disc.n_loc
+    shape = tuple(disc.shape)
+    Ep = pad_elements(E, mesh.size)
+    ex = BoxRollExchange3D(disc, pad_to=Ep)
+
+    dtype = problem.dtype
+    G = np.zeros((Ep, 6) + shape, dtype=dtype)
+    G[:E] = np.asarray(problem._G_host, dtype=dtype).reshape((E, 6) + shape)
+    free = np.zeros((Ep, n_loc), dtype=bool)
+    free[:E] = (~problem._dirichlet_mask)[ex.gather_lex[:E]]
+
+    b = np.asarray(problem._b) + problem._neumann
+    u_d = np.where(problem._dirichlet_mask, problem._dirichlet_vals, 0.0)
+    bL = np.zeros((Ep, n_loc), dtype=dtype)
+    bL[:E] = ex.local_from_global(b)[:E]
+    u_dL = np.zeros((Ep, n_loc), dtype=dtype)
+    u_dL[:E] = ex.local_from_global(u_d)[:E]
+    diagL = np.ones((Ep, n_loc), dtype=dtype)
+    diagL[:E] = ex.local_from_global(
+        np.asarray(problem.operator_diagonal()))[:E]
+    free_d, bL_d, u_dL_d, diag_d, G_d = (
+        torch.as_tensor(a, device=dev) for a in (free, bL, u_dL, diagL, G))
+
+    A_raw = sumfac.Laplacian3D(
+        ex, "general", shape, G=G_d,
+        D=[torch.as_tensor(np.array(D, dtype=dtype), device=dev)
+           for D in problem._D_hosts()],
+        dss=make_halo_dss_3d(ex, axis, mesh.size))
+
+    def A(uL):
+        return torch.where(free_d, A_raw(torch.where(free_d, uL, 0.0)), 0.0)
 
     r = torch.where(free_d, bL_d - A_raw(u_dL_d), 0.0)
     M = jacobi_preconditioner(diag_d, free_d)

@@ -1,7 +1,7 @@
-"""Two-level p-multigrid preconditioner for the L-vector CG path (2D,
-PyTorch port).
+"""Two-level p-multigrid preconditioner for the L-vector CG path (PyTorch
+port).
 
-Port of the 2D half of the JAX package's ``solver/pmg.py``: smooth the
+Port of the JAX package's ``solver/pmg.py``: smooth the
 high-order modes element-locally, correct the rest on a low-order (p_c = 1
 by default) space sharing the same mesh (Lottes & Fischer 2005 lineage).
 
@@ -32,9 +32,15 @@ Construction is host numpy (as in the reference); the returned
 :class:`PMGPreconditioner` acts on (n_f, E) transposed L-vectors, or on a
 (k, n_f, E) stack of them (the reference's ``jax.vmap(M)``: the operators'
 ``.stacked(k)``, one batched launch per apply, batched transfers and grid
-solve, one ``lmax`` estimate).  The 3D factory (:class:`GridFDM3D`,
-``make_pmg_preconditioner_3d``) and sharded coarse padding are not ported
-yet; they raise with their ROADMAP item.
+solve, one ``lmax`` estimate).
+
+The 3D factory (:func:`make_pmg_preconditioner_3d`, which
+:func:`make_pmg_preconditioner` dispatches to on a 3D mesh) acts on
+lexicographic (E, n) L-vectors: a p_c = 2 coarse level rediscretized on
+the shared-node coarse mesh, Chebyshev-Jacobi smoothing on the outer
+solve's operator in its dtype, and the exact :class:`GridFDM3D` lattice
+solve on box meshes (else a Chebyshev sweep).  Sharded coarse padding is
+not ported yet; it raises with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -129,9 +135,14 @@ def _eig_1d(basis_c, d: int, n_el: int, i0: int, i1: int):
     """Generalized eigenpairs of the assembled 1D GLL stiffness against the
     lumped mass along axis ``d`` (``n_el`` elements), on the free index
     interval ``[i0, i1)``: (lam, S) with ``S`` mass-orthonormal."""
-    sub = basis_c.get_subbasis(d)
-    w1 = np.asarray(basis_c.quad_rule.weights[d], np.float64)
-    D1 = np.asarray(sub.D1, np.float64)
+    return _eig_assembled(basis_c.quad_rule.weights[d],
+                          basis_c.get_subbasis(d).D1, n_el, i0, i1)
+
+
+def _eig_assembled(w1, D1, n_el: int, i0: int, i1: int):
+    """:func:`_eig_1d` from the 1D weights ``w1`` and derivative ``D1``."""
+    w1 = np.asarray(w1, np.float64)
+    D1 = np.asarray(D1, np.float64)
     khat = D1.T @ np.diag(w1) @ D1
     K, m = GridFDM._assemble_1d(0.5 * (khat + khat.T), w1, n_el)
     K, m = K[i0:i1, i0:i1], m[i0:i1]
@@ -411,6 +422,328 @@ class GridFDM2DLattice:
         return cls(grid_of_slot, dims, ivs, Sx, Sy, lam, Er, ex_c.E, device)
 
 
+class GridFDM3D:
+    """Exact tensor-grid coarse solve for 3D box meshes.
+
+    3D twin of :class:`GridFDM2DLattice`, mapped through the global node
+    lattice: on a uniform box mesh the gather ids of the lexicographic (E,
+    n_c) L-vectors form a coordinate lattice, so one host pass gives each
+    slot its lattice position (``grid_of_slot``) and the device mapping is
+    a scatter-set and a gather of size E n_c.  The separable solve is three
+    per-axis eigen transforms each way over the free sub-box:
+
+        u = (Sx (x) Sy (x) Sz) [ t / (a0 lx_i + a1 ly_j + a2 lz_k) ]
+
+    each a (p, p)-batched product along one axis
+    (:func:`..ops.sumfac.apply_axis`).  The transforms are float64 masters
+    cast to the vector's dtype per call.  Acts on (Ec, n_c) L-vectors or
+    (..., Ec, n_c) stacks.  Use :meth:`try_build` (None unless every
+    precondition verifiably holds: uniform affine diagonal factors, zero
+    cross factors, a full coordinate lattice, outer-product contiguous free
+    intervals).  Copies of a shared node that are not bitwise equal leave
+    which one the scatter-set keeps unspecified, as the reference's.
+    """
+
+    def __init__(self, grid_of_slot, dims, free_iv, S_axes, lam3, Er, E,
+                 device):
+        self.dims = dims
+        (self.fx0, self.fx1), (self.fy0, self.fy1), (self.fz0, self.fz1) \
+            = free_iv
+        self.Er, self.E = Er, E
+        dev = resolve_device(device)
+        self._gos = torch.as_tensor(np.asarray(grid_of_slot, np.int64),
+                                    device=dev)              # (Er, n_c)
+        self.S = [torch.as_tensor(np.asarray(s, np.float64), device=dev)
+                  for s in S_axes]
+        self._inv_lam = torch.as_tensor(1.0 / np.asarray(lam3, np.float64),
+                                        device=dev)
+
+    def __call__(self, rc: torch.Tensor) -> torch.Tensor:
+        from ..ops.sumfac import apply_axis
+
+        lead, dt = rc.shape[:-2], rc.dtype
+        flat = torch.zeros(*lead, int(np.prod(self.dims)), dtype=dt,
+                           device=rc.device)
+        flat[..., self._gos.reshape(-1)] = rc[..., :self.Er, :].reshape(
+            *lead, -1)
+        G = flat.reshape(*lead, *self.dims)
+        box = (..., slice(self.fx0, self.fx1), slice(self.fy0, self.fy1),
+               slice(self.fz0, self.fz1))
+        S = [s.to(dt) for s in self.S]
+        t = G[box]
+        for axis in range(3):
+            t = apply_axis(S[axis].T, t, axis)
+        t = t * self._inv_lam.to(dt)
+        for axis in range(3):
+            t = apply_axis(S[axis], t, axis)
+        U = torch.zeros_like(G)
+        U[box] = t
+        out = U.reshape(*lead, -1)[..., self._gos]         # (..., Er, n_c)
+        if self.E > self.Er:
+            out = torch.nn.functional.pad(out, (0, 0, 0, self.E - self.Er))
+        return out
+
+    @classmethod
+    def try_build(cls, ex_c, disc_c, free_c_np, G_c=None, device=None):
+        """GridFDM3D for the coarse level, or None if inadmissible.
+
+        ``G_c``: optional precomputed ``disc_c.laplacian_factors(None)``;
+        ``free_c_np``: (Ec, n_c) free mask in the coarse local order."""
+        Er = ex_c.E_real
+        basis_c = disc_c.basis
+        W = np.asarray(basis_c.weight_grid()).reshape(-1)
+        sumW = float(W.sum())
+        if G_c is None:
+            G_c = disc_c.laplacian_factors(None)
+        Gf = np.asarray(G_c, np.float64).reshape(Er, 6, -1)
+        scale = np.abs(Gf).max() + 1e-300
+        a = np.empty(3)
+        for k, c in enumerate((0, 3, 5)):
+            ac = Gf[:, c, :].sum(axis=1) / sumW
+            if (np.abs(Gf[:, c, :] - ac[:, None] * W[None, :]).max()
+                    > 1e-10 * scale
+                    or np.abs(ac - ac[0]).max() > 1e-10 * scale):
+                return None                  # non-affine or non-uniform
+            a[k] = ac[0]
+        for c in (1, 2, 4):
+            if np.abs(Gf[:, c, :]).max() > 1e-10 * scale:
+                return None                  # sheared cells
+        p1 = basis_c.coeff_shape[0]
+        if any(s != p1 for s in basis_c.coeff_shape):
+            return None
+        pc = p1 - 1
+
+        # coordinate lattice of the referenced coarse nodes
+        gix = np.asarray(ex_c.gather_lex[:Er])              # (Er, n_c)
+        used = np.unique(gix.reshape(-1))
+        xyz = np.asarray(disc_c.mesh.nodes)[:, used]        # (3, Nu)
+        axes_vals, axis_idx = [], []
+        span = np.abs(xyz).max() + 1.0
+        for d in range(3):
+            v = np.round(xyz[d] / span * 1e12)
+            vals = np.unique(v)
+            axes_vals.append(vals)
+            axis_idx.append(np.searchsorted(vals, v))
+        dims = tuple(len(v) for v in axes_vals)
+        if int(np.prod(dims)) != used.size:
+            return None                      # not a full lattice
+        grid_flat_of_used = (axis_idx[0] * dims[1] + axis_idx[1]) \
+            * dims[2] + axis_idx[2]
+        if np.unique(grid_flat_of_used).size != used.size:
+            return None
+        lut = np.full(used.max() + 1, -1, dtype=np.int64)
+        lut[used] = grid_flat_of_used
+        grid_of_slot = lut[gix]
+        if (grid_of_slot < 0).any():
+            return None
+        # per-axis element counts must tile the lattice at order pc
+        n_el = []
+        for Nd in dims:
+            if (Nd - 1) % pc:
+                return None
+            n_el.append((Nd - 1) // pc)
+
+        # free mask must be an outer product of contiguous intervals
+        fflat = np.zeros(int(np.prod(dims)), bool)
+        fflat[grid_of_slot.reshape(-1)] = free_c_np[:Er].reshape(-1)
+        fgrid = fflat.reshape(dims)
+        fx = fgrid.any(axis=(1, 2))
+        fy = fgrid.any(axis=(0, 2))
+        fz = fgrid.any(axis=(0, 1))
+        if not np.array_equal(
+                fgrid, fx[:, None, None] & fy[None, :, None]
+                & fz[None, None, :]):
+            return None
+        ivs = []
+        for f in (fx, fy, fz):
+            idx = np.nonzero(f)[0]
+            if idx.size == 0 or not np.array_equal(
+                    idx, np.arange(idx[0], idx[-1] + 1)):
+                return None
+            ivs.append((int(idx[0]), int(idx[-1] + 1)))
+
+        # 1D eigenpairs on each free interval (axis 0's basis serves all
+        # three: the coarse basis is isotropic, checked above)
+        sub = basis_c.subbases[0]
+        S_axes, lams = [], []
+        for d in range(3):
+            lam, S = _eig_assembled(sub.quad_wts, sub.D1, n_el[d], *ivs[d])
+            lams.append(lam)
+            S_axes.append(S)
+        lam3 = (a[0] * lams[0][:, None, None]
+                + a[1] * lams[1][None, :, None]
+                + a[2] * lams[2][None, None, :])
+        return cls(grid_of_slot, dims, ivs, S_axes, lam3, Er, ex_c.E,
+                   device)
+
+
+class PMGPreconditioner3D:
+    """The symmetric two-level V-cycle ``M(r)`` of
+    :func:`make_pmg_preconditioner_3d` on lexicographic (E, n_f)
+    L-vectors or (..., E, n_f) stacks (the reference's ``jax.vmap(M)``:
+    every operator, transfer and coarse solve takes the stack as it is).
+
+    Introspection attributes, as the reference's closure carries them:
+    ``_coarse_kind`` (``"fdm"``/``"chebyshev"``), ``_levels`` ((p_f,
+    p_c)), ``_lmax_f``, ``_restrict``, ``_prolong``, ``_coarse``, ``_A_c``;
+    and the port's ``_A_f``, ``_B_f`` and ``_S_f``.
+    """
+
+    def __init__(self, *, A_f, B_f, lmax_f, degree, alpha, C, coarse_kind,
+                 restrict, prolong, A_c, levels):
+        self._A_f, self._B_f, self._A_c = A_f, B_f, A_c
+        self._lmax_f = lmax_f
+        self._coarse, self._coarse_kind = C, coarse_kind
+        self._restrict, self._prolong = restrict, prolong
+        self._levels = levels
+        self._S_f = chebyshev_smoother(A_f, B_f, lmax_f, lmax_f / alpha,
+                                       degree)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        S_f, A_f = self._S_f, self._A_f
+        with _true_f32():
+            z = S_f(r)
+            ec = self._coarse(self._restrict(r - A_f(z)))
+            z = z + self._prolong(ec)
+            return z + S_f(r - A_f(z))
+
+
+@_staged_factory
+def make_pmg_preconditioner_3d(disc, ex_f, A_f, free_global, diag_global,
+                               *,
+                               p_coarse: int = 2,
+                               degree: int = 3,
+                               alpha: float = 4.0,
+                               coarse: str = "auto",
+                               coarse_degree: int = 24,
+                               coarse_interval: float = 100.0,
+                               dtype=np.float64,
+                               mm_precision: str | None = "float32",
+                               lmax_iters: int = 30,
+                               lmax_safety: float = 1.05,
+                               device=None) -> PMGPreconditioner3D:
+    """Two-level p-MG V-cycle on the 3D lexicographic (E, n) L-vectors.
+
+    The reference's signature and defaults, with ``device`` last (the CUDA
+    card unless given).  The coarse level is the shared-node
+    order-``p_coarse`` mesh (:func:`..mesh.porder.mesh_with_order`)
+    discretized directly (its own exact factors, the unit coefficient, as
+    the reference's), with the general apply
+    (:class:`..ops.sumfac.Laplacian3D`) on its own exchange; the transfers
+    are one ``(E, n_f) @ (n_f, n_c)`` product each way; the smoother is
+    Chebyshev-accelerated point Jacobi on ``A_f`` (the masked fine operator
+    of the outer solve, in ``dtype``); the coarse solve is the exact
+    :class:`GridFDM3D` on box meshes, else (or with
+    ``coarse="chebyshev"``) a fixed-degree Chebyshev-Jacobi sweep.
+    ``free_global``: the (n_nodes,) non-Dirichlet mask; ``diag_global``: the
+    fine assembled operator diagonal.  The transfers and the grid solve run
+    in true float32 (TF32 off) for ``mm_precision`` "float32" or None; any
+    other tier raises (ROADMAP Queue 3).  An unknown ``coarse`` raises
+    ``ValueError`` (the reference takes the Chebyshev sweep).
+    """
+    from ..basis import gll_basis_3d
+    from ..core.discretization import Discretization
+    from ..mesh.porder import mesh_with_order
+    from ..ops import sumfac
+    from ..ops.exchange import make_exchange
+    from .cg import jacobi_preconditioner
+
+    if disc.mesh.ndim != 3:
+        raise ValueError("make_pmg_preconditioner_3d is 3D-only")
+    if mm_precision not in ("float32", None):
+        raise NotImplementedError(
+            f"mm_precision={mm_precision!r}: the V-cycle's matmuls run in "
+            "true float32 (TF32 off); a reduced tier is a pinned divergence "
+            "(ROADMAP Queue 3)")
+    if coarse not in ("auto", "fdm", "chebyshev"):
+        raise ValueError(f"unknown coarse solve {coarse!r}")
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+
+    def on(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dt)
+
+    basis_f = disc.basis
+    mesh_c = mesh_with_order(disc.mesh, p_coarse)
+    basis_c = gll_basis_3d(p_coarse)
+    disc_c = Discretization(mesh_c, basis_c)
+    ex_c = make_exchange(disc_c)
+    Er, Ef, Ec = ex_f.E_real, ex_f.E, ex_c.E
+    n_f, n_c = ex_f.n_loc, ex_c.n_loc
+
+    G_c_np = disc_c.laplacian_factors(None)     # computed once, reused
+    free_c_np = np.asarray(free_global, bool)[ex_c.gather_lex]
+    free_c = torch.as_tensor(free_c_np, device=dev)
+    lap_c = sumfac.make_laplacian_3d(ex_c, G_c_np, basis_c, dtype=dt,
+                                     device=dev, structure="general")
+
+    def A_c(uL):
+        return torch.where(free_c, lap_c(torch.where(free_c, uL, 0.0)), 0.0)
+
+    d_c = sumfac.laplacian_diag_local_host_3d(
+        np.asarray(G_c_np),
+        *[np.asarray(basis_c.subbases[d].D1) for d in range(3)])
+    dg = np.zeros(disc.mesh.n_nodes)
+    np.add.at(dg, np.asarray(ex_c.gather_lex[:Er]).ravel(),
+              d_c.reshape(Er, -1).ravel())
+    B_c = jacobi_preconditioner(on(dg[ex_c.gather_lex]), free_c)
+
+    # transfers: the coarse basis at the fine GLL lattice, tensorized (lex)
+    P = np.ones((1, 1))
+    for d in range(3):
+        P1 = np.asarray(basis_c.subbases[d](basis_f.subbases[d].nodes),
+                        np.float64)
+        P = np.kron(P, P1)                                # (n_f, n_c) lex
+    P_d = on(P)
+    P_t = P_d.T.contiguous()
+    w_f = ex_f._weights_as(dt, dev)
+    free_f = torch.as_tensor(
+        np.asarray(free_global, bool)[ex_f.gather_lex], device=dev)
+
+    def restrict(r):
+        loc = (w_f * r)[..., :Er, :] @ P_d
+        if Ec > Er:
+            loc = torch.nn.functional.pad(loc, (0, 0, 0, Ec - Er))
+        return torch.where(free_c, ex_c.dss(loc), 0.0)
+
+    def prolong(ec):
+        ef = ec[..., :Er, :] @ P_t
+        if Ef > Er:
+            ef = torch.nn.functional.pad(ef, (0, 0, 0, Ef - Er))
+        return torch.where(free_f, ef, 0.0)
+
+    B_f = jacobi_preconditioner(
+        on(np.asarray(diag_global)[np.asarray(ex_f.gather_lex)]), free_f)
+    with _true_f32():
+        lmax_f = estimate_lmax(A_f, B_f, (Ef, n_f), dtype=np.dtype(dtype),
+                               iters=lmax_iters, safety=lmax_safety,
+                               device=dev)
+
+    grid = None
+    if coarse in ("auto", "fdm"):
+        grid = GridFDM3D.try_build(ex_c, disc_c, free_c_np, G_c=G_c_np,
+                                   device=dev)
+        if grid is None and coarse == "fdm":
+            raise ValueError(
+                "coarse='fdm' needs a uniform box lattice with "
+                "outer-product Dirichlet data")
+    if grid is not None:
+        C, coarse_kind = grid, "fdm"
+    else:
+        with _true_f32():
+            lmax_c = estimate_lmax(A_c, B_c, (Ec, n_c),
+                                   dtype=np.dtype(dtype), iters=lmax_iters,
+                                   safety=lmax_safety, device=dev)
+        C = chebyshev_smoother(A_c, B_c, lmax_c, lmax_c / coarse_interval,
+                               coarse_degree)
+        coarse_kind = "chebyshev"
+
+    return PMGPreconditioner3D(
+        A_f=A_f, B_f=B_f, lmax_f=lmax_f, degree=degree, alpha=alpha, C=C,
+        coarse_kind=coarse_kind, restrict=restrict, prolong=prolong,
+        A_c=A_c, levels=(int(basis_f.coeff_shape[0]) - 1, p_coarse))
+
+
 # ---------------------------------------------------------------------------
 # The preconditioner
 
@@ -566,11 +899,32 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
     from .cg import jacobi_preconditioner
 
     if disc.mesh.ndim == 3:
-        raise NotImplementedError(
-            "3D pmg (make_pmg_preconditioner_3d, GridFDM3D) is not ported "
-            "yet " + _ITEM.format(9))
+        # one entry for both dimensions, as the reference's: the 3D factory
+        # rediscretizes the coarse level itself, so Gf and the 2D-only
+        # options do not apply (the reference ignores the latter; the port
+        # refuses them by name)
+        if smoother != "jacobi":
+            raise NotImplementedError("3D pmg smoother is jacobi-Chebyshev")
+        if coeff_fn is not None or reaction_fn is not None:
+            raise NotImplementedError(
+                "3D pmg: coefficient/reaction coarse terms are not in the "
+                "reference either")
+        for name, value, default in (
+                ("cycle_dtype", cycle_dtype, None),
+                ("coarse_pad_to", coarse_pad_to, None),
+                ("cycle_backend", cycle_backend, "auto")):
+            if value != default:
+                raise ValueError(f"3D pmg takes no {name} (the V-cycle runs "
+                                 "in dtype on the PyTorch 3D operators)")
+        return make_pmg_preconditioner_3d(
+            disc, ex_f, A_f, free_global, diag_global,
+            p_coarse=2 if p_coarse is None else p_coarse,
+            degree=degree, alpha=alpha, coarse=coarse,
+            coarse_degree=coarse_degree, coarse_interval=coarse_interval,
+            dtype=dtype, mm_precision=mm_precision,
+            lmax_iters=lmax_iters, lmax_safety=lmax_safety, device=device)
     if disc.mesh.ndim != 2:
-        raise NotImplementedError("pmg supports 2D meshes")
+        raise NotImplementedError("pmg supports 2D and 3D meshes")
     if smoother not in ("jacobi", "fdm"):
         raise ValueError(f"unknown smoother {smoother!r}")
     if coarse_pad_to is not None:

@@ -23,8 +23,8 @@ matmuls, so no interpret mode is needed).
   segments, iterations and ``converged``, and the float64 residual
   recomputed apart;
 * the options that still raise: fused CG with fdm, ``en`` or a
-  ``compute_dtype``, pmg on ``en``, an unknown tier, and the 3D factory
-  (item 9).
+  ``compute_dtype``, pmg on ``en``, an unknown tier; and the 3D factory
+  (item 9, ported since) against the reference's M.
 
 Nine reference solves in all, each seconds of JAX tracing and compiling.
 """
@@ -483,8 +483,28 @@ def test_fused_backend_with_compute_dtype_raises():
 
 
 def test_fdm_3d_raises_citing_its_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        fdm.make_fdm_preconditioner_3d(None, None, None, device="cpu")
+    """The 3D factory is ported since (ROADMAP Queue 1 item 9): it builds
+    on a box mesh and its M agrees with the reference's to 1e-12 (the 3D
+    solves are held against the reference in tests/test_torch_poisson3d.py);
+    its signature is the reference's with ``device`` last."""
+    from spectralelementmethod_tpu.basis import gll_basis_3d as jax_basis3
+    from spectralelementmethod_tpu.mesh import box_mesh as jax_box
+    from spectralelementmethod_torch.basis import gll_basis_3d
+    from spectralelementmethod_torch.mesh import box_mesh
+    from spectralelementmethod_torch.ops.exchange import make_exchange
+
+    jd = JaxDisc(jax_box(2, 2, 2, 3), jax_basis3(3))
+    td = Discretization(box_mesh(2, 2, 2, 3), gll_basis_3d(3))
+    jex, tex = jax_mex(jd), make_exchange(td)
+    G = td.laplacian_factors(None)
+    M = fdm.make_fdm_preconditioner_3d(tex, G, td.basis, device="cpu")
+    M_ref = jax_fdm.make_fdm_preconditioner_3d(jex, jd.laplacian_factors(
+        None), jd.basis)
+    r = np.random.RandomState(0).standard_normal((tex.E, tex.n_loc))
+    ref = np.asarray(M_ref(jnp.asarray(r)))
+    got = M(torch.as_tensor(r)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-12 * np.abs(ref).max())
     ref = inspect.signature(jax_fdm.make_fdm_preconditioner_3d).parameters
     got = inspect.signature(fdm.make_fdm_preconditioner_3d).parameters
     assert list(got)[:-1] == list(ref) and list(got)[-1] == "device"

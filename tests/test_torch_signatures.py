@@ -12,9 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+import spectralelementmethod_torch.ops.exchange as t_ex
+import spectralelementmethod_torch.ops.sumfac as t_sumfac
 import spectralelementmethod_torch.parallel as t_par
 import spectralelementmethod_torch.solver.fdm as t_fdm
+import spectralelementmethod_torch.solver.pmg as t_pmg
+import spectralelementmethod_tpu.ops.exchange as j_ex
+import spectralelementmethod_tpu.ops.sumfac as j_sumfac
 import spectralelementmethod_tpu.solver.fdm as j_fdm
+import spectralelementmethod_tpu.solver.pmg as j_pmg
 import spectralelementmethod_tpu.parallel.halo as j_halo
 import spectralelementmethod_tpu.parallel.partition as j_part
 import spectralelementmethod_tpu.parallel.sharding as j_sh
@@ -64,7 +70,8 @@ PAIRS.update({f"fdm.{name}": (getattr(t_fdm, name), getattr(j_fdm, name))
 PAIRS.update({f"parallel.{name}": (getattr(t_par, name), getattr(mod, name))
               for mod, names in (
                   (j_sh, ("device_mesh", "pad_elements", "pad_element_arrays",
-                          "sharded_local_poisson_problem")),
+                          "sharded_local_poisson_problem",
+                          "sharded_local_poisson_problem_3d")),
                   (j_halo, ("global_roll", "make_halo_dss_T",
                             "stack_class_masks",
                             "make_sharded_fused_operator",
@@ -72,6 +79,29 @@ PAIRS.update({f"parallel.{name}": (getattr(t_par, name), getattr(mod, name))
                   (j_part, ("cut_faces", "morton_order", "panel_order",
                             "rcm_order", "reorder_elements")))
               for name in names})
+# the 3D path (ROADMAP Queue 1 item 9): every public 3D function
+PAIRS.update({f"sumfac.{name}": (getattr(t_sumfac, name),
+                                 getattr(j_sumfac, name))
+              for name in ("grad_3d", "grad_transpose_3d",
+                           "laplacian_apply_local_3d",
+                           "laplacian_apply_local_3d_affine",
+                           "laplacian_apply_local_3d_separable",
+                           "assembled_1d_stiffness", "laplacian_apply_3d",
+                           "laplacian_diag_local_host_3d", "grad_3d_T",
+                           "grad_transpose_3d_T",
+                           "laplacian_apply_local_3d_affine_T",
+                           "laplacian_apply_local_3d_T",
+                           "laplacian_apply_local_3d_separable_T")})
+PAIRS.update({
+    "pmg.make_pmg_preconditioner_3d": (t_pmg.make_pmg_preconditioner_3d,
+                                       j_pmg.make_pmg_preconditioner_3d),
+    "pmg.GridFDM3D.try_build": (t_pmg.GridFDM3D.try_build,
+                                j_pmg.GridFDM3D.try_build),
+    "exchange.PairScatterExchange": (t_ex.PairScatterExchange,
+                                     j_ex.PairScatterExchange),
+    "exchange.BoxRollExchange3D": (t_ex.BoxRollExchange3D,
+                                   j_ex.BoxRollExchange3D),
+})
 
 
 def _params(fn):
