@@ -122,7 +122,21 @@ Phases (any failure exits non-zero and prints no result line):
    rounding, its iterations within 2 of the box order's); every 3D solve
    launches none of the kernels above; each structure's apply, local
    product and DSS timed beside its bound, launches per apply, and one
-   64-iteration profile of Jacobi CG;
+   64-iteration profile of Jacobi CG; (3u) in float64, with no kernel of
+   the table launched: the squirmer's swimming speed on the original
+   library's donut at p = 8 (E = 135, Re = 1, beta = 1) within 3e-6 of
+   the golden 0.92571156681, warm and timed, with its secant iterations
+   and Newton steps and the device ms of the Jacobian, the Schur factors,
+   the dense LU, the Schur apply and the direct step; one Newton solve by
+   GMRES-IR within 1e-8 of the direct one; the device Newton loop against
+   the host loop; the fixed sphere's drag within 6% of -6 pi; one Newton
+   solve on the donut refined to E = 540 (16,970 condensed DOFs: steps,
+   seconds, the LU's device ms, peak memory); the manufactured
+   advection-diffusion problem by Jacobi-GMRES(40) to 1e-10 on
+   ``rectangle_mesh(AD_N, AD_N, 8)`` (iterations, within 5% of the CPU's,
+   L2 error; a short solve repeated bit for bit) and two
+   restart cycles on the 100k mesh (ms per iteration, a profile: device
+   ms, launches, busy share; then ``solve_batch`` with k = 4);
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -213,6 +227,44 @@ PROFILE3_ITERS = 64
 # products over p1^2 lines and ~15 pointwise per node)
 def flops3(p1: int) -> int:
     return 12 * p1**4 + 15 * p1**3
+
+
+# phase 3u, the squirmer and advection-diffusion: the original library's
+# donut (examples/meshes/donut.geo: 9 x 15 transfinite, progression 1.35,
+# R = 100) at p = 8, E = 135, and its refinement by 2 in each direction
+# (E = 540); the golden speed at Re = 1, beta = 1 and its 3e-6 bar (the JAX
+# package's tests/test_squirmer.py)
+SQ_GOLDEN = dict(order=8, n_theta=9, n_r=15, r_outer=100.0,
+                 progression=1.35, node_placement="gmsh")
+SQ_540 = dict(SQ_GOLDEN, n_theta=18, n_r=30)
+GOLDEN_SPEED = 0.92571156681483957
+# advection-diffusion (tests/test_advection_diffusion.py's manufactured
+# problem: eps = 0.5, c = (1, 0.5)): AD_N is the largest rectangle_mesh(n,
+# n, 8) whose float64 Jacobi-GMRES(40) reaches 1e-10 within 100 restarts
+# (scripts/torch_advdiff_size.py on the CPU: n = 24 converges in
+# AD_CPU_ITERS = 3,453 iterations, 25-28 do not; the card's count, the same
+# in every run since the DSS sums in a fixed order, is held to it within
+# AD_ITERS_REL), AD_BIG_N the 100k mesh, run for AD_CYCLES restart cycles
+AD_N = 24
+AD_CPU_ITERS = 3453
+AD_ITERS_REL = 0.05
+AD_BIG_N = 316
+AD_RESTART = 40
+AD_CYCLES = 2
+AD_EPS, AD_C = 0.5, (1.0, 0.5)
+
+
+def ad_u(x, y):
+    return np.sin(np.pi * (x + 1) / 2) * np.sin(np.pi * (y + 1) / 2)
+
+
+def ad_f(x, y):
+    """-eps lap u + c . grad u for u = ad_u."""
+    X, Y = np.pi * (x + 1) / 2, np.pi * (y + 1) / 2
+    lap = -2 * (np.pi / 2) ** 2 * np.sin(X) * np.sin(Y)
+    gx = (np.pi / 2) * np.cos(X) * np.sin(Y)
+    gy = (np.pi / 2) * np.sin(X) * np.cos(Y)
+    return -AD_EPS * lap + AD_C[0] * gx + AD_C[1] * gy
 
 
 # kernels that no solve of the system calls, so that no path launches them
@@ -609,6 +661,294 @@ def phase_3t(dev, at, drive, profile_solve, solves) -> None:
     out["seconds"] = time.perf_counter() - t_3t
     log(f"  phase 3t took {out['seconds']:.1f} s, peak device memory "
         f"{out['peak_gib']:.2f} GiB {at()}")
+
+
+def phase_3u(dev, at, solves) -> None:
+    """The squirmer (Newton + static condensation + secant speed search)
+    and advection-diffusion (GMRES) in float64: the golden speed on the
+    E = 135 donut (direct solver; warm and timed; device ms of the
+    Jacobian, the Schur factors, the dense LU and the Schur apply), one
+    Newton solve by GMRES-IR against the direct one, the device Newton
+    loop against the host loop, one Newton solve on the E = 540 donut,
+    the fixed sphere's drag, the manufactured advection-diffusion problem
+    on ``rectangle_mesh(AD_N, AD_N, 8)`` to 1e-10 and ``AD_CYCLES`` restart
+    cycles on the 100k mesh (one RHS and K), profiled; none of the
+    kernels of the table runs."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectralelementmethod_torch.basis import gll_basis_2d
+    from spectralelementmethod_torch.core.discretization import (
+        Discretization)
+    from spectralelementmethod_torch.mesh import annulus_mesh, rectangle_mesh
+    from spectralelementmethod_torch.models import squirmer as sqm
+    from spectralelementmethod_torch.models.advection_diffusion import (
+        AdvectionDiffusion)
+    from spectralelementmethod_torch.ops import kernels
+    from spectralelementmethod_torch.solver import condensation as sc
+
+    t_3u = time.perf_counter()
+    out = solves.setdefault("phase_3u", {})
+    kernels.reset_launch_counts()
+    log(f"[3u] the squirmer and advection-diffusion, float64 {at()}")
+
+    def quiet(fn):
+        """(value, printout, seconds) of ``fn``, its printout captured."""
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            val = fn()
+        torch.cuda.synchronize()
+        return val, buf.getvalue(), time.perf_counter() - t0
+
+    def steps_of(text):
+        """Newton steps of each converged solve in a printout (both loops
+        print the step count less one)."""
+        return [int(m) + 1 for m in
+                re.findall(r"converged in (\d+) Newton", text)]
+
+    # -- squirmer-golden ------------------------------------------------------
+    order = SQ_GOLDEN["order"]
+    mesh = annulus_mesh(**SQ_GOLDEN)
+    sq = sqm.Squirmer(mesh, order=order, device=dev)
+    E, nx = sq.disc.E, sq.csys.n_ext_dofs
+    log(f"  squirmer-golden: p={order}, E={E}, {sq.disc.n_nodes} nodes, "
+        f"{2 * sq.disc.n_nodes} DOFs, {nx} condensed DOFs; Re = 1, "
+        f"beta = 1, calc_speed([0.99, 1.01]), linear_solver="
+        f"{sq.linear_solver!r}")
+
+    def speed_run():
+        sq.set_initial_guess()
+        return sq.calc_speed([0.99, 1.01], n_rey=1.0, beta=1.0)
+
+    runs = [quiet(speed_run) for _ in range(2)]
+    (speed, text, t_warm), (speed2, _, t_timed) = runs
+    steps = steps_of(text)
+    evals = text.count("finding force at speed")
+    err = abs(speed - GOLDEN_SPEED)
+    log(f"  squirmer-golden: speed {speed!r}, |U - golden| {err:.3e}; "
+        f"{evals} force evaluations ({evals - 2} secant iterations), Newton "
+        f"steps {steps}; warm {t_warm:.2f} s, timed {t_timed:.2f} s "
+        f"(repeat speed {speed2!r}) {at()}")
+    check(err < 3e-6 and len(steps) == evals,
+          f"squirmer-golden: speed within 3e-6 of {GOLDEN_SPEED} ({err:.2e})")
+    check(abs(speed2 - speed) < 1e-12, "squirmer-golden: the repeat "
+          f"calc_speed gives the same speed ({abs(speed2 - speed):.1e})")
+    out["golden"] = dict(speed=speed, err=err, force_evals=evals,
+                         secant_iterations=evals - 2, newton_steps=steps,
+                         warm_s=t_warm, timed_s=t_timed)
+
+    # the pieces of one Newton step at the converged state, device ms by
+    # the profiler (float64 Jacobian and direct step; the float32 Schur
+    # factors and apply of GMRES-IR's preconditioner)
+    soln, n_rey, cint, free_ext = sq._newton_inputs()
+    lrhs, lmat = sq._local_systems(soln, n_rey, free_ext)
+    ne = sq.csys.n_ext_ldof
+    sc_mat, sc_rhs, _, _ = sc.condense_local(lmat, lrhs, ne)
+    Ad, bd = sc.assemble_dense(sc_mat, sc_rhs, sq.csys.ext_dof_gidx, nx,
+                               cint)
+    lmat32, lrhs32 = lmat.float(), lrhs.float()
+    facs = sc.schur_factor(lmat32, sq.csys, free_ext)
+    pieces = {
+        "jacobian": lambda: sq._local_systems(soln, n_rey, free_ext),
+        "schur_factor_f32": lambda: sc.schur_factor(lmat32, sq.csys,
+                                                    free_ext),
+        "dense_lu_f64": lambda: sc.solve_condensed(Ad, bd, free_ext),
+        "schur_apply_f32": lambda: sc.schur_apply(facs, lrhs32, sq.csys),
+        "direct_step": lambda: sq._step_fn(soln, n_rey, cint, free_ext),
+    }
+    out["pieces"] = {}
+    for name, fn in pieces.items():
+        ms, nl = device_per_call(fn, [()] * 2)
+        # CUDA events around the same calls too: a profile late in a long
+        # run can keep only some of a call's events
+        ev_ms = gpu_ms(fn, [()], reps=5)
+        out["pieces"][name] = dict(device_ms=ms, launches=nl, event_ms=ev_ms)
+        log(f"    {name}: {ms:.3f} ms of device time, {nl:.0f} launches "
+            f"per call (profiler); {ev_ms:.3f} ms per call (CUDA events)")
+    gflop = 2 / 3 * nx**3 / 1e9
+    log(f"    (the dense LU: {gflop:.1f} GFLOP of getrf, "
+        f"{8 * nx * nx / 1e6:.0f} MB float64)")
+
+    def newton(model, loop="host"):
+        model.set_initial_guess()
+        model.compute_operators(1.0)
+        model.set_boundary_conditions(speed=speed, beta=1.0)
+        _, txt, dt = quiet(lambda: model.solve(newton_loop=loop))
+        return steps_of(txt), dt
+
+    st_h, t_h = newton(sq)
+    soln_d = sq.soln.copy()
+    sq_m = sqm.Squirmer(mesh, order=order, linear_solver="gmres-ir",
+                        device=dev)
+    st_m, t_m = newton(sq_m)
+    d_m = float(np.abs(sq_m.soln - soln_d).max())
+    st_v, t_v = newton(sq, "device")
+    d_v = float(np.abs(sq.soln - soln_d).max())
+    log(f"  squirmer-golden Newton at U = {speed:.8f}: direct {st_h} steps "
+        f"{t_h:.3f} s; gmres-ir {st_m} steps {t_m:.3f} s, max |diff| "
+        f"{d_m:.2e}; device loop {st_v} steps {t_v:.3f} s, max |diff| "
+        f"{d_v:.2e} (bit for bit: {d_v == 0.0}) {at()}")
+    check(d_m < 1e-8, f"squirmer-golden: gmres-ir within 1e-8 of the "
+          f"direct solve ({d_m:.2e})")
+    check(d_v == 0.0 and st_v == st_h, "squirmer-golden: the device "
+          f"Newton loop gives the host loop's solution ({d_v:.1e})")
+    out["newton"] = dict(direct_steps=st_h, direct_s=t_h, gmres_ir_steps=st_m,
+                         gmres_ir_s=t_m, gmres_ir_diff=d_m,
+                         device_loop_s=t_v, device_loop_diff=d_v)
+
+    # -- fixed-sphere ---------------------------------------------------------
+    fs = sqm.FixedSphere(mesh, order=order, device=dev)
+    _, txt, t_fs = quiet(lambda: fs.run(0.01))
+    force = fs.calc_force()
+    rel = abs(force + 6 * np.pi) / (6 * np.pi)
+    log(f"  fixed-sphere: Re = 0.01, force {force:.6f} (-6 pi "
+        f"{-6 * np.pi:.6f}, {rel:.2%} off), {steps_of(txt)} steps, "
+        f"{t_fs:.2f} s {at()}")
+    check(force < 0 and rel < 0.06, "fixed-sphere: the force within 6% of "
+          "-6 pi")
+    out["fixed_sphere"] = dict(force=force, rel=rel, seconds=t_fs)
+
+    # -- squirmer-540 ---------------------------------------------------------
+    t0 = time.perf_counter()
+    sq5 = sqm.Squirmer(annulus_mesh(**SQ_540), order=order, device=dev)
+    nx5 = sq5.csys.n_ext_dofs
+    t_setup5 = time.perf_counter() - t0
+    # the solve's own peak: above what the earlier phases left allocated
+    base5 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sq5.set_initial_guess()
+    sq5.compute_operators(1.0)
+    sq5.set_boundary_conditions(speed=GOLDEN_SPEED, beta=1.0)
+    _, txt, t5 = quiet(lambda: sq5.solve())
+    peak5 = (torch.cuda.max_memory_allocated() - base5) / 2**30
+    st5 = steps_of(txt)
+    log(f"  squirmer-540: setup {t_setup5:.2f} s, Newton {st5} steps in "
+        f"{t5:.2f} s {at()}")
+    s5, r5, c5, f5 = sq5._newton_inputs()
+    lr5, lm5 = sq5._local_systems(s5, r5, f5)
+    m5, b5 = sc.condense_local(lm5, lr5, sq5.csys.n_ext_ldof)[:2]
+    A5, bb5 = sc.assemble_dense(m5, b5, sq5.csys.ext_dof_gidx, nx5, c5)
+    # CUDA events around two calls after a warm one (a profile of the
+    # large LU costs seconds of post-processing)
+    sc.solve_condensed(A5, bb5, f5)
+    ev5 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev5[0].record()
+    for e_ in ev5[1:]:
+        sc.solve_condensed(A5, bb5, f5)
+        e_.record()
+    torch.cuda.synchronize()
+    lu5 = statistics.median(a.elapsed_time(b) for a, b in zip(ev5, ev5[1:]))
+    f_5 = sq5.calc_force()
+    log(f"  squirmer-540: E={sq5.disc.E}, {nx5} condensed DOFs "
+        f"({8 * nx5 * nx5 / 2**30:.2f} GiB float64, "
+        f"{2 / 3 * nx5**3 / 1e12:.2f} TFLOP of getrf); Newton from the "
+        f"potential-flow guess at Re = 1, beta = 1, U = {GOLDEN_SPEED}: "
+        f"dense LU {lu5:.1f} ms of device time, "
+        f"peak memory of the solve {peak5:.2f} GiB, force {f_5:.3e} {at()}")
+    check(len(st5) == 1 and np.isfinite(f_5),
+          "squirmer-540: the Newton solve converges")
+    out["sq540"] = dict(E=sq5.disc.E, condensed=nx5, steps=st5, seconds=t5,
+                        setup_s=t_setup5, lu_ms=lu5, peak_gib=peak5,
+                        force=f_5)
+
+    # -- advdiff-rect ---------------------------------------------------------
+    def ad_model(n):
+        ad = AdvectionDiffusion(
+            Discretization(rectangle_mesh(n, n, 8), gll_basis_2d(8)),
+            velocity=AD_C, diffusivity=AD_EPS, forcing=ad_f)
+        ad.set_dirichlet("ebc", 0.0)
+        ad.set_dirichlet("nbc", 0.0)
+        return ad
+
+    ad = ad_model(AD_N)
+    sol, _, t_ad = quiet(lambda: ad.solve(tol=1e-10, restart=AD_RESTART,
+                                          max_restarts=100, device=dev))
+    its = int(sol.gmres.iterations)
+    err_ad = ad.l2_error(sol.u, ad_u)
+    log(f"  advdiff-rect: rectangle_mesh({AD_N}, {AD_N}, 8), GMRES("
+        f"{AD_RESTART}) + Jacobi to 1e-10: {its} iterations, converged "
+        f"{bool(sol.gmres.converged)}, l2 error {err_ad:.3e}, {t_ad:.2f} s "
+        f"({1e3 * t_ad / its:.3f} ms per iteration) {at()}")
+    check(bool(sol.gmres.converged) and err_ad < 1e-8,
+          "advdiff-rect: converged, l2 error below 1e-8")
+    rel = abs(its - AD_CPU_ITERS) / AD_CPU_ITERS
+    check(rel <= AD_ITERS_REL, f"advdiff-rect: {its} iterations within "
+          f"{AD_ITERS_REL:.0%} of the CPU's {AD_CPU_ITERS} ({rel:.2%})")
+    # the same solve cut to 5 restart cycles, twice: the same bits
+    short = [ad.solve(tol=1e-10, restart=AD_RESTART, max_restarts=5,
+                      device=dev) for _ in range(2)]
+    same = (np.array_equal(short[0].u, short[1].u)
+            and int(short[0].gmres.iterations)
+            == int(short[1].gmres.iterations))
+    log(f"  advdiff-rect: {its} iterations, {rel:.2%} from the CPU's "
+        f"{AD_CPU_ITERS}; 5 restart cycles twice bit for bit: {same}")
+    check(same, "advdiff-rect: a repeated solve gives the same bits")
+    out["advdiff_rect"] = dict(n=AD_N, iterations=its, l2_err=err_ad,
+                               seconds=t_ad, cpu_iterations=AD_CPU_ITERS,
+                               repeat_bit_for_bit=same)
+
+    # -- advdiff-100k ---------------------------------------------------------
+    t0 = time.perf_counter()
+    big = ad_model(AD_BIG_N)
+    kw = dict(tol=1e-10, restart=AD_RESTART, max_restarts=AD_CYCLES,
+              device=dev)
+    big.solve(**kw)                            # setup and warm-up
+    t_setup = time.perf_counter() - t0
+    sol, _, t_big = quiet(lambda: big.solve(**kw))
+    its = int(sol.gmres.iterations)
+    # the profile: one restart cycle (its post-processing grows with the
+    # events, ~300 per iteration)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        its_p = int(big.solve(**dict(kw, max_restarts=1)).gmres.iterations)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    n_launch = sum(e.count for e in ev) / its_p
+    log(f"  advdiff-100k: rectangle_mesh({AD_BIG_N}, {AD_BIG_N}, 8), E="
+        f"{big.disc.E}, {AD_CYCLES} cycles of GMRES({AD_RESTART}): {its} "
+        f"iterations in {t_big:.3f} s, {1e3 * t_big / its:.3f} ms per "
+        f"iteration; profiled ({its_p} iterations): {1e3 * busy / its_p:.3f} "
+        f"ms of device time and {n_launch:.0f} launches per iteration, busy "
+        f"{busy / wall:.0%} "
+        f"(setup + warm-up {t_setup:.1f} s) {at()}")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3 / its_p:8.4f} ms/iter  "
+            f"x{e.count / its_p:6.2f}  {e.key[:70]}")
+    check(its == AD_RESTART * AD_CYCLES and np.isfinite(
+        float(sol.gmres.residual_norm)), f"advdiff-100k: {AD_CYCLES} full "
+        "restart cycles with a finite residual")
+    fk = [ad_f, 1.0, lambda x, y: x * y, lambda x, y: np.cos(x + y)]
+    solb, _, t_b = quiet(lambda: big.solve_batch(fk, **kw))
+    its_b = solb.gmres.iterations.cpu().numpy()
+    per_rhs = 1e3 * t_b / float(its_b.max()) / len(fk)
+    log(f"  advdiff-100k solve_batch, k = {len(fk)}: iterations "
+        f"{its_b.tolist()}, {t_b:.3f} s, {per_rhs:.3f} ms per iteration per "
+        f"RHS {at()}")
+    check(bool((its_b == AD_RESTART * AD_CYCLES).all()),
+          "advdiff-100k: each RHS of the batch ran its cycles")
+    out["advdiff_100k"] = dict(E=big.disc.E, iterations=its, seconds=t_big,
+                               ms_per_iter=1e3 * t_big / its,
+                               device_ms_per_iter=1e3 * busy / its_p,
+                               launches_per_iter=n_launch,
+                               busy=busy / wall, setup_s=t_setup,
+                               batch_k=len(fk), batch_seconds=t_b,
+                               batch_ms_per_iter_per_rhs=per_rhs)
+
+    n_k = sum(kernels.launch_counts().values())
+    check(n_k == 0, f"phase 3u launched none of the table's kernels ({n_k})")
+    out["seconds"] = time.perf_counter() - t_3u
+    log(f"  phase 3u took {out['seconds']:.1f} s {at()}")
 
 
 def main() -> int:
@@ -2632,6 +2972,10 @@ def main() -> int:
 
     # -- 3t. the 3D hexahedral path -------------------------------------------
     phase_3t(dev, at, drive, profile_solve, solves)
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
+    # -- 3u. the squirmer and advection-diffusion -----------------------------
+    phase_3u(dev, at, solves)
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
     # -- 4. manufactured solutions --------------------------------------------

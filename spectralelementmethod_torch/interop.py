@@ -16,7 +16,10 @@ blocks, the affine scales, the stacked class masks and the class tables;
 :func:`operator_3d_from_numpy` builds the 3D box operator (separable,
 affine or general) and its plane-roll exchange from the packed factors or
 the affine scales, the derivative matrices and 1D weights, the
-lexicographic gather map and the plane-roll offsets and masks.
+lexicographic gather map and the plane-roll offsets and masks;
+:func:`squirmer_state_from_numpy` copies a squirmer's Newton state —
+solution, physical parameters, free mask, Neumann integrals — into the
+port's model.
 Fed the JAX package's arrays, both packages then compute the same
 function on the same data, independently of the port's own (copied) host
 setup; that is how the tests hold each kernel's plain version against its
@@ -373,3 +376,31 @@ def operator_3d_from_numpy(structure: str, D, w, gather_lex, deltas,
     M = (None if diag is None
          else jacobi_preconditioner(to_local(diag), free_t))
     return Interop3D(ex, A_raw, A_raw.masked(free_t), M, to_local)
+
+
+def squirmer_state_from_numpy(port, soln_vec, phys_params, dof_free,
+                              cint) -> None:
+    """Copy a squirmer's Newton state into the port's ``Squirmer`` or
+    ``FixedSphere`` ``port`` (built on the same mesh and order): the
+    interleaved solution vector (n_nodes * 2,), the physical parameters
+    (speed, N_Re, beta and the slip profile, a numpy function), the
+    (n_nodes, 2) free-DOF mask and the condensed Neumann integrals
+    (n_ext_dofs,).  Both packages then start a Newton solve from the same
+    state.  Raises ``ValueError`` on a shape that does not fit ``port``.
+    """
+    soln_vec = np.asarray(soln_vec, dtype=np.float64).reshape(-1)
+    dof_free = np.asarray(dof_free, dtype=bool)
+    cint = np.asarray(cint, dtype=np.float64)
+    for name, got, want in (("soln_vec", soln_vec.shape,
+                             (port.soln_vec.size,)),
+                            ("dof_free", dof_free.shape,
+                             port.dof_free.shape),
+                            ("cint", cint.shape, port.cint.shape)):
+        if got != want:
+            raise ValueError(f"{name} of shape {got}; the port's model "
+                             f"has {want}")
+    port.soln_vec = soln_vec
+    port.phys_params = dict(phys_params)
+    port.dof_free[:] = dof_free
+    port.cint[:] = cint
+    port._sync_free_ext()

@@ -703,6 +703,19 @@ def roll_dss_T(vT: torch.Tensor, plan: DSSPlan, masks=None,
     return out
 
 
+def accumulate(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """(n,) zeros with ``vals`` summed in at ``idx``, in the order of
+    ``idx`` on every device, so a repeat gives the same bits: ``index_add_``
+    on the CPU (a serial loop); on CUDA, where ``index_add_`` adds by
+    atomics in no fixed order, the sort-based
+    ``index_put_(accumulate=True)``."""
+    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+    idx, vals = idx.reshape(-1), vals.reshape(-1)
+    if out.is_cuda:
+        return out.index_put_((idx,), vals, accumulate=True)
+    return out.index_add_(0, idx, vals)
+
+
 def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
                recv_mask: torch.Tensor, vert_gid: torch.Tensor,
                n_vertices: int, off_edge: int, off_vert: int) -> torch.Tensor:
@@ -724,8 +737,12 @@ def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
         recv = vL.reshape(*lead, E * n)[..., recv_flat].reshape(*lead, E, neb)
         out[..., off_edge:off_edge + neb] += torch.where(recv_mask, recv, 0.0)
     verts = vL[..., off_vert:off_vert + 4].reshape(*lead, E * 4)
-    summed = torch.zeros((*lead, n_vertices), dtype=vL.dtype,
-                         device=vL.device).index_add_(-1, vert_gid, verts)
+    rows = verts.numel() // verts.shape[-1]
+    idx = vert_gid if rows == 1 else (
+        vert_gid + n_vertices * torch.arange(
+            rows, device=vL.device)[:, None])
+    summed = accumulate(rows * n_vertices, idx, verts).reshape(
+        *lead, n_vertices)
     out[..., off_vert:off_vert + 4] = summed[..., vert_gid].reshape(
         *lead, E, 4)
     return out

@@ -4,8 +4,9 @@ Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D and 3D
 solves run.  The global-vector helpers (:func:`gather`, :func:`scatter_add`,
 :func:`laplacian_apply_local`, :func:`laplacian_apply`,
 :func:`make_poisson_operator`, :func:`laplacian_diag_local`,
-:func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` /
-``index_add_``, as the reference leaves them to XLA.
+:func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` and
+fixed-order sums (:func:`.exchange.accumulate`), as the reference leaves
+them to XLA.
 
 On the transposed (n, E) layout (the main path's): on an affine cell the local
 weak Laplacian collapses to ``A_e = a0(e) K0 + a1(e) K1 + a2(e) K2`` with
@@ -61,7 +62,7 @@ from ..config import (canonical_device, check_precision, resolve_device,
                       torch_dtype)
 from ..mesh.geometry import Quadrilateral
 from . import kernels
-from .exchange import DSSPlan, edges_first_order
+from .exchange import DSSPlan, accumulate, edges_first_order
 
 
 def gather(u, gather_nodes, shape):
@@ -71,8 +72,7 @@ def gather(u, gather_nodes, shape):
 
 def scatter_add(vals, gather_nodes, n_nodes):
     """(E, *shape) -> (n_nodes,) direct stiffness summation."""
-    out = torch.zeros(n_nodes, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, gather_nodes.reshape(-1), vals.reshape(-1))
+    return accumulate(n_nodes, gather_nodes, vals)
 
 
 def grad_2d(ue, D0, D1):

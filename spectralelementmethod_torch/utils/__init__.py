@@ -1,5 +1,6 @@
-"""Auxiliary subsystems: host setup-stage accounting."""
+"""Auxiliary subsystems: host setup-stage accounting, logging and HDF5
+checkpointing."""
 
-from . import stages
+from . import checkpoint, logging, stages
 
-__all__ = ["stages"]
+__all__ = ["checkpoint", "logging", "stages"]

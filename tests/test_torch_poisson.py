@@ -120,7 +120,13 @@ def test_import_pulls_in_no_jax():
             "import spectralelementmethod_torch.models.poisson\n"
             "import spectralelementmethod_torch.models.helmholtz\n"
             "import spectralelementmethod_torch.parallel\n"
-            "bad = [k for k in sys.modules if k == 'jax' or "
+            "import spectralelementmethod_torch.models.squirmer\n"
+            "import spectralelementmethod_torch.models.advection_diffusion\n"
+            "import spectralelementmethod_torch.solver.gmres\n"
+            "import spectralelementmethod_torch.solver.condensation\n"
+            "import spectralelementmethod_torch.core.pointlocate\n"
+            "import spectralelementmethod_torch.utils.checkpoint\n"
+            "bad = [k for k in sys.modules if k in ('jax', 'h5py') or "
             "k.startswith('jax.') or k.startswith('spectralelementmethod_tpu')]"
             "\nprint(bad)\nassert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)

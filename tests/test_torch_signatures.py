@@ -5,6 +5,7 @@ port has not taken up yet exists and raises ``NotImplementedError`` naming
 its ROADMAP item when asked for more than the default.  Every default
 matches the reference's but the two named in ``DEFAULTS``."""
 
+import importlib
 import inspect
 
 import jax.numpy as jnp
@@ -40,6 +41,47 @@ from spectralelementmethod_tpu.solver.cg import (
     cg_refined_static as j_cg_refined_static)
 
 torch.set_num_threads(2)
+
+# the modules of the squirmer / advection-diffusion slice, by their path in
+# both packages: every public function and class of the reference's module
+# exists in the port's, with the reference's signature
+SLICE_MODULES = ("solver.gmres", "solver.condensation", "solver.rootfind",
+                 "utils.logging", "utils.checkpoint", "core.pointlocate",
+                 "models.advection_diffusion", "models.squirmer")
+
+
+def _module_pair(path):
+    return (importlib.import_module(f"spectralelementmethod_torch.{path}"),
+            importlib.import_module(f"spectralelementmethod_tpu.{path}"))
+
+
+def _public(mod):
+    """The public functions and classes defined in ``mod`` (the NamedTuple
+    result types included), by name."""
+    return {name: obj for name, obj in vars(mod).items()
+            if not name.startswith("_")
+            and (inspect.isfunction(obj) or inspect.isclass(obj))
+            and obj.__module__ == mod.__name__}
+
+
+def _slice_pairs():
+    pairs = {}
+    for path in SLICE_MODULES:
+        port, ref = _module_pair(path)
+        for name, robj in _public(ref).items():
+            pobj = getattr(port, name)
+            if inspect.isfunction(robj):
+                pairs[f"{path}.{name}"] = (pobj, robj)
+                continue
+            if issubclass(robj, tuple):          # NamedTuple results
+                continue
+            for meth, rfn in vars(robj).items():
+                if (inspect.isfunction(rfn) and (not meth.startswith("_")
+                                                 or meth == "__init__")):
+                    pairs[f"{path}.{name}.{meth}"] = (getattr(pobj, meth),
+                                                      rfn)
+    return pairs
+
 
 PAIRS = {
     "Poisson.solve_local": (Poisson.solve_local, JPoisson.solve_local),
@@ -102,6 +144,7 @@ PAIRS.update({
     "exchange.BoxRollExchange3D": (t_ex.BoxRollExchange3D,
                                    j_ex.BoxRollExchange3D),
 })
+PAIRS.update(_slice_pairs())
 
 
 def _params(fn):
@@ -125,6 +168,33 @@ def test_signature_matches_reference(name):
             assert (d_port, d_ref) == DEFAULTS[name, pname]
         else:
             assert d_port == d_ref, pname
+
+
+@pytest.mark.parametrize("path", SLICE_MODULES)
+def test_slice_modules_export_the_reference_names(path):
+    """Every public function and class of the reference's module is in the
+    port's, and the result types have the reference's fields."""
+    port, ref = _module_pair(path)
+    missing = sorted(set(_public(ref)) - set(_public(port)))
+    assert not missing, missing
+    for name, robj in _public(ref).items():
+        if inspect.isclass(robj) and issubclass(robj, tuple):
+            assert getattr(port, name)._fields == robj._fields, name
+
+
+def test_slice_package_exports():
+    """``models`` and ``core`` export the reference's names; ``solver`` the
+    reference's names of the squirmer and advection-diffusion modules (its
+    CG names stay unexported: ``solver.cg`` is the module)."""
+    for path in ("models", "core"):
+        port, ref = _module_pair(path)
+        assert sorted(port.__all__) == sorted(ref.__all__), path
+    port, ref = _module_pair("solver")
+    slice_names = {name for path in SLICE_MODULES if path.startswith("solver")
+                   for name in _public(_module_pair(path)[1])}
+    assert set(port.__all__) == set(ref.__all__) & slice_names
+    from spectralelementmethod_torch.solver import cg as cg_module
+    assert inspect.ismodule(cg_module)
 
 
 def test_the_named_default_differences_exist():
