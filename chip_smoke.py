@@ -119,7 +119,8 @@ Phases (any failure exits non-zero and prints no result line):
    RHS within 2 iterations of its single solve), the variable-coefficient
    (general) structure and a shuffled element order through
    ``PairScatterExchange`` (its DSS against the plane-roll DSS to float32
-   rounding, its iterations within 2 of the box order's); every 3D solve
+   rounding, a repeated DSS and apply bit for bit, its iterations within 2
+   of the box order's); every 3D solve
    launches none of the kernels above; each structure's apply, local
    product and DSS timed beside its bound, launches per apply, and one
    64-iteration profile of Jacobi CG; (3u) in float64, with no kernel of
@@ -136,7 +137,16 @@ Phases (any failure exits non-zero and prints no result line):
    ``rectangle_mesh(AD_N, AD_N, 8)`` (iterations, within 5% of the CPU's,
    L2 error; a short solve repeated bit for bit) and two
    restart cycles on the 100k mesh (ms per iteration, a profile: device
-   ms, launches, busy share; then ``solve_batch`` with k = 4);
+   ms, launches, busy share; then ``solve_batch`` with k = 4); (3v) the
+   fused CG kernels' far split at ``max_halo=FAR_HALO`` (the reference's
+   ``cheap_far``) on the rectangle and the annulus: kernel A on the near
+   plan with its raw rows against its plain version and the apply of its
+   own p' there, kernel B's far mode (one RHS and K, f32 and bf16 inv and
+   w) against ``far_update`` then kernel B (r' bit for bit), timed beside
+   its bound and beside those two launches, and each split solve of
+   ``SPLIT_MODES`` beside the same unsplit solve at 2e-3 (iterations
+   within 2, the float64 true residual, ms per issued iteration, launches,
+   a 64-iteration profile each);
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -189,6 +199,15 @@ S_SH = 4               # element shards of the sharded operator and solves
 # max_halo of the far split: the rectangle's vertical classes (|delta| =
 # NX - 1 .. NX + 1) and the annulus's radial ones go far
 FAR_HALO = 128
+# phase 3v's far-split solves, each beside the same unsplit solve: mode ->
+# (mesh, right-hand sides, directions "f32" or "bf16", defer_x)
+SPLIT_MODES = {"split-fused": ("rect", 1, "f32", 0),
+               "split-fused-bf16p": ("rect", 1, "bf16", 0),
+               f"split-fused-m{DEFER}": ("rect", 1, "f32", DEFER),
+               "split-batch-fused": ("rect", K, "f32", 0),
+               f"split-batch-fused-bf16p-m{DEFER}": ("rect", K, "bf16", DEFER),
+               "split-curved-fused": ("annulus", 1, "f32", 0),
+               "split-curved-batch-fused": ("annulus", K, "f32", 0)}
 STEADY = (512, 1536)   # iterations of the two steady-state timing runs
 # the Helmholtz modes' steady state and profile: the (E, n) exchanges are
 # plain PyTorch passes (~2 ms per iteration), so fewer iterations do
@@ -623,6 +642,11 @@ def phase_3t(dev, at, drive, profile_solve, solves) -> None:
         f"DSS on the same vector: max abs err {err:.3e} (max {scale:.3e})")
     check(err <= 8 * np.finfo(np.float32).eps * scale,
           "box27-shuffled: the two DSS agree to float32 rounding")
+    # its multi-valence sums add in a fixed order (ops/exchange.accumulate),
+    # so a repeat gives the same bits
+    reps = [(sex.dss(v[idx]), sctx["A_raw"](v[idx])) for _ in range(2)]
+    check(all(torch.equal(a_, b_) for a_, b_ in zip(*reps)),
+          "box27-shuffled: a repeated DSS and apply give the same bits")
     _, its_s = solve3(f"box27-shuffled-jacobi@{TOL3:g}", sprob, sctx, TOL3,
                       float64_check(sprob, sctx))
     check(abs(its_s - its_j) <= 2, f"box27-shuffled: {its_s} iterations "
@@ -949,6 +973,283 @@ def phase_3u(dev, at, solves) -> None:
     check(n_k == 0, f"phase 3u launched none of the table's kernels ({n_k})")
     out["seconds"] = time.perf_counter() - t_3u
     log(f"  phase 3u took {out['seconds']:.1f} s {at()}")
+
+
+def phase_3v(dev, at, drive, profile_solve, solves, rows, env) -> dict:
+    """The fused CG kernels' far split at ``max_halo=FAR_HALO`` (the
+    reference's ``cheap_far``) on the rectangle and the annulus: kernel A
+    on the near plan with its raw rows against its plain version and the
+    apply of its own p' on the near plan; kernel B's far mode (one RHS and
+    K, f32 and bf16 inv and w) against far_update then kernel B, r' bit for
+    bit, timed on the rectangle beside its bound and beside far_update
+    followed by the unchanged kernel B; each split solve beside the same
+    unsplit solve at TOL_ALL (iterations within 2, the float64 true
+    residual, host ms per issued iteration, launches; a 64-iteration
+    profile each: device ms per iteration, launches, busy share).  Returns
+    the split modes' names, for the kernel rows' launch counts."""
+    import torch
+
+    from spectralelementmethod_torch.ops import kernels, sumfac
+    from spectralelementmethod_torch.solver.cg import (cg_fused,
+                                                       cg_fused_batched)
+
+    t_3v = time.perf_counter()
+    out = solves.setdefault("phase_3v", {})
+    log(f"[3v] the fused CG kernels' far split at max_halo={FAR_HALO}, "
+        f"tol {TOL_ALL:g} {at()}")
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+    mesh = {}
+    for pk, (prob_, ctx_) in env["problems"].items():
+        E_ = prob_.disc.E
+        Gf_ = prob_._G_host.reshape(E_, 3, -1)
+        Dh_ = sumfac.make_stacked_derivative(prob_._D0_host, prob_._D1_host)
+        split = sumfac.make_local_laplacian_operator(
+            ctx_["ex"], Gf_, Dh_, ctx_["free_local"], True, device=dev,
+            max_halo=FAR_HALO)
+        check(split.far_plan is not None and split.structure
+              == ctx_["A"].structure, f"{pk}: max_halo={FAR_HALO} splits "
+              f"the {split.structure} operator ({split.far_plan.n_entries} "
+              "far entries)")
+        A64 = sumfac.make_local_laplacian_operator(
+            ctx_["ex"], Gf_.astype(np.float64), Dh_, None, device=dev)
+        ops_ = {dt: prob_._fused_cg_operands(ctx_["ex"], ctx_["free_np"], dt,
+                                             dev) for dt in (None, bf)}
+        mesh[pk] = dict(prob=prob_, ctx=ctx_, split=split, A64=A64,
+                        ops=ops_, n=prob_.disc.n_loc, E=E_)
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # -- kernel A on the near plan, with the raw rows ------------------------
+    for pk, base, k, pdt in (("rect", "cg_kernel_a", 1, None),
+                             ("rect", "cg_kernel_a", 1, bf),
+                             ("rect", "cg_kernel_a_batched", K, None),
+                             ("annulus", "cg_kernel_a_general", 1, None)):
+        m_ = mesh[pk]
+        op, n_, E_ = m_["split"], m_["n"], m_["E"]
+        near = op._split[0]
+        if base == "cg_kernel_a_general":
+            opa = (op.gT, op.Dh, op.hier)
+            apply_ = functools.partial(kernels.general_apply_dss,
+                                       factors=op.factors)
+        else:
+            opa = (op.Kst, op.aT)
+            apply_ = functools.partial(
+                kernels.affine_apply_dss if k == 1
+                else kernels.affine_apply_dss_batched, factors=op.factors)
+        inv = m_["ops"][pdt][0]
+        sc = ((torch.tensor(0.7, device=dev), torch.tensor(0.4, device=dev))
+              if k == 1 else (torch.tensor([0.7, 0.4, 1.1, 0.0], device=dev),
+                              torch.tensor([0.4, 0.0, 0.9, 0.3], device=dev)))
+        fn = functools.partial(kernels.WRAPPERS[base], factors=op.factors,
+                               aux=True)
+        plain = functools.partial(getattr(kernels, base + "_plain"), aux=True)
+
+        def args():
+            return (randn((k * n_, E_)), randn((k * n_, E_)).to(pdt or
+                                                                 torch.float32),
+                    inv, randn((k * n_, E_)), *sc, *opa, near)
+
+        sets = [args() for _ in range(2)]
+        got, ref = fn(*sets[0]), plain(*sets[0])
+        torch.cuda.synchronize()
+        tag = f"{base}[near-{'bf16' if pdt else 'f32'}]"
+        (g_ap, g_b), (r_ap, r_b) = got[1], ref[1]
+        if pdt is None:
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2]),
+                  f"{pk} {tag}: p' and x' bit for bit")
+        else:
+            check(bf16_ulp_ok(got[0], ref[0]), f"{pk} {tag}: p' within 1 "
+                  "bf16 ulp")
+        e_ap, rel_ap = rel_err(g_ap, r_ap)
+        e_b, rel_b = rel_err(g_b, r_b.reshape(g_b.shape))
+        check(rel_ap <= 1e-5 and rel_b <= 1e-5, f"{pk} {tag}: the near Ap "
+              f"(rel {rel_ap:.1e}) and the raw rows (rel {rel_b:.1e}) match "
+              "the plain version (1e-5 of max)")
+        p_own = got[0].float().contiguous()
+        if k == 1:
+            own, own_b = apply_(p_own, *opa, near, aux=True)
+            same = torch.equal(g_ap, own) and torch.equal(g_b, own_b)
+        else:
+            same = torch.equal(g_ap, apply_(p_own, *opa, near))
+        check(same, f"{pk} {tag}: the near Ap{' and raw rows' if k == 1 else ''}"
+              " equal the apply of its own stored p' on the near plan bit "
+              "for bit")
+        if (pk, base, pdt) == ("rect", "cg_kernel_a", None):
+            ms = gpu_ms(fn, sets)
+            plain_ms = gpu_ms(plain, sets)
+            nE_ = n_ * E_
+            # r, p, x in; p', Ap', x' out; inv once; the raw rows out
+            by_ = (7 * 4 * nE_ + 4 * near.nb * E_ + 12 * E_
+                   + near.masks.numel())
+            fl_ = (8 * n_ * int(round(n_ ** 0.5)) + 6 * n_) * E_ \
+                + 12 * nE_ + near.n_entries * E_
+            b_ms, b_by = bound(by_, fl_)
+            rows.append(dict(name="cg_kernel_a[near-f32]",
+                             max_abs_err=e_ap, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             modes=["split-fused"]))
+            log(f"  {tag}: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
+                f"{b_ms:.4f} by {b_by}; {near.n_entries} near entries)")
+
+    # -- kernel B's far mode ---------------------------------------------------
+    for pk in ("rect", "annulus"):
+        m_ = mesh[pk]
+        n_, E_, far = m_["n"], m_["E"], m_["split"].far_plan
+        nb = far.nb
+        src_rows = {b_[1] + t for b_ in far.edge_blocks for t in range(b_[2])}
+        src_rows |= {v_[1] for v_ in far.vert_rows}
+        n_masks = len({b_[5] for b_ in far.edge_blocks}
+                      | {v_[3] for v_ in far.vert_rows})
+        for base, k in (("cg_kernel_b_far", 1), ("cg_kernel_b_batched_far", K)):
+            fn, plain = (kernels.WRAPPERS[base],
+                         getattr(kernels, base + "_plain"))
+            a_ = (torch.tensor(0.3, device=dev) if k == 1
+                  else torch.tensor([0.3, -0.8, 0.5, 0.0], device=dev))
+            for tag, dt in (("f32", None), ("bf16", bf)):
+                inv, w = m_["ops"][dt]
+                name = f"{base}[{tag}]"
+                aux_shape = (nb, E_) if k == 1 else (k, nb, E_)
+                sets = [(randn((k * n_, E_)), randn((k * n_, E_)),
+                         randn(aux_shape), inv, w, a_, far)
+                        for _ in range(3)]
+                gr, grz, grn = fn(*sets[0])
+                rr, rrz, rrn = plain(*sets[0])
+                torch.cuda.synchronize()
+                err = (gr - rr).abs().max().item()
+                d_ = max(rhs_rel(grz, rrz, k), rhs_rel(grn, rrn, k))
+                check(err == 0 and d_ <= 1e-5, f"{pk} {name}: r' bit for bit "
+                      f"against far_update then kernel B, partials "
+                      f"{d_:.1e} <= 1e-5 ({far.n_entries} far entries)")
+                if pk != "rect":
+                    continue
+                ms = gpu_ms(fn, sets)
+                plain_ms = gpu_ms(plain, sets)
+                kB_ = (kernels.cg_kernel_b if k == 1
+                       else kernels.cg_kernel_b_batched)
+
+                def two(r, Ap, aux, inv_, w_, al, fp):
+                    # far_update then the unchanged kernel B (in place on Ap)
+                    for j in range(k):
+                        kernels.far_update(Ap[j * n_:(j + 1) * n_],
+                                           aux.view(k, nb, E_)[j], fp)
+                    return kB_(r, Ap, inv_, w_, al)
+
+                two_ms = gpu_ms(two, sets)
+                nE_ = n_ * E_
+                s_ = 2 if dt else 4
+                by_ = (3 * 4 * k * nE_ + 2 * s_ * nE_
+                       + k * 4 * len(src_rows) * E_ + n_masks * E_)
+                b_ms, b_by = bound(by_, 7 * k * nE_ + k * far.n_entries * E_)
+                log(f"  {name}: {ms:.4f} ms, far_update + kernel B "
+                    f"{two_ms:.4f} ms, plain {plain_ms:.4f}, bound "
+                    f"{b_ms:.4f} by {b_by}")
+                out[f"{name}_two_launch_ms"] = two_ms
+                rows.append(dict(
+                    name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    modes=[m for m, (_, k2, t2, _) in SPLIT_MODES.items()
+                           if k2 == k and t2 == tag]))
+
+    # -- the split solves beside the unsplit ones ------------------------------
+    def system(pk, k):
+        """(b, u_dL, float64 right-hand sides) of ``k`` forcings."""
+        m_ = mesh[pk]
+        prob_, ctx_ = m_["prob"], m_["ctx"]
+        d_ = prob_.disc
+        to_local = ctx_["to_local"]
+        u_d = np.where(prob_._dirichlet_mask, prob_._dirichlet_vals, 0.0)
+        u_dL = to_local(u_d)
+        Au_d = ctx_["A_raw"](u_dL)
+        bs, b64s = [], []
+        for f in env["forcings"](pk)[:k]:
+            bh = d_.scatter_add(d_.gather(f) * d_.detJxW) + prob_._neumann
+            bs.append(torch.where(ctx_["free_local"],
+                                  to_local(bh.astype(np.float32)) - Au_d,
+                                  0.0))
+            b64s.append(torch.as_tensor(bh, device=dev)[
+                torch.as_tensor(ctx_["ex"].gather_hier, device=dev)].T)
+        return torch.cat(bs), u_dL, b64s
+
+    def true64(pk, x, u_dL, b64s, k):
+        """Per RHS: the float64 residual of the L-vector u_dL + x over that
+        of u_dL (the float64 operator, weighted, on the free rows)."""
+        m_ = mesh[pk]
+        free, A64 = m_["ctx"]["free_local"], m_["A64"]
+        w64 = m_["ctx"]["ex"].weights_T(torch.float64, dev)
+        n_ = m_["n"]
+        u0 = u_dL.double()
+        rel = []
+        for j in range(k):
+            uj = u0 + x.reshape(k, n_, -1)[j].double()
+            r_ = [torch.where(free, b64s[j] - A64(v), 0.0) for v in (uj, u0)]
+            rel.append(float(torch.sqrt(torch.sum(r_[0] ** 2 * w64))
+                             / torch.sqrt(torch.sum(r_[1] ** 2 * w64))))
+        return rel
+
+    sys_ = {(pk, k): system(pk, k) for pk in mesh for k in (1, K)}
+    A_flat = {}
+    for pk in mesh:
+        n_, st = mesh[pk]["n"], mesh[pk]["ctx"]["A"].stacked(K)
+        A_flat[pk] = (lambda xf, st=st, n_=n_:
+                      st(xf.view(K, n_, -1)).view(K * n_, -1))
+
+    def runner(mode, split):
+        pk, k, tag, m = SPLIT_MODES[mode]
+        pdt = bf if tag == "bf16" else None
+        m_ = mesh[pk]
+        op = m_["split"] if split else m_["ctx"]["A"]
+        kA, kB = op.fused_cg_kernels(None if k == 1 else k, defer_x=bool(m))
+        inv, w = m_["ops"][pdt]
+        b = sys_[(pk, k)][0]
+        if k == 1:
+            return lambda tol, max_iter: cg_fused(
+                kA, kB, b, inv=inv, w_free=w, tol=tol, max_iter=max_iter,
+                p_dtype=pdt, defer_x=m, A=op)
+        return lambda tol, max_iter: cg_fused_batched(
+            kA, kB, b, inv=inv, w_free=w, tol=tol, max_iter=max_iter,
+            p_dtype=pdt, defer_x=m, A=A_flat[pk])
+
+    for mode, (pk, k, _, _) in SPLIT_MODES.items():
+        res_of = {}
+        for split in (True, False):
+            name = mode if split else mode.replace("split-", "whole-")
+            run = runner(mode, split)
+            res, dt_ = drive(name, lambda: run(TOL_ALL, MAX_ITER))
+            its = np.atleast_1d(res.iterations.cpu().numpy()).tolist()
+            conv = bool(np.all(res.converged.cpu().numpy()))
+            _, u_dL, b64s = sys_[(pk, k)]
+            t64 = true64(pk, res.x, u_dL, b64s, k)
+            c_ = {k_: v for k_, v in kernels.launch_counts().items() if v}
+            prof = profile_solve(name, run, 64)
+            res_of[split] = its
+            out[name] = dict(iterations=its, issued=res.issued, seconds=dt_,
+                             ms_per_issued_per_rhs=1e3 * dt_ / res.issued / k,
+                             true64_rel=t64, converged=conv, launches=c_,
+                             **prof)
+            log(f"  {name}: its {its} / {res.issued} issued, {dt_:.3f} s "
+                f"({1e3 * dt_ / res.issued / k:.4f} ms per issued iteration "
+                f"per RHS), float64 true residual "
+                f"{', '.join(f'{v:.3e}' for v in t64)} relative, "
+                f"launches {c_}")
+            check(conv, f"{name}: every RHS converged")
+            far_k = ("cg_kernel_b_far" if k == 1
+                     else "cg_kernel_b_batched_far")
+            plain_k = "cg_kernel_b" if k == 1 else "cg_kernel_b_batched"
+            if split:
+                check(c_.get(far_k, 0) >= res.issued and plain_k not in c_,
+                      f"{name}: kernel B's far mode on every iteration "
+                      f"({c_.get(far_k, 0)} >= {res.issued}), no unsplit "
+                      "kernel B")
+            else:
+                check(far_k not in c_, f"{name}: no far mode launched")
+        d_its = max(abs(a - b) for a, b in zip(res_of[True], res_of[False]))
+        check(d_its <= 2, f"{mode}: iterations within 2 of the unsplit "
+              f"solve's ({res_of[True]} against {res_of[False]})")
+    out["seconds"] = time.perf_counter() - t_3v
+    log(f"  phase 3v took {out['seconds']:.1f} s {at()}")
+    return list(SPLIT_MODES)
 
 
 def main() -> int:
@@ -2978,6 +3279,11 @@ def main() -> int:
     phase_3u(dev, at, solves)
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
+    # -- 3v. the fused CG kernels' far split -----------------------------------
+    phase_3v(dev, at, drive, profile_solve, solves, rows,
+             dict(problems=problems, forcings=forcings))
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
     # -- 4. manufactured solutions --------------------------------------------
     # 32x32 p=8: the f32 recurrence reaches tol=1e-7 there, and the error
     # bar is the reference's f32 bar (tests/test_cg_fused.py: 1e-4)
@@ -3040,6 +3346,12 @@ def main() -> int:
     for r in rows:
         base, _, t = r["name"].partition("[")
         n_row = 4 if t == "p1]" else disc.n_loc
+        if "modes" in r:
+            # phase 3v's rows: the launches of the split solves they name
+            row_launches[r["name"]] = sum(
+                launches.get(m, {}).get(base, {}).get(n_row, 0)
+                for m in r["modes"])
+            continue
         row_launches[r["name"]] = sum(
             launches[m].get(base, {}).get(n_row, 0) for m in launches
             if t in ("", "p1]")

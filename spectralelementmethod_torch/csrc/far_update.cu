@@ -13,10 +13,10 @@
 // destination rows, reads 22 source values and 22 mask bytes per element,
 // 25 MB, 7.6 us at 3.35 TB/s, against 22 adds per element: bound by bytes.
 //
-// Design: the plan's far entries come by value in FarTables, a kernel
-// parameter in the constant bank that the host builds once per far plan
-// (ops/kernels.py far_tables), so the loop reads no entry from device
-// memory.  The grid spreads over (destination row, 4-element group):
+// Design: the plan's far entries come by value in FarTables
+// (sem_far.cuh), a kernel parameter in the constant bank that the host
+// builds once per far plan (ops/kernels.py far_tables), so the loop reads
+// no entry from device memory.  The grid spreads over (destination row, 4-element group):
 // blockIdx.y picks the row, each thread takes 4 consecutive elements, so
 // 18 rows of E / 4 threads fill the card.  A thread's loads are all
 // independent and issued together: its 4 outputs (one 16-byte load), and
@@ -31,25 +31,13 @@
 // masks.
 #include <cstring>
 
+#include "sem_far.cuh"
 #include "sem_kernels.cuh"
 
 namespace sem {
 
-// the most far entries (and destination rows) a plan may have
-constexpr int kFarMaxEntries = 128;
 // elements per thread
 constexpr int kFarVec = 4;
-
-// The by-value operand: the destination rows with far entries, and their
-// entries in class order (row r's are first[r] .. first[r + 1]).
-struct FarTables {
-  int n_rows;
-  unsigned char dst[kFarMaxEntries];        // row r's destination row
-  unsigned char first[kFarMaxEntries + 1];  // row r's first entry
-  unsigned char src[kFarMaxEntries];        // entry's source row
-  unsigned char mask[kFarMaxEntries];       // entry's class mask
-  int delta[kFarMaxEntries];                // entry's element offset
-};
 
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)

@@ -103,7 +103,7 @@ def _interop(A_raw: LaplacianT, gather_hier, weights, diag, free,
 def operator_from_numpy(Kcat, a, edge_classes, vert_classes, gather_hier,
                         weights, diag, free, E_real: int, *,
                         device=None, dtype=np.float32, p_dtype=None,
-                        edge_len=None) -> InteropOperator:
+                        edge_len=None, max_halo="auto") -> InteropOperator:
     """The port's operator state from numpy arrays (affine mesh).
 
     ``Kcat`` (n, 3n): [K0 | K1 | K2] in the L-vector node order; ``a``
@@ -117,7 +117,9 @@ def operator_from_numpy(Kcat, a, edge_classes, vert_classes, gather_hier,
     geometry is the edges-first layout; ``edge_len`` gives the four edge
     slot lengths when the node grid is not square.  ``dtype`` is the
     operator's (float32 for the CUDA kernels); ``p_dtype`` the fused-CG
-    direction storage (None or ``torch.bfloat16``).
+    direction storage (None or ``torch.bfloat16``); ``max_halo`` the
+    operator's far split (an integer splits the classes beyond it, and
+    ``kA``/``kB`` are then the split kernels).
     """
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
@@ -125,7 +127,8 @@ def operator_from_numpy(Kcat, a, edge_classes, vert_classes, gather_hier,
     E, n = gather_hier.shape
     plan = DSSPlan.from_classes(n, E, edge_classes, vert_classes, dev,
                                 edge_len=edge_len)
-    return _interop(AffineLaplacianT(Kcat, a, plan, None, dtype=dt),
+    return _interop(AffineLaplacianT(Kcat, a, plan, None, dtype=dt,
+                                     max_halo=max_halo),
                     gather_hier, weights, diag, free, E_real, p_dtype, dt)
 
 
@@ -133,14 +136,15 @@ def general_operator_from_numpy(Gf, Dhat, hier, edge_classes, vert_classes,
                                 gather_hier, weights, diag, free,
                                 E_real: int, *, device=None,
                                 dtype=np.float32, p_dtype=None,
-                                edge_len=None) -> InteropOperator:
+                                edge_len=None,
+                                max_halo="auto") -> InteropOperator:
     """The port's operator state from numpy arrays (curved mesh).
 
     ``Gf`` (E, 3, n): the lex-ordered geometric factors (the JAX package's
     padded array as it is, or E_real rows, zero-padded here); ``Dhat``
     (2n, n): the stacked derivative in lex order; ``hier`` (n,): the local
     node order (L-vector row -> lex node); the rest as in
-    :func:`operator_from_numpy`.
+    :func:`operator_from_numpy`, ``max_halo`` too.
     """
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
@@ -152,7 +156,8 @@ def general_operator_from_numpy(Gf, Dhat, hier, edge_classes, vert_classes,
                                           Gf.dtype)])
     plan = DSSPlan.from_classes(n, E, edge_classes, vert_classes, dev,
                                 edge_len=edge_len)
-    return _interop(GeneralLaplacianT(Gf, Dhat, hier, plan, None, dtype=dt),
+    return _interop(GeneralLaplacianT(Gf, Dhat, hier, plan, None, dtype=dt,
+                                      max_halo=max_halo),
                     gather_hier, weights, diag, free, E_real, p_dtype, dt)
 
 

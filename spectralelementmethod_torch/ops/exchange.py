@@ -26,8 +26,8 @@ Hexahedral (3D) meshes keep lexicographic ``(E, n_loc)`` L-vectors:
 rolls on a lexicographic box, and :class:`PairScatterExchange` (any
 conforming mesh, the fallback :func:`make_exchange` takes when the box
 check fails) by a partner gather for copies of multiplicity 2 and a
-compact ``index_add_`` for the rest.  Both are plain PyTorch, as the
-reference's are XLA.
+compact fixed-order sum (:func:`accumulate`) for the rest.  Both are
+plain PyTorch, as the reference's are XLA.
 """
 
 from __future__ import annotations
@@ -497,14 +497,15 @@ class RollExchange(LocalExchange):
             Ff = vL[..., oe:oe + neb].reshape(*lead, E * 4, ne)
             tr = Ff[..., self._on("edge_tail_src", dev), :]
             tr = torch.where(self._on("edge_tail_flip", dev), tr.flip(-1), tr)
-            add[..., oe:oe + neb] = torch.zeros_like(Ff).index_add_(
-                -2, self._on("edge_tail_dst", dev), tr).reshape(
+            add[..., oe:oe + neb] = accumulate(
+                E * 4, self._on("edge_tail_dst", dev), tr, dim=-2).reshape(
                 *lead, E, neb)
         if self.n_vert_tail:
             Vf = vL[..., ov:ov + 4].reshape(*lead, E * 4)
-            add[..., ov:ov + 4] = torch.zeros_like(Vf).index_add_(
-                -1, self._on("vert_tail_dst", dev),
-                Vf[..., self._on("vert_tail_src", dev)]).reshape(*lead, E, 4)
+            add[..., ov:ov + 4] = accumulate(
+                E * 4, self._on("vert_tail_dst", dev),
+                Vf[..., self._on("vert_tail_src", dev)], dim=-1).reshape(
+                *lead, E, 4)
         return add
 
 
@@ -703,17 +704,37 @@ def roll_dss_T(vT: torch.Tensor, plan: DSSPlan, masks=None,
     return out
 
 
-def accumulate(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """(n,) zeros with ``vals`` summed in at ``idx``, in the order of
-    ``idx`` on every device, so a repeat gives the same bits: ``index_add_``
-    on the CPU (a serial loop); on CUDA, where ``index_add_`` adds by
-    atomics in no fixed order, the sort-based
-    ``index_put_(accumulate=True)``."""
-    out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    idx, vals = idx.reshape(-1), vals.reshape(-1)
-    if out.is_cuda:
-        return out.index_put_((idx,), vals, accumulate=True)
-    return out.index_add_(0, idx, vals)
+def accumulate(n: int, idx: torch.Tensor, vals: torch.Tensor,
+               dim: int | None = None) -> torch.Tensor:
+    """Zeros with ``vals`` summed in at ``idx``, in the order of ``idx`` on
+    every device, so a repeat gives the same bits.
+
+    ``dim=None``: ``idx`` and ``vals`` are flattened and the result is
+    (n,).  ``dim`` an axis of ``vals``: ``idx`` (1D) indexes that axis, the
+    leading stack dims and the trailing ones are kept, and the result has
+    ``vals``'s shape with that axis n long.  On the CPU the sum is
+    ``index_add_`` (a serial loop); on CUDA, where ``index_add_`` adds by
+    atomics in no fixed order, the sort-based ``index_put_(accumulate=True)``
+    (:func:`_sorted_sum`)."""
+    if dim is None:
+        idx, vals, dim = idx.reshape(-1), vals.reshape(-1), 0
+    if vals.is_cuda:
+        return _sorted_sum(n, idx, vals, dim)
+    shape = list(vals.shape)
+    shape[dim] = n
+    return torch.zeros(shape, dtype=vals.dtype,
+                       device=vals.device).index_add_(dim, idx, vals)
+
+
+def _sorted_sum(n: int, idx: torch.Tensor, vals: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """:func:`accumulate`'s CUDA form on any device: the axis moved to the
+    front and summed by ``index_put_(accumulate=True)``, which adds each
+    index's values in the order of ``idx``."""
+    v = vals.movedim(dim, 0)
+    out = torch.zeros((n, *v.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_put_((idx,), v, accumulate=True).movedim(0, dim)
 
 
 def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
@@ -737,12 +758,7 @@ def gather_dss(vL: torch.Tensor, recv_flat: torch.Tensor,
         recv = vL.reshape(*lead, E * n)[..., recv_flat].reshape(*lead, E, neb)
         out[..., off_edge:off_edge + neb] += torch.where(recv_mask, recv, 0.0)
     verts = vL[..., off_vert:off_vert + 4].reshape(*lead, E * 4)
-    rows = verts.numel() // verts.shape[-1]
-    idx = vert_gid if rows == 1 else (
-        vert_gid + n_vertices * torch.arange(
-            rows, device=vL.device)[:, None])
-    summed = accumulate(rows * n_vertices, idx, verts).reshape(
-        *lead, n_vertices)
+    summed = accumulate(n_vertices, vert_gid, verts, dim=-1)
     out[..., off_vert:off_vert + 4] = summed[..., vert_gid].reshape(
         *lead, E, 4)
     return out
@@ -759,7 +775,7 @@ class PairScatterExchange:
     * copies of multiplicity 2 exchange through one flat partner gather
       (3D face interiors dominate the shared-DOF count);
     * copies of multiplicity >= 3 scatter-add into a compacted array (one
-      slot per distinct shared node, ``index_add_``) and gather back;
+      slot per distinct shared node, :func:`accumulate`) and gather back;
     * multiplicity-1 copies (element interiors, domain boundary) are
       untouched.
 
@@ -848,8 +864,7 @@ class PairScatterExchange:
         out = flat.clone()
         out[..., pi] = flat[..., pi] + flat[..., self._on("_pair_partner",
                                                           dev)]
-        seg = torch.zeros((*lead, self._n_multi), dtype=vL.dtype,
-                          device=dev).index_add_(-1, ms, flat[..., mi])
+        seg = accumulate(self._n_multi, ms, flat[..., mi], dim=-1)
         out[..., mi] = seg[..., ms]
         return out.reshape(vL.shape)
 

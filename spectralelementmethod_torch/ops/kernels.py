@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the main path, their wrappers and plain
 versions.
 
-Nine CUDA sources (``../csrc``, one shared library each) replace the TPU
+Eight CUDA sources (``../csrc``, one shared library each) replace the TPU
 Pallas kernels that the 2D ``solve_local`` and ``solve_local_batch`` of the
 Poisson and Helmholtz models run on affine and on curved meshes, and those
 of the element-sharded operator and of the applies' far-class split.  Each
@@ -43,6 +43,10 @@ launches one variant:
   ``make_fused_cg_kernels_general``), around the curved apply's product;
 * :func:`cg_kernel_b` / :func:`cg_kernel_b_batched` — the residual half
   (``_build_cg_kernel_b``, ``_build_cg_kernel_b_batched``);
+  :func:`cg_kernel_b_far` / :func:`cg_kernel_b_batched_far` — the same on a
+  split DSS (their ``add_far``): kernel A, given ``aux=True``, gathered the
+  near classes only and hands over its raw exchanged rows, and kernel B
+  adds the far classes into Ap as it streams it;
 * :func:`cg_kernel_single` / :func:`cg_kernel_single_deferred` — one whole
   PCG iteration with the residual update deferred into the next kernel,
   with and without the lagged x update (``make_fused_cg_kernel_single``,
@@ -96,7 +100,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _HEADERS = ("sem_kernels.cuh", "sem_affine.cuh", "sem_curved.cuh",
-            "sem_p1.cuh")
+            "sem_p1.cuh", "sem_far.cuh")
 _REPLACED = "spectralelementmethod_tpu/ops/pallas_kernels.py"
 _APPLY, _CG_A, _CG_B = ("affine_apply_dss.cu", "cg_kernel_a.cu",
                         "cg_kernel_b.cu")
@@ -115,6 +119,8 @@ KERNELS = {
     "cg_kernel_a_batched_deferred": (_CG_A, f"{_REPLACED}:2128"),
     "cg_kernel_b": (_CG_B, f"{_REPLACED}:1548"),
     "cg_kernel_b_batched": (_CG_B, f"{_REPLACED}:2189"),
+    "cg_kernel_b_far": (_CG_B, f"{_REPLACED}:1565"),
+    "cg_kernel_b_batched_far": (_CG_B, f"{_REPLACED}:2218"),
     "general_apply_dss": (_GEN_APPLY, f"{_REPLACED}:1179"),
     "general_apply_dss_batched": (_GEN_APPLY, f"{_REPLACED}:1179"),
     "cg_kernel_a_general": (_GEN_CG_A, f"{_REPLACED}:1824"),
@@ -165,6 +171,8 @@ _SIGNATURES = {
     "sem_cg_kernel_a_defer_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "sem_cg_kernel_b_f32": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
     "sem_cg_kernel_b_bf16": [_P] * 7 + [ctypes.c_longlong, _I, _I, _P],
+    "sem_cg_kernel_b_far_f32": [_P] * 10 + [_I] * 5 + [_P],
+    "sem_cg_kernel_b_far_bf16": [_P] * 10 + [_I] * 5 + [_P],
     "sem_general_apply_dss": [_P] * 8 + [_I] * 4 + [_P],
     "sem_cg_kernel_a_general_f32": [_P] * 16 + [_I] * 4 + [_P],
     "sem_cg_kernel_a_general_bf16": [_P] * 16 + [_I] * 4 + [_P],
@@ -258,7 +266,7 @@ def _lib(source: str) -> ctypes.CDLL:
                 ("sem_general_tables_size", _GENERAL_TABLES,
                  "GeneralTables (csrc/sem_curved.cuh)"),
                 ("sem_far_tables_size", _FAR_TABLES,
-                 "FarTables (csrc/far_update.cu)"),
+                 "FarTables (csrc/sem_far.cuh)"),
                 ("sem_p1_classes_size", _P1_CLASSES,
                  "P1Classes (csrc/sem_p1.cuh)"),
                 ("sem_affine_p1_tables_size", _AFFINE_P1_TABLES,
@@ -766,71 +774,87 @@ def affine_apply_dss_batched(uT: torch.Tensor, Kst: torch.Tensor,
 
 # -- kernel A: direction update + apply + denominator partials ----------------
 
-def _cg_a_plain(r, p, inv, x, beta, alpha_prev, local, plan: DSSPlan):
+def _cg_a_plain(r, p, inv, x, beta, alpha_prev, local, plan: DSSPlan,
+                aux: bool = False):
     """Kernel A's arithmetic with the element-local product ``local``:
     ``(p', DSS(S), x' or None, per-element partials of p' . S)`` on an
-    (n, E) array or a (k, n, E) stack with (k, 1, 1) scalars."""
+    (n, E) array or a (k, n, E) stack with (k, 1, 1) scalars; with ``aux``
+    the second is the pair ``(DSS(S), S[..., :nb, :])``, the raw exchanged
+    rows beside it."""
     p32 = p.to(r.dtype)
     x_new = None if x is None else x + alpha_prev * p32
     p_st = (inv.to(r.dtype) * r + beta * p32).to(p.dtype)
     ps = p_st.to(r.dtype)
     S = local(ps)
-    return p_st, roll_dss_T(S, plan), x_new, (ps * S).sum(-2)
+    return p_st, _with_aux(S, plan, aux), x_new, (ps * S).sum(-2)
 
 
 def _cg_a_batched_plain(r, p, inv, x, beta, alpha_prev, n, local,
-                        plan: DSSPlan):
+                        plan: DSSPlan, aux: bool = False):
     """:func:`_cg_a_plain` on a (k * n, E) stack with (k,) scalars; the
-    partials are (E, k)."""
+    partials are (E, k), the raw rows of ``aux`` (k, nb, E)."""
     k = _n_rhs(r.shape[0], n)
     shp = (k, n, r.shape[-1])
     p_st, Ap, x_new, d = _cg_a_plain(
         r.reshape(shp), p.reshape(shp), inv,
         None if x is None else x.reshape(shp), _col(beta, r),
-        None if x is None else _col(alpha_prev, r), local, plan)
-    return (p_st.reshape(r.shape), Ap.reshape(r.shape),
+        None if x is None else _col(alpha_prev, r), local, plan, aux)
+    Ap = (Ap[0].reshape(r.shape), Ap[1]) if aux else Ap.reshape(r.shape)
+    return (p_st.reshape(r.shape), Ap,
             None if x is None else x_new.reshape(r.shape), d.T)
 
 
 def cg_kernel_a_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
-                      plan: DSSPlan):
+                      plan: DSSPlan, aux: bool = False):
     """Plain version of :func:`cg_kernel_a` (``x=None``: of
     :func:`cg_kernel_a_deferred`, and ``x'`` is None); the denominator
     partials are one per element.  Also takes (k, n, E) stacks with
     (k, 1, 1) scalars, the partials then (k, E)."""
     return _cg_a_plain(r, p, inv, x, beta, alpha_prev,
-                       lambda u: _local_product(u, Kst, aT), plan)
+                       lambda u: _local_product(u, Kst, aT), plan, aux)
 
 
 def cg_kernel_a_batched_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
-                              plan: DSSPlan):
+                              plan: DSSPlan, aux: bool = False):
     """Plain version of :func:`cg_kernel_a_batched` (``x=None``: of
     :func:`cg_kernel_a_batched_deferred`); the partials are (E, k)."""
     return _cg_a_batched_plain(r, p, inv, x, beta, alpha_prev,
                                Kst.shape[-1],
-                               lambda u: _local_product(u, Kst, aT), plan)
+                               lambda u: _local_product(u, Kst, aT), plan,
+                               aux)
 
 
-def cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan: DSSPlan):
+def cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan: DSSPlan,
+                               aux: bool = False):
     """Plain version of :func:`cg_kernel_a_deferred`."""
     p_st, Ap, _, d = cg_kernel_a_plain(r, p, inv, None, beta, None, Kst, aT,
-                                       plan)
+                                       plan, aux)
     return p_st, Ap, d
 
 
 def cg_kernel_a_batched_deferred_plain(r, p, inv, beta, Kst, aT,
-                                       plan: DSSPlan):
+                                       plan: DSSPlan, aux: bool = False):
     """Plain version of :func:`cg_kernel_a_batched_deferred`."""
     p_st, Ap, _, d = cg_kernel_a_batched_plain(r, p, inv, None, beta, None,
-                                               Kst, aT, plan)
+                                               Kst, aT, plan, aux)
     return p_st, Ap, d
+
+
+def _raw_rows(ap, B, plan: DSSPlan, aux: bool, k: int | None):
+    """Kernel A's Ap, or with ``aux`` the pair ``(Ap, raw rows)``: the
+    (nb, E) rows of one RHS (``k`` None) or the (k, nb, E) of a stack, from
+    the launch's scratch ``B``."""
+    if not aux:
+        return ap
+    return ap, (B[0, :plan.nb] if k is None else B[:, :plan.nb])
 
 
 def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, tables,
               what):
     """Kernel A on CUDA tensors: (p', Ap', x' or None, (G, k) partials, G
-    the tiles of :data:`AFFINE_TILE` elements).  ``beta``/``alpha_prev``
-    are float32 device tensors of k elements; ``tables`` the host pointer
+    the tiles of :data:`AFFINE_TILE` elements, B the (k, nb, E) scratch of
+    raw exchanged rows).  ``beta``/``alpha_prev`` are float32 device
+    tensors of k elements; ``tables`` the host pointer
     :func:`_require_factors` gave."""
     dev = _cuda_device(r)
     _check_plan(plan, dev)
@@ -865,11 +889,11 @@ def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, tables,
                 _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out),
                 _ptr(ap), _ptr(B), _ptr(dparts), *dss, *tail)
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
-    return p_out, ap, x_out, dparts
+    return p_out, ap, x_out, dparts, B
 
 
 def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan, *,
-                factors: AffineFactors | None = None):
+                factors: AffineFactors | None = None, aux: bool = False):
     """``(p', Ap', x', dparts)`` of one fused PCG iteration (affine mesh).
 
     ``x' = x + alpha_prev p``; ``p' = inv r + beta p`` stored in ``p``'s
@@ -882,72 +906,81 @@ def cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan: DSSPlan, *,
     device.  On CUDA tensors the kernel computes the product from
     ``factors``, the :class:`AffineFactors` of ``Kst`` (required there, as
     in :func:`affine_apply_dss`), so ``Ap'`` is that apply of the stored
-    ``p'`` bit for bit.
+    ``p'`` bit for bit.  ``aux=True`` (a split DSS, ``plan`` its near
+    half): ``Ap'`` is the pair ``(Ap', aux)``, ``aux`` (nb, E) the raw
+    exchanged rows of the product, as the applies' ``aux=True`` gives them,
+    for :func:`cg_kernel_b_far`.
     """
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_plain(r, p, inv, x, beta, alpha_prev, Kst, aT,
-                                 plan)
+                                 plan, aux)
     tables = _require_factors(factors, Kst, "cg_kernel_a")
     dev = _cuda_device(r)
-    p_out, ap, x_out, dparts = _launch_a(
+    p_out, ap, x_out, dparts, B = _launch_a(
         r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), Kst, aT,
         plan, 1, tables, "cg_kernel_a")
     _count(cg_kernel_a, Kst.shape[-1])
-    return p_out, ap, x_out, dparts.view(-1)
+    return p_out, _raw_rows(ap, B, plan, aux, None), x_out, dparts.view(-1)
 
 
 def cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
-                         factors: AffineFactors | None = None):
+                         factors: AffineFactors | None = None,
+                         aux: bool = False):
     """``(p', Ap', dparts)``: :func:`cg_kernel_a` without the x update
     (``defer_x``: the CG driver catches x up once per m iterations)."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
-        return cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan)
+        return cg_kernel_a_deferred_plain(r, p, inv, beta, Kst, aT, plan,
+                                          aux)
     tables = _require_factors(factors, Kst, "cg_kernel_a_deferred")
     dev = _cuda_device(r)
-    p_out, ap, _, dparts = _launch_a(r, p, inv, None, _scalar(beta, dev),
-                                     None, Kst, aT, plan, 1, tables,
-                                     "cg_kernel_a_deferred")
+    p_out, ap, _, dparts, B = _launch_a(r, p, inv, None, _scalar(beta, dev),
+                                        None, Kst, aT, plan, 1, tables,
+                                        "cg_kernel_a_deferred")
     _count(cg_kernel_a_deferred, Kst.shape[-1])
-    return p_out, ap, dparts.view(-1)
+    return p_out, _raw_rows(ap, B, plan, aux, None), dparts.view(-1)
 
 
 def cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst, aT,
                         plan: DSSPlan, *,
-                        factors: AffineFactors | None = None):
+                        factors: AffineFactors | None = None,
+                        aux: bool = False):
     """:func:`cg_kernel_a` for a (k * n, E) stack of k right-hand sides:
     ``r``, ``p``, ``x`` are stacks, ``inv`` (n, E) is shared, ``beta`` and
-    ``alpha_prev`` are (k,) float32 device tensors, the partials (G, k)."""
+    ``alpha_prev`` are (k,) float32 device tensors, the partials (G, k);
+    the raw rows of ``aux`` are (k, nb, E)."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_batched_plain(r, p, inv, x, beta, alpha_prev,
-                                         Kst, aT, plan)
+                                         Kst, aT, plan, aux)
     tables = _require_factors(factors, Kst, "cg_kernel_a_batched")
     dev = _cuda_device(r)
     k = _n_rhs(r.shape[0], Kst.shape[-1])
-    out = _launch_a(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
-                    _per_rhs(alpha_prev, k, "alpha_prev", dev), Kst, aT,
-                    plan, k, tables, "cg_kernel_a_batched")
+    p_out, ap, x_out, dparts, B = _launch_a(
+        r, p, inv, x, _per_rhs(beta, k, "beta", dev),
+        _per_rhs(alpha_prev, k, "alpha_prev", dev), Kst, aT, plan, k, tables,
+        "cg_kernel_a_batched")
     _count(cg_kernel_a_batched, Kst.shape[-1])
-    return out
+    return p_out, _raw_rows(ap, B, plan, aux, k), x_out, dparts
 
 
 def cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT, plan: DSSPlan, *,
-                                 factors: AffineFactors | None = None):
+                                 factors: AffineFactors | None = None,
+                                 aux: bool = False):
     """``(p', Ap', dparts)``: :func:`cg_kernel_a_batched` without x."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_batched_deferred_plain(r, p, inv, beta, Kst, aT,
-                                                  plan)
+                                                  plan, aux)
     tables = _require_factors(factors, Kst, "cg_kernel_a_batched_deferred")
     dev = _cuda_device(r)
     k = _n_rhs(r.shape[0], Kst.shape[-1])
-    p_out, ap, _, dparts = _launch_a(
+    p_out, ap, _, dparts, B = _launch_a(
         r, p, inv, None, _per_rhs(beta, k, "beta", dev), None, Kst, aT, plan,
         k, tables, "cg_kernel_a_batched_deferred")
     _count(cg_kernel_a_batched_deferred, Kst.shape[-1])
-    return p_out, ap, dparts
+    return p_out, _raw_rows(ap, B, plan, aux, k), dparts
 
 
 # -- kernel B: residual update + the two weighted reductions ------------------
@@ -970,7 +1003,28 @@ def cg_kernel_b_batched_plain(r, Ap, inv, w_free, alpha):
     return r_new.reshape(r.shape), rz.T, rn.T
 
 
-def _launch_b(r, Ap, inv, w_free, alpha, k, what):
+def cg_kernel_b_far_plain(r, Ap, aux, inv, w_free, alpha,
+                          far_plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_b_far`: :func:`far_update_plain`
+    on a clone of ``Ap``, then :func:`cg_kernel_b_plain`."""
+    return cg_kernel_b_plain(r, far_update_plain(Ap.clone(), aux, far_plan),
+                             inv, w_free, alpha)
+
+
+def cg_kernel_b_batched_far_plain(r, Ap, aux, inv, w_free, alpha,
+                                  far_plan: DSSPlan):
+    """Plain version of :func:`cg_kernel_b_batched_far` (``aux``
+    (k, nb, E))."""
+    k = _n_rhs(r.shape[0], inv.shape[0])
+    Ap_far = far_update_plain(Ap.reshape(k, *inv.shape).clone(), aux,
+                              far_plan)
+    return cg_kernel_b_batched_plain(r, Ap_far.reshape(r.shape), inv, w_free,
+                                     alpha)
+
+
+def _launch_b(r, Ap, inv, w_free, alpha, k, what, far=None):
+    """Kernel B on CUDA tensors; ``far`` ``(aux, far_plan)``: its far mode,
+    ``aux`` the (k, nb, E) raw rows."""
     dev = _cuda_device(r)
     per = inv.numel()
     f32 = (torch.float32,)
@@ -984,10 +1038,25 @@ def _launch_b(r, Ap, inv, w_free, alpha, k, what):
     blocks = max(1, -(-BLOCKS_PER_SM_B * sms // k))
     r_out = torch.empty_like(r)
     parts = torch.empty((2, blocks, k), dtype=torch.float32, device=dev)
-    fn = (lib.sem_cg_kernel_b_bf16 if inv.dtype == torch.bfloat16
-          else lib.sem_cg_kernel_b_f32)
-    rc = fn(_ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free), _ptr(alpha),
-            _ptr(r_out), _ptr(parts), per, blocks, k, _stream(dev))
+    bf16 = inv.dtype == torch.bfloat16
+    if far is None:
+        fn = lib.sem_cg_kernel_b_bf16 if bf16 else lib.sem_cg_kernel_b_f32
+        rc = fn(_ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free), _ptr(alpha),
+                _ptr(r_out), _ptr(parts), per, blocks, k, _stream(dev))
+    else:
+        aux, far_plan = far
+        _check_plan(far_plan, dev)
+        n, E = inv.shape
+        if far_plan.E != E:
+            raise ValueError(f"far plan of E={far_plan.E}; the vectors have "
+                             f"E={E}")
+        _require(aux, "aux", f32, (k, far_plan.nb, E), dev)
+        fn = (lib.sem_cg_kernel_b_far_bf16 if bf16
+              else lib.sem_cg_kernel_b_far_f32)
+        rc = fn(_ptr(r), _ptr(Ap), _ptr(aux), _ptr(far_plan.masks),
+                far_tables(far_plan).ctypes.data, _ptr(inv), _ptr(w_free),
+                _ptr(alpha), _ptr(r_out), _ptr(parts), E, n, far_plan.nb,
+                blocks, k, _stream(dev))
     _check(lib, rc, f"{what} (shape={tuple(r.shape)}, k={k}, "
                     f"inv {inv.dtype})")
     return r_out, parts[0], parts[1]
@@ -1024,10 +1093,71 @@ def cg_kernel_b_batched(r, Ap, inv, w_free, alpha):
     return out
 
 
+def cg_kernel_b_far(r, Ap, aux, inv, w_free, alpha, far_plan: DSSPlan):
+    """:func:`cg_kernel_b` of the corrected ``Ap + far classes``: ``Ap``
+    the near-class DSS kernel A gave on a split plan, ``aux`` (nb, E) the
+    raw exchanged rows beside it (:func:`cg_kernel_a`'s ``aux=True``),
+    ``far_plan`` the far half of the split (its entries by value,
+    :func:`far_tables`).  The far classes are added in the far update's
+    order while Ap streams, so ``r'`` equals :func:`far_update` then
+    :func:`cg_kernel_b` bit for bit; ``Ap`` is not written."""
+    if r.device.type == "cpu":
+        _check_plan(far_plan, None)
+        return cg_kernel_b_far_plain(r, Ap, aux, inv, w_free, alpha,
+                                     far_plan)
+    dev = _cuda_device(r)
+    if tuple(inv.shape) != tuple(r.shape):
+        raise ValueError(f"inv has shape {tuple(inv.shape)}, r "
+                         f"{tuple(r.shape)}")
+    r_out, rz, rn = _launch_b(r, Ap, inv, w_free, _scalar(alpha, dev), 1,
+                              "cg_kernel_b_far",
+                              (aux.reshape(1, *aux.shape), far_plan))
+    _count(cg_kernel_b_far, inv.shape[0])
+    return r_out, rz.view(-1), rn.view(-1)
+
+
+def cg_kernel_b_batched_far(r, Ap, aux, inv, w_free, alpha,
+                            far_plan: DSSPlan):
+    """:func:`cg_kernel_b_far` for a (k * n, E) stack (``aux`` (k, nb, E),
+    one block of raw rows per RHS; the far tables shared)."""
+    k = _n_rhs(r.shape[0], inv.shape[0])
+    if r.device.type == "cpu":
+        _check_plan(far_plan, None)
+        return cg_kernel_b_batched_far_plain(r, Ap, aux, inv, w_free, alpha,
+                                             far_plan)
+    dev = _cuda_device(r)
+    out = _launch_b(r, Ap, inv, w_free, _per_rhs(alpha, k, "alpha", dev), k,
+                    "cg_kernel_b_batched_far", (aux, far_plan))
+    _count(cg_kernel_b_batched_far, inv.shape[0])
+    return out
+
+
+def _kernel_b(batched: bool, plan: DSSPlan, far_plan: DSSPlan | None):
+    """Kernel B of a fused pair on ``plan``: :func:`cg_kernel_b` (or its
+    stack), or on a split (``far_plan`` given, ``plan`` its near half)
+    ``kB(r, (Ap, aux), inv, w_free, alpha)``, which hands kernel A's pair
+    to :func:`cg_kernel_b_far` (or its stack): the reference's opaque
+    ``(Ap_near, far)`` hand-over."""
+    if far_plan is None:
+        return cg_kernel_b_batched if batched else cg_kernel_b
+    if far_plan.nb != plan.nb or far_plan.E != plan.E:
+        raise ValueError("the far plan is not the far half of the near "
+                         "plan's split (DSSPlan.split)")
+    fn = cg_kernel_b_batched_far if batched else cg_kernel_b_far
+
+    def kB(r, Ap, inv, w_free, alpha):
+        Ap_near, aux = Ap
+        return fn(r, Ap_near, aux, inv, w_free, alpha, far_plan)
+
+    kB.far_plan = far_plan
+    return kB
+
+
 def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
                           plan: DSSPlan, *, defer_x: bool = False,
                           factors: AffineFactors | None = None,
-                          precision: str = "high"):
+                          precision: str = "high",
+                          far_plan: DSSPlan | None = None):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused`: kernel A bound to one
     affine operator (``Kst``, ``aT``, ``plan`` and ``factors``, the
     :class:`AffineFactors` its kernel reads on a CUDA device), and kernel
@@ -1039,44 +1169,60 @@ def make_fused_cg_kernels(Kst: torch.Tensor, aT: torch.Tensor,
     ``kA.defer_x`` records which, ``kA.factors`` the factors.
     ``precision``: the reference's tier (its default ``"high"``), recorded
     as ``kA.precision``; the kernels compute true float32 at every tier and
-    an unknown one raises ``ValueError``."""
+    an unknown one raises ``ValueError``.
+
+    ``far_plan`` (the far half of :meth:`.DSSPlan.split`, ``plan`` then
+    its near half): the reference's far-class split (``cheap_far``).
+    Kernel A gathers the near classes and returns its ``Ap'`` as the pair
+    ``(Ap', aux)`` with the raw exchanged rows; ``kB`` takes that pair and
+    adds the far classes as it streams Ap (:func:`cg_kernel_b_far`).  The
+    CG drivers pass Ap through unopened; ``kA.far_plan`` records it.  The
+    denominator partials use the pre-DSS identity, so they need no far
+    classes."""
     check_precision(precision)
+    kB = _kernel_b(False, plan, far_plan)
+    aux = far_plan is not None
     if defer_x:
         def kA(r, p, inv, beta):
             return cg_kernel_a_deferred(r, p, inv, beta, Kst, aT, plan,
-                                        factors=factors)
+                                        factors=factors, aux=aux)
     else:
         def kA(r, p, inv, x, beta, alpha_prev):
             return cg_kernel_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan,
-                               factors=factors)
+                               factors=factors, aux=aux)
     kA.defer_x, kA.n_rhs, kA.factors = bool(defer_x), 1, factors
-    kA.precision = precision
-    return kA, cg_kernel_b
+    kA.precision, kA.far_plan = precision, far_plan
+    return kA, kB
 
 
 def make_fused_cg_kernels_batched(Kst: torch.Tensor, aT: torch.Tensor,
                                   plan: DSSPlan, n_rhs: int, *,
                                   defer_x: bool = False,
                                   factors: AffineFactors | None = None,
-                                  precision: str = "high"):
+                                  precision: str = "high",
+                                  far_plan: DSSPlan | None = None):
     """``(kA, kB)`` for :func:`..solver.cg.cg_fused_batched` on (k * n, E)
     stacks of ``n_rhs`` right-hand sides (per-RHS scalars (k,), partials
-    (G, k)); ``defer_x``, ``factors`` and ``precision`` as in
-    :func:`make_fused_cg_kernels`."""
+    (G, k)); ``defer_x``, ``factors``, ``precision`` and ``far_plan`` as in
+    :func:`make_fused_cg_kernels` (the raw rows (k, nb, E), one block per
+    RHS; :func:`cg_kernel_b_batched_far`)."""
     check_precision(precision)
     if n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
+    kB = _kernel_b(True, plan, far_plan)
+    aux = far_plan is not None
     if defer_x:
         def kA(r, p, inv, beta):
             return cg_kernel_a_batched_deferred(r, p, inv, beta, Kst, aT,
-                                                plan, factors=factors)
+                                                plan, factors=factors,
+                                                aux=aux)
     else:
         def kA(r, p, inv, x, beta, alpha_prev):
             return cg_kernel_a_batched(r, p, inv, x, beta, alpha_prev, Kst,
-                                       aT, plan, factors=factors)
+                                       aT, plan, factors=factors, aux=aux)
     kA.defer_x, kA.n_rhs, kA.factors = bool(defer_x), int(n_rhs), factors
-    kA.precision = precision
-    return kA, cg_kernel_b_batched
+    kA.precision, kA.far_plan = precision, far_plan
+    return kA, kB
 
 
 # -- curved meshes: the general apply and its kernel A ------------------------
@@ -1171,26 +1317,28 @@ def general_apply_dss_batched(uT: torch.Tensor, gT: torch.Tensor,
 
 
 def cg_kernel_a_general_plain(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
-                              plan: DSSPlan):
+                              plan: DSSPlan, aux: bool = False):
     """Plain version of :func:`cg_kernel_a_general`; the denominator
     partials are one per element."""
     return _cg_a_plain(r, p, inv, x, beta, alpha_prev,
-                       lambda u: _general_local(u, gT, Dh), plan)
+                       lambda u: _general_local(u, gT, Dh), plan, aux)
 
 
 def cg_kernel_a_general_batched_plain(r, p, inv, x, beta, alpha_prev, gT,
-                                      Dh, hier, plan: DSSPlan):
+                                      Dh, hier, plan: DSSPlan,
+                                      aux: bool = False):
     """Plain version of :func:`cg_kernel_a_general_batched`; the partials
     are (E, k)."""
     return _cg_a_batched_plain(r, p, inv, x, beta, alpha_prev, Dh.shape[1],
-                               lambda u: _general_local(u, gT, Dh), plan)
+                               lambda u: _general_local(u, gT, Dh), plan,
+                               aux)
 
 
 def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, plan, k,
                       tables, what):
     """General kernel A on CUDA tensors: (p', Ap', x', (G, k) partials, G
-    the tiles of :data:`GENERAL_TILE` elements); ``tables`` the host
-    pointer :func:`_require_general_factors` gave."""
+    the tiles of :data:`GENERAL_TILE` elements, the (k, nb, E) scratch B);
+    ``tables`` the host pointer :func:`_require_general_factors` gave."""
     dev = _cuda_device(r)
     _check_plan(plan, dev)
     n, E = Dh.shape[1], r.shape[-1]
@@ -1215,59 +1363,64 @@ def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, plan, k,
             _ptr(B), _ptr(dparts), _ptr(plan.row_ptr), _ptr(plan.entries),
             _ptr(plan.masks), n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
-    return p_out, ap, x_out, dparts
+    return p_out, ap, x_out, dparts, B
 
 
 def cg_kernel_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
                         plan: DSSPlan, *,
-                        factors: GeneralFactors | None = None):
+                        factors: GeneralFactors | None = None,
+                        aux: bool = False):
     """``(p', Ap', x', dparts)`` of one fused PCG iteration on a curved
     mesh: :func:`cg_kernel_a` with the apply of :func:`general_apply_dss`
     (``gT``, ``Dh``, ``hier`` and, on CUDA tensors, ``factors`` as
-    there), so ``Ap'`` is that apply of the stored ``p'`` bit for bit.
-    There is no deferred-x variant, as in the reference."""
+    there), so ``Ap'`` is that apply of the stored ``p'`` bit for bit;
+    ``aux`` as in :func:`cg_kernel_a`.  There is no deferred-x variant, as
+    in the reference."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_general_plain(r, p, inv, x, beta, alpha_prev, gT,
-                                         Dh, hier, plan)
+                                         Dh, hier, plan, aux)
     tables = _require_general_factors(factors, Dh, hier,
                                       "cg_kernel_a_general")
     dev = _cuda_device(r)
-    p_out, ap, x_out, dparts = _launch_a_general(
+    p_out, ap, x_out, dparts, B = _launch_a_general(
         r, p, inv, x, _scalar(beta, dev), _scalar(alpha_prev, dev), gT, Dh,
         plan, 1, tables, "cg_kernel_a_general")
     _count(cg_kernel_a_general, Dh.shape[1])
-    return p_out, ap, x_out, dparts.view(-1)
+    return p_out, _raw_rows(ap, B, plan, aux, None), x_out, dparts.view(-1)
 
 
 def cg_kernel_a_general_batched(r, p, inv, x, beta, alpha_prev, gT, Dh, hier,
                                 plan: DSSPlan, *,
-                                factors: GeneralFactors | None = None):
+                                factors: GeneralFactors | None = None,
+                                aux: bool = False):
     """:func:`cg_kernel_a_general` for a (k * n, E) stack of k right-hand
     sides (``inv`` (n, E) shared, ``beta`` and ``alpha_prev`` (k,) float32
-    device tensors, the partials (G, k))."""
+    device tensors, the partials (G, k), the raw rows of ``aux``
+    (k, nb, E))."""
     if r.device.type == "cpu":
         _check_plan(plan, None)
         return cg_kernel_a_general_batched_plain(r, p, inv, x, beta,
                                                  alpha_prev, gT, Dh, hier,
-                                                 plan)
+                                                 plan, aux)
     tables = _require_general_factors(factors, Dh, hier,
                                       "cg_kernel_a_general_batched")
     dev = _cuda_device(r)
     k = _n_rhs(r.shape[0], Dh.shape[1])
-    out = _launch_a_general(r, p, inv, x, _per_rhs(beta, k, "beta", dev),
-                            _per_rhs(alpha_prev, k, "alpha_prev", dev), gT,
-                            Dh, plan, k, tables,
-                            "cg_kernel_a_general_batched")
+    p_out, ap, x_out, dparts, B = _launch_a_general(
+        r, p, inv, x, _per_rhs(beta, k, "beta", dev),
+        _per_rhs(alpha_prev, k, "alpha_prev", dev), gT, Dh, plan, k, tables,
+        "cg_kernel_a_general_batched")
     _count(cg_kernel_a_general_batched, Dh.shape[1])
-    return out
+    return p_out, _raw_rows(ap, B, plan, aux, k), x_out, dparts
 
 
 def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
                                   hier: torch.Tensor, plan: DSSPlan,
                                   n_rhs: int | None = None, *,
                                   factors: GeneralFactors | None = None,
-                                  precision: str = "high"):
+                                  precision: str = "high",
+                                  far_plan: DSSPlan | None = None):
     """``(kA, kB)`` on a curved mesh: the general kernel A bound to one
     operator (``gT``, ``Dh``, ``hier``, ``plan`` and ``factors``, the
     :class:`GeneralFactors` its kernel reads on a CUDA device) and the
@@ -1279,21 +1432,24 @@ def make_fused_cg_kernels_general(gT: torch.Tensor, Dh: torch.Tensor,
     general kernels have no deferred-x mode: ``kA.defer_x`` is False and
     ``kA.offers_defer_x`` makes :func:`..solver.cg.cg_fused` and
     ``cg_fused_batched`` refuse ``defer_x``.  ``kA.factors`` records the
-    factors; ``precision`` as in :func:`make_fused_cg_kernels`."""
+    factors; ``precision`` and ``far_plan`` as in
+    :func:`make_fused_cg_kernels`."""
     check_precision(precision)
     if n_rhs is not None and n_rhs < 1:
         raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
     fn = (cg_kernel_a_general if n_rhs is None
           else cg_kernel_a_general_batched)
+    kB = _kernel_b(n_rhs is not None, plan, far_plan)
+    aux = far_plan is not None
 
     def kA(r, p, inv, x, beta, alpha_prev):
         return fn(r, p, inv, x, beta, alpha_prev, gT, Dh, hier, plan,
-                  factors=factors)
+                  factors=factors, aux=aux)
 
     kA.defer_x, kA.offers_defer_x = False, False
     kA.n_rhs = 1 if n_rhs is None else int(n_rhs)
-    kA.factors, kA.precision = factors, precision
-    return kA, cg_kernel_b if n_rhs is None else cg_kernel_b_batched
+    kA.factors, kA.precision, kA.far_plan = factors, precision, far_plan
+    return kA, kB
 
 
 # -- the element-sharded operator's block apply -------------------------------
@@ -1363,11 +1519,11 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
 # -- the far-class update of a split DSS --------------------------------------
 
 #: the most far entries (and destination rows) a plan may have
-#: (``kFarMaxEntries`` in csrc/far_update.cu)
+#: (``kFarMaxEntries`` in csrc/sem_far.cuh)
 FAR_MAX_ENTRIES = 128
-#: the by-value table operand of the far update (``FarTables`` in
-#: csrc/far_update.cu): the destination rows, their first entries, and per
-#: entry its source row, class mask and element offset
+#: the by-value table operand of the far update and of kernel B's far mode
+#: (``FarTables`` in csrc/sem_far.cuh): the destination rows, their first
+#: entries, and per entry its source row, class mask and element offset
 _FAR_TABLES = np.dtype([("n_rows", "<i4"),
                         ("dst", "u1", (FAR_MAX_ENTRIES,)),
                         ("first", "u1", (FAR_MAX_ENTRIES + 1,)),
@@ -1377,9 +1533,10 @@ _FAR_TABLES = np.dtype([("n_rows", "<i4"),
 
 
 def far_tables(far_plan: DSSPlan) -> np.ndarray:
-    """The far update's by-value operand of ``far_plan`` (built once per
-    plan and kept on it): the rows with entries in order, each row's
-    entries in the plan's order (class order within a row).  Raises
+    """The far classes' by-value operand of ``far_plan``
+    (:func:`far_update`, :func:`cg_kernel_b_far`; built once per plan and
+    kept on it): the rows with entries in order, each row's entries in
+    the plan's order (class order within a row).  Raises
     ``ValueError`` beyond :data:`FAR_MAX_ENTRIES` entries or for a row or
     class index past 255."""
     t = getattr(far_plan, "_far_tables", None)
@@ -1782,6 +1939,8 @@ WRAPPERS = {"affine_apply_dss": affine_apply_dss,
             "cg_kernel_a_batched_deferred": cg_kernel_a_batched_deferred,
             "cg_kernel_b": cg_kernel_b,
             "cg_kernel_b_batched": cg_kernel_b_batched,
+            "cg_kernel_b_far": cg_kernel_b_far,
+            "cg_kernel_b_batched_far": cg_kernel_b_batched_far,
             "general_apply_dss": general_apply_dss,
             "general_apply_dss_batched": general_apply_dss_batched,
             "cg_kernel_a_general": cg_kernel_a_general,

@@ -23,8 +23,9 @@ with ``[ur; us] = Dhat u``, :func:`.kernels.general_apply_dss`).
 (:func:`make_multi_rhs_laplacian_T`).  Either takes the reference's
 ``max_halo``/``far_mode``: an integer ``max_halo`` splits the roll classes
 at that |delta| (:meth:`.DSSPlan.split`), the apply gathers the near ones
-and :func:`.kernels.far_update` adds the far ones; ``max_halo="auto"``
-splits nothing in the port (a deliberate divergence: the reference's rule
+and :func:`.kernels.far_update` adds the far ones (in the fused CG
+kernels, kernel A gathers the near ones and kernel B adds the far ones);
+``max_halo="auto"`` splits nothing in the port (a deliberate divergence: the reference's rule
 weighs TPU VMEM windows that the CUDA gather pass does not have).  On
 row-major (E, n) L-vectors (``vector_layout="en"``) the operator is
 :class:`LaplacianEN`: the local product by ``torch.matmul``
@@ -325,7 +326,9 @@ class LaplacianT(torch.nn.Module):
     launches :func:`.kernels.far_update`, ``"xla"`` runs its plain version
     (the reference's explicit epilogue mode: the caller's choice, not a
     fallback).  A split operator refuses :meth:`stacked`, as the reference
-    keeps its k-RHS applies whole.
+    keeps its k-RHS applies whole; its fused CG kernels, of one RHS or a
+    stack, carry the split (kernel B adds the far classes), and its
+    single-kernel iteration takes the whole plan.
     """
 
     #: right-hand sides of a stacked operator (None: one (n, E) L-vector)
@@ -391,10 +394,11 @@ class LaplacianT(torch.nn.Module):
         out, aux = apply(uT, near, True)
         return self._far_update(out, aux, far)
 
-    def _refuse_split(self, what: str) -> None:
-        if self._split is not None:
-            raise ValueError(f"the far split (max_halo) {what} with "
-                             "max_halo=None")
+    def _fused_plans(self) -> tuple[DSSPlan, DSSPlan | None]:
+        """(plan, far plan) of the fused CG kernels: the whole plan, or on
+        a split operator its near half and its far half (the reference's
+        ``cheap_far`` kernels)."""
+        return self._split or (self.plan, None)
 
     def _refuse_xla(self) -> None:
         """The fused CG kernels take a ``"fused"`` operator only (the
@@ -410,7 +414,9 @@ class LaplacianT(torch.nn.Module):
         shared)."""
         if n_rhs < 1:
             raise ValueError(f"n_rhs must be >= 1, got {n_rhs}")
-        self._refuse_split("is single-RHS only: build the k-RHS operator")
+        if self._split is not None:
+            raise ValueError("the far split (max_halo) is single-RHS only: "
+                             "build the k-RHS operator with max_halo=None")
         op = copy.copy(self)
         op.n_rhs = int(n_rhs)
         return op
@@ -443,12 +449,6 @@ class LaplacianT(torch.nn.Module):
         if self.free is not None:
             vT = torch.where(self.free, vT, 0.0)
         return vT
-
-
-#: why a split operator refuses the fused CG kernels
-_FUSED_SPLIT = ("is not carried by the fused CG kernels yet (their "
-                "cheap_far option, ROADMAP Queue 2's later options): build "
-                "the operator")
 
 
 class AffineLaplacianT(LaplacianT):
@@ -506,24 +506,27 @@ class AffineLaplacianT(LaplacianT):
     def fused_cg_kernels(self, n_rhs=None, defer_x: bool = False):
         """``(kA, kB)`` of the fused CG on this operator: single-RHS
         (:func:`.kernels.make_fused_cg_kernels`) for ``n_rhs=None``, else
-        batched for ``n_rhs`` right-hand sides.  A split or an ``"xla"``
-        operator raises."""
+        batched for ``n_rhs`` right-hand sides.  On a split operator
+        (``max_halo``) kernel A gathers the near classes and kernel B adds
+        the far ones (the factories' ``far_plan``); an ``"xla"`` operator
+        raises."""
         self._refuse_xla()
-        self._refuse_split(_FUSED_SPLIT)
+        plan, far = self._fused_plans()
         if n_rhs is None:
             return kernels.make_fused_cg_kernels(
-                self.Kst, self.aT, self.plan, defer_x=defer_x,
-                factors=self.factors)
+                self.Kst, self.aT, plan, defer_x=defer_x,
+                factors=self.factors, far_plan=far)
         return kernels.make_fused_cg_kernels_batched(
-            self.Kst, self.aT, self.plan, n_rhs, defer_x=defer_x,
-            factors=self.factors)
+            self.Kst, self.aT, plan, n_rhs, defer_x=defer_x,
+            factors=self.factors, far_plan=far)
 
     def fused_cg_kernel_single(self, defer_x: bool = False):
         """``kAB`` of the single-kernel CG iteration on this operator
         (:func:`.kernels.make_fused_cg_kernel_single`; ``cg_fused`` with
-        ``kB=None``).  A split or an ``"xla"`` operator raises."""
+        ``kB=None``), on the whole plan also when ``max_halo`` split it, as
+        the reference's single kernel always keeps the full halo.  An
+        ``"xla"`` operator raises."""
         self._refuse_xla()
-        self._refuse_split(_FUSED_SPLIT)
         return kernels.make_fused_cg_kernel_single(
             self.Kst, self.aT, self.plan, defer_x=defer_x,
             factors=self.factors)
@@ -601,18 +604,19 @@ class GeneralLaplacianT(LaplacianT):
     def fused_cg_kernels(self, n_rhs=None, defer_x: bool = False):
         """``(kA, kB)`` of the fused CG on this operator
         (:func:`.kernels.make_fused_cg_kernels_general`): single-RHS for
-        ``n_rhs=None``, else batched.  ``defer_x`` raises: the general
-        kernels carry no deferred-x mode, as in the reference, and so
-        does a split or an ``"xla"`` operator."""
+        ``n_rhs=None``, else batched; a split operator as in
+        :meth:`AffineLaplacianT.fused_cg_kernels`.  ``defer_x`` raises: the
+        general kernels carry no deferred-x mode, as in the reference, and
+        so does an ``"xla"`` operator."""
         self._refuse_xla()
-        self._refuse_split(_FUSED_SPLIT)
         if defer_x:
             raise ValueError("defer_x is not offered on the general fused "
                              "CG (curved meshes): its kernels carry no "
                              "deferred-x mode")
+        plan, far = self._fused_plans()
         return kernels.make_fused_cg_kernels_general(
-            self.gT, self.Dh, self.hier, self.plan, n_rhs,
-            factors=self.factors)
+            self.gT, self.Dh, self.hier, plan, n_rhs, factors=self.factors,
+            far_plan=far)
 
     def fused_cg_kernel_single(self, defer_x: bool = False):
         """Raises: the single-kernel iteration exists for affine meshes

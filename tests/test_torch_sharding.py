@@ -16,7 +16,7 @@ the port runs its shards as column blocks of one tensor.  Small meshes:
   single-device solution), ``"propagation"``;
 * the far split of the affine and the general apply against the
   reference's ``far_mode="kernel"`` interpret-mode applies (1e-5 of max),
-  and split against unsplit;
+  and split against unsplit, the split operator's fused CG kernels too;
 * the raises and the two deliberate divergences (8 shards of 16x16 p = 3
   run where the reference raises; ``max_halo="auto"`` does not split).
 """
@@ -413,27 +413,64 @@ def test_far_split_general_matches_reference_far_kernel():
 
 
 def test_split_operator_refuses_the_fused_cg_kernels():
-    """The fused CG kernels carry no far split (the reference's
-    ``cheap_far`` is a later option), so a split operator refuses them
-    rather than handing back kernels of the whole plan; unsplit, the same
-    operator gives them."""
+    """(Named for the refusal it pinned before the fused CG kernels carried
+    the far split.)  A split operator's fused CG kernels, one RHS and
+    ``n_rhs=2``, give the unsplit kernels' results: kernel A hands its
+    near-class Ap over with the raw rows, kernel B adds the far classes
+    (plain versions here); only the order of the far sums differs.  The
+    single-kernel iteration keeps the whole plan on a split operator, bit
+    for bit the unsplit one."""
     ej, Gf, Dhat, a, Kcat, plan = _far_pair()
     ops = {"affine": lambda mh: sumfac.AffineLaplacianT(Kcat, a, plan,
                                                         max_halo=mh),
            "general": lambda mh: sumfac.GeneralLaplacianT(
                Gf, Dhat, ej.hier, plan, max_halo=mh)}
+    rng = np.random.RandomState(13)
+    n, E = plan.n, plan.E
+
+    def consistent(k=1):
+        return exchange.roll_dss_T(torch.as_tensor(rng.standard_normal(
+            (k, n, E)).astype(np.float32)), plan).reshape(k * n, E)
+
+    inv = consistent().abs() + 0.5
+    w = torch.tensor(np.asarray(ej.weights.T, np.float32))
     for label, make in ops.items():
-        split = make(1)
-        assert split.far_plan is not None, label
-        with pytest.raises(ValueError, match="cheap_far"):
-            split.fused_cg_kernels()
-        with pytest.raises(ValueError, match="cheap_far"):
-            split.fused_cg_kernels(n_rhs=2)
-        kA, kB = make(None).fused_cg_kernels()
-        assert callable(kA) and callable(kB), label
-    with pytest.raises(ValueError, match="cheap_far"):
-        ops["affine"](1).fused_cg_kernel_single()
-    assert callable(ops["affine"](None).fused_cg_kernel_single())
+        split, whole = make(1), make(None)
+        assert split.far_plan is not None and whole.far_plan is None, label
+        for k in (1, 2):
+            n_rhs = None if k == 1 else k
+            (kA, kB), (kA0, kB0) = (op.fused_cg_kernels(n_rhs=n_rhs)
+                                    for op in (split, whole))
+            assert kA.far_plan is split.far_plan and kA0.far_plan is None
+            r, p_, x = consistent(k), consistent(k), consistent(k)
+            sc = [torch.tensor([0.7, 1.2][:k]), torch.tensor([0.4, 0.9][:k]),
+                  torch.tensor([0.3, -0.6][:k])]
+            if k == 1:
+                sc = [v[0] for v in sc]
+            got = kA(r, p_, inv, x, sc[0], sc[1])
+            want = kA0(r, p_, inv, x, sc[0], sc[1])
+            assert torch.equal(got[0], want[0]) and torch.equal(got[2],
+                                                                want[2])
+            near, aux = got[1]
+            Ap = kernels.far_update_plain(near.reshape(k, n, E).clone(),
+                                          aux.reshape(k, -1, E),
+                                          split.far_plan).reshape(near.shape)
+            assert _rel(Ap, want[1]) < 1e-6, label
+            assert _rel(near, want[1]) > 1e-3, label
+            assert torch.equal(got[3], want[3]), label
+            r_s, rz_s, rn_s = kB(r, got[1], inv, w, sc[2])
+            r_w, rz_w, rn_w = kB0(r, want[1], inv, w, sc[2])
+            assert _rel(r_s, r_w) < 1e-6, label
+            for a_, b_ in ((rz_s, rz_w), (rn_s, rn_w)):
+                np.testing.assert_allclose(
+                    a_.reshape(-1, k).sum(0).numpy(),
+                    b_.reshape(-1, k).sum(0).numpy(), rtol=1e-6)
+    split, whole = ops["affine"](1), ops["affine"](None)
+    args = (consistent(), consistent(), consistent(), consistent(), inv, w,
+            0.4, 0.7)
+    for got, want in zip(split.fused_cg_kernel_single()(*args),
+                         whole.fused_cg_kernel_single()(*args)):
+        assert torch.equal(got, want)
 
 
 # -- raises and deliberate divergences ----------------------------------------
