@@ -146,7 +146,19 @@ Phases (any failure exits non-zero and prints no result line):
    its bound and beside those two launches, and each split solve of
    ``SPLIT_MODES`` beside the same unsplit solve at 2e-3 (iterations
    within 2, the float64 true residual, ms per issued iteration, launches,
-   a 64-iteration profile each);
+   a 64-iteration profile each); (3w) the host surface: the annulus
+   written as binary Gmsh 2.2 (``mesh.gmsh.save_msh``) and read back
+   (``load_msh``: nodes, lexicographic cells, regions and boundary faces
+   equal to the generator's mesh), its ``curved-fused`` solve to TOL_ALL
+   beside the generated mesh's (the same iterations and bits; the curved
+   kernel A and kernel B launched; a 64-iteration profile), the write and
+   the read by stage and the file's size, the same in Gmsh 4.1; ``box27``
+   through a hexahedral ``.msh``, Jacobi to TOL3 in phase 3t's iterations;
+   the native locator on LOC_POINTS seeded points of the loaded annulus
+   against the numpy scan on LOC_SCAN of them; phase 2's affine apply timed
+   by ``utils.timing.time_step`` within TIME_STEP_REL of phase 2's time,
+   with its GFLOP/s and roofline share (``sumfac.element_apply_flops``,
+   ``utils.perf.roofline``);
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -192,7 +204,11 @@ MAX_ITER = 20000
 # so only the f32 modes must reach TOL_F32; the bf16 mode's run to TOL_F32
 # records where it stops (its best residual and iteration)
 TOL_ALL, TOL_F32 = 2e-3, 1e-4
-PROFILE_ITERS = 512    # the profiler's post-processing grows with them
+# the profiler's post-processing grows with the iterations; 256 (and
+# STEADY's 256 / 768) keep the whole run inside its time budget with phase
+# 3w (512 and 512 / 1,536 took 1,082 s with it on an H100 whose host ran
+# slow)
+PROFILE_ITERS = 256
 K = 4                  # right-hand sides of the batched solves (the bench's)
 DEFER = 8              # defer_x of the deferred modes (the bench's)
 S_SH = 4               # element shards of the sharded operator and solves
@@ -208,7 +224,7 @@ SPLIT_MODES = {"split-fused": ("rect", 1, "f32", 0),
                f"split-batch-fused-bf16p-m{DEFER}": ("rect", K, "bf16", DEFER),
                "split-curved-fused": ("annulus", 1, "f32", 0),
                "split-curved-batch-fused": ("annulus", K, "f32", 0)}
-STEADY = (512, 1536)   # iterations of the two steady-state timing runs
+STEADY = (256, 768)    # iterations of the two steady-state timing runs
 # the Helmholtz modes' steady state and profile: the (E, n) exchanges are
 # plain PyTorch passes (~2 ms per iteration), so fewer iterations do
 HELM_STEADY = (128, 384)
@@ -242,6 +258,17 @@ NX3 = 27
 JAC3_ITS = 618
 TOL3 = 1e-5
 PROFILE3_ITERS = 64
+# phase 3w, the host surface on the card: the native locator's seeded
+# points in the annulus and the few outside it (each of those costs the
+# locator a Newton solve in every element, ~0.5 s at 100k on a CPU core),
+# the subset held against the numpy scan (the outside points and the rest
+# at random; each point scanning the locator's 16 nearest candidates), and
+# the bar of time_step against phase 2's time of the same apply
+LOC_POINTS = 100_000
+LOC_OUTSIDE = 8
+LOC_SCAN = 1_000
+LOC_CANDIDATES = 16
+TIME_STEP_REL = 0.10
 # the 3D local apply's flops per element (bench.py:233-236: six (p1, p1)
 # products over p1^2 lines and ~15 pointwise per node)
 def flops3(p1: int) -> int:
@@ -353,28 +380,40 @@ def gpu_ms(fn, args_list, reps: int = 20) -> float:
 
 def device_events(fn, args_list) -> list:
     """The profiler's device events (by name: count, device time) of one
-    call of ``fn`` per entry of ``args_list``, after one warm-up pass.  A
-    trace that holds no device event at all (the profiler's device buffer
-    can come back empty after many good traces) is taken again, up to
-    twice; a trace with events is never retaken."""
+    call of ``fn`` per entry of ``args_list``, after one warm-up pass.
+
+    A trace that is provably incomplete is taken again, up to twice: one
+    that holds fewer device kernels than the port's wrappers launched while
+    it ran (every wrapper launch is at least one device kernel; the
+    profiler's device buffer can come back empty, or one event short, after
+    many good traces).  A complete trace is never retaken, and a trace that
+    is still short after the third take is returned as it is, for the
+    caller's check to refuse."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from spectralelementmethod_torch.ops import kernels
 
     for a in args_list:
         fn(*a)
     torch.cuda.synchronize()
     for _ in range(3):
+        n0 = sum(kernels.launch_counts().values())
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for a in args_list:
                 fn(*a)
             torch.cuda.synchronize()
+        launched = sum(kernels.launch_counts().values()) - n0
         ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
-        if ev:
+        traced = sum(e.count for e in ev
+                     if not e.key.startswith(("Memcpy", "Memset")))
+        if ev and traced >= launched:
             break
-        log("  (the profiler recorded no device event; tracing again)")
+        log(f"  (the profiler recorded {traced} device kernels of the "
+            f"{launched} the wrappers launched; tracing again)")
     return ev
 
 
@@ -1250,6 +1289,258 @@ def phase_3v(dev, at, drive, profile_solve, solves, rows, env) -> dict:
     out["seconds"] = time.perf_counter() - t_3v
     log(f"  phase 3v took {out['seconds']:.1f} s {at()}")
     return list(SPLIT_MODES)
+
+
+def phase_3w(dev, at, drive, profile_solve, solves, rows, env) -> None:
+    """The host surface on the card: the 100k curved annulus written with
+    the port's binary Gmsh 2.2 writer and read back (nodes, lexicographic
+    cells, regions and boundary faces equal to the generator's mesh), the
+    float32 ``curved-fused`` solve to TOL_ALL on the loaded mesh beside the
+    same solve on the generated one (the same iterations, the same bits;
+    the curved kernel A and kernel B launched), the write and the read by
+    stage, the file's size, device ms per iteration and each kernel's
+    launches; the same write and read in Gmsh 4.1, timed; ``box27``
+    through a hexahedral ``.msh`` (type 97), Jacobi CG to TOL3 in phase
+    3t's iterations; the native locator on LOC_POINTS seeded points of the
+    loaded annulus (some outside) against the numpy scan on LOC_SCAN of
+    them, both timed; phase 2's affine apply at k = 1 timed by
+    ``utils.timing.time_step`` within TIME_STEP_REL of phase 2's own time,
+    with its GFLOP/s (``sumfac.element_apply_flops``) and its share of the
+    roofline (``utils.perf.roofline``)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from spectralelementmethod_torch import native
+    from spectralelementmethod_torch.basis import gll_basis_2d, gll_basis_3d
+    from spectralelementmethod_torch.core import pointlocate
+    from spectralelementmethod_torch.core.discretization import (
+        Discretization)
+    from spectralelementmethod_torch.mesh import box_mesh
+    from spectralelementmethod_torch.mesh.gmsh import (load_msh, save_msh,
+                                                       save_msh41)
+    from spectralelementmethod_torch.models.poisson import Poisson
+    from spectralelementmethod_torch.ops import kernels, sumfac
+    from spectralelementmethod_torch.solver.cg import cg_fused
+    from spectralelementmethod_torch.utils import perf, stages, timing
+
+    t_3w = time.perf_counter()
+    out = solves.setdefault("phase_3w", {})
+    log(f"[3w] Gmsh I/O, the native locator and the timing utils {at()}")
+    check(native.available(), "the native meshkit builds and loads "
+          f"({native.library_path().name})")
+    aprob, actx = env["problems"]["annulus"]
+    mesh = aprob.disc.mesh
+
+    def same_mesh(a, b, what):
+        """Nodes, each cell's lexicographic node indices and region, and
+        every boundary's (cell, face) pairs, equal."""
+        ba, bb = a.cell_blocks(), b.cell_blocks()
+        cells = len(ba) == len(bb) and all(
+            np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])
+            for x, y in zip(ba, bb))
+        regions = (a.region_names == b.region_names and all(
+            np.array_equal(x.region_ids, y.region_ids)
+            for x, y in zip(a._chunks, b._chunks)))
+        faces = a.boundary_names == b.boundary_names and all(
+            np.array_equal(a.boundary_faces(n_), b.boundary_faces(n_))
+            for n_ in a.boundary_names)
+        check(np.array_equal(a.nodes, b.nodes) and cells and regions
+              and faces, f"{what}: nodes, lexicographic cells, regions and "
+              f"boundary faces ({', '.join(a.boundary_names)}) equal to the "
+              "generator's mesh")
+
+    def round_trip(write, m, path, ndim, what):
+        """Write and read back ``m``; the seconds of each by stage and the
+        file's size."""
+        stages.snapshot(reset=True)
+        with stages.stage("mesh/export"):
+            write(m, path)
+        size = os.path.getsize(path)
+        loaded = load_msh(path, ndim=ndim)
+        os.remove(path)
+        st = stages.snapshot(reset=True)
+        rec = dict(stages=st, bytes=size)
+        log(f"  {what}: {size / 1e6:.1f} MB, write "
+            f"{st['mesh/export']:.2f} s, read {st['mesh/import']:.2f} s "
+            f"{at()}")
+        return loaded, rec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the 100k curved annulus through binary Gmsh 2.2 ---------------
+        loaded, out["annulus-msh22"] = round_trip(
+            save_msh, mesh, os.path.join(tmp, "annulus.msh"), 2,
+            f"annulus E={mesh.n_cells} binary 2.2")
+        same_mesh(loaded, mesh, "annulus from .msh 2.2")
+        # Mesh.find_neighbors (the numpy sort of the face keys) beside the
+        # native hash on the same keys, the one wiring the reference has
+        # and the port left out
+        t0 = time.perf_counter()
+        loaded.find_neighbors()
+        t_sort = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keys = loaded._face_keys()[0]
+        t_keys = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.match_keys(keys)
+        t_hash = time.perf_counter() - t0
+        out["find_neighbors"] = dict(sort_s=t_sort, keys_s=t_keys,
+                                     hash_s=t_hash)
+        log(f"  find_neighbors: {t_sort:.4f} s (face keys {t_keys:.4f} s); "
+            f"the native hash on those keys {t_hash:.4f} s {at()}")
+        t0 = time.perf_counter()
+        ldisc = Discretization(loaded, gll_basis_2d(ORDER))
+        lprob = Poisson(ldisc, dtype=np.float32)
+        lprob.set_dirichlet("sphere", 1.0)
+        lprob.set_dirichlet("shell", 0.0)
+        lctx = lprob._local_setup(dev)
+        torch.cuda.synchronize()
+        out["annulus-msh22"]["setup_s"] = time.perf_counter() - t0
+        sols = {}
+        for name, p_ in (("curved-fused", aprob), ("msh-curved-fused", lprob)):
+            sol, dt = drive(f"3w-{name}", lambda: p_.solve_local(
+                cg_kernel="fused", tol=TOL_ALL, max_iter=MAX_ITER))
+            c_ = {k_: v for k_, v in kernels.launch_counts().items() if v}
+            its = int(sol.cg.iterations)
+            sols[name] = sol
+            out[name] = dict(iterations=its, issued=int(sol.cg.issued),
+                             seconds=dt, launches=c_,
+                             ms_per_issued=1e3 * dt / int(sol.cg.issued))
+            log(f"  {name}@{TOL_ALL:g}: {its} its / {sol.cg.issued} issued, "
+                f"{dt:.3f} s, launches {c_} {at()}")
+            check(bool(sol.cg.converged) and np.isfinite(sol.u).all()
+                  and c_.get("cg_kernel_a_general", 0) > 0
+                  and c_.get("cg_kernel_b", 0) > 0,
+                  f"{name}: converged, finite; the curved kernel A and "
+                  "kernel B launched")
+        a_, b_ = sols["curved-fused"], sols["msh-curved-fused"]
+        check(int(a_.cg.iterations) == int(b_.cg.iterations)
+              and np.array_equal(a_.u, b_.u)
+              and torch.equal(a_.cg.x, b_.cg.x),
+              f"the loaded annulus's curved-fused solve: the generated "
+              f"mesh's {int(a_.cg.iterations)} iterations and its solution "
+              "bit for bit")
+        # device ms per iteration of the loaded mesh's fused CG: a profile
+        # of 64 iterations of cg_fused on the solve's operands, as phase
+        # 3v's (solve_local's per-call setup left out)
+        u_d = np.where(lprob._dirichlet_mask, lprob._dirichlet_vals, 0.0)
+        b = torch.where(lctx["free_local"], lctx["to_local"](
+            (lprob._b + lprob._neumann).astype(np.float32))
+            - lctx["A_raw"](lctx["to_local"](u_d)), 0.0)
+        kA, kB = lctx["A"].fused_cg_kernels(None)
+        inv, w = lprob._fused_cg_operands(lctx["ex"], lctx["free_np"], None,
+                                          dev)
+        out["msh-curved-fused"]["profile"] = profile_solve(
+            "msh-curved-fused", lambda tol, max_iter: cg_fused(
+                kA, kB, b, inv=inv, w_free=w, tol=tol, max_iter=max_iter,
+                A=lctx["A"]), 64)
+
+        # -- the same write and read in Gmsh 4.1 ---------------------------
+        loaded41, out["annulus-msh41"] = round_trip(
+            save_msh41, mesh, os.path.join(tmp, "annulus41.msh"), 2,
+            f"annulus E={mesh.n_cells} binary 4.1")
+        same_mesh(loaded41, mesh, "annulus from .msh 4.1")
+        del loaded41
+
+        # -- the native locator against the numpy scan ---------------------
+        rng = np.random.RandomState(23)
+        r = rng.uniform(ANNULUS["r_inner"], ANNULUS["r_outer"], LOC_POINTS)
+        th = rng.uniform(0.0, np.pi, LOC_POINTS)
+        # beyond the outer circle, and across the symmetry axis (x < 0)
+        r[:LOC_OUTSIDE] = ANNULUS["r_outer"] * rng.uniform(
+            1.02, 1.1, LOC_OUTSIDE)
+        th[:LOC_OUTSIDE:2] *= -1.0
+        pts = np.stack([r * np.sin(th), r * np.cos(th)], axis=1)
+        t0 = time.perf_counter()
+        elem, xi = pointlocate.locate_points(ldisc, pts,
+                                             max_candidates=LOC_CANDIDATES)
+        t_nat = time.perf_counter() - t0
+        sub = np.concatenate([np.arange(LOC_OUTSIDE), LOC_OUTSIDE + rng.choice(
+            LOC_POINTS - LOC_OUTSIDE, LOC_SCAN - LOC_OUTSIDE, replace=False)])
+        t0 = time.perf_counter()
+        s_elem = np.full(LOC_SCAN, -1)
+        s_xi = np.zeros((LOC_SCAN, 2))
+        for q, i in enumerate(sub):
+            try:
+                s_elem[q], s_xi[q] = pointlocate.find_element_containing_point(
+                    ldisc, pts[i], max_candidates=LOC_CANDIDATES)
+            except pointlocate.OutsideDomain:
+                pass
+        t_scan = time.perf_counter() - t0
+        inside = s_elem >= 0
+        d_xi = float(np.abs(xi[sub][inside] - s_xi[inside]).max())
+        out["locator"] = dict(points=LOC_POINTS, outside=int((elem < 0).sum()),
+                              native_s=t_nat, scan_points=LOC_SCAN,
+                              scan_s=t_scan, scan_outside=int((~inside).sum()),
+                              xi_max_diff=d_xi)
+        log(f"  native locator: {LOC_POINTS} points in {t_nat:.3f} s "
+            f"({int((elem < 0).sum())} outside); numpy scan of {LOC_SCAN} in "
+            f"{t_scan:.3f} s ({int((~inside).sum())} outside) {at()}")
+        check(np.array_equal(elem[sub], s_elem) and d_xi <= 1e-10
+              and (elem[:LOC_OUTSIDE] < 0).all()
+              and (elem[LOC_OUTSIDE:] >= 0).all(),
+              f"the native locator's elements equal the scan's on {LOC_SCAN} "
+              f"points (inside and outside), xi within {d_xi:.1e} <= 1e-10")
+        del ldisc, lprob, loaded, sols
+
+        # -- box27 through a hexahedral .msh --------------------------------
+        t0 = time.perf_counter()
+        bmesh = box_mesh(NX3, NX3, NX3, ORDER)
+        t_gen = time.perf_counter() - t0
+        bloaded, out["box27-msh22"] = round_trip(
+            save_msh, bmesh, os.path.join(tmp, "box27.msh"), 3,
+            f"box27 E={bmesh.n_cells} hex type 97, binary 2.2")
+        out["box27-msh22"]["generate_s"] = t_gen
+        check(all(type(g).__name__ == "Hexahedron"
+                  and g.shape == (ORDER + 1,) * 3
+                  for g in bloaded.get_geometries()
+                  if g.ndim == 3), "box27 from .msh: hexahedra of p = 8")
+        same_mesh(bloaded, bmesh, "box27 from .msh")
+        del bmesh
+    t0 = time.perf_counter()
+    bprob = Poisson(Discretization(bloaded, gll_basis_3d(ORDER)),
+                    dtype=np.float32)
+    bprob.set_dirichlet("ebc", 0.0)
+    t_setup = time.perf_counter() - t0
+    sol, dt = drive("3w-box27-jacobi", lambda: bprob.solve_local(
+        tol=TOL3, max_iter=MAX_ITER))
+    its = int(sol.cg.iterations)
+    its_3t = solves["phase_3t"][f"box27-jacobi@{TOL3:g}"]["iterations"]
+    out["box27-jacobi"] = dict(iterations=its, seconds=dt, setup_s=t_setup)
+    log(f"  box27 from .msh, Jacobi to {TOL3:g}: {its} its, {dt:.3f} s "
+        f"(setup {t_setup:.2f} s) {at()}")
+    check(bool(sol.cg.converged) and its == its_3t == JAC3_ITS,
+          f"box27 from .msh: {its} Jacobi iterations, phase 3t's {its_3t} "
+          f"and the reference's {JAC3_ITS}")
+    del bprob, bloaded, sol
+
+    # -- phase 2's affine apply timed by utils.timing.time_step -------------
+    A = env["problems"]["rect"][1]["A"]
+    n, E = A.Kst.shape[-1], A.aT.shape[-1]
+    x0 = torch.randn((n, E), generator=torch.Generator(device=dev)
+                     .manual_seed(5), device=dev)
+    res = timing.time_step(
+        lambda u: kernels.affine_apply_dss(u, A.Kst, A.aT, A.plan,
+                                           factors=A.factors), x0)
+    row = next(r_ for r_ in rows if r_["name"] == "affine_apply_dss")
+    ms = 1e3 * res["t_apply"]
+    p1 = int(round(n ** 0.5))
+    flops = sumfac.element_apply_flops(E, p1, p1)
+    moved = 8 * n * E + 4 * (A.aT.numel() + A.Kst.numel()) + \
+        A.plan.masks.numel()
+    rf = perf.roofline(flops, moved, res["t_apply"])
+    out["time_step"] = dict(res, ms=ms, phase2_ms=row["ms"],
+                            gflops=rf.gflops, roofline_share=rf.efficiency)
+    log(f"  affine_apply_dss (k = 1) by time_step: {ms:.4f} ms (reps "
+        f"{res['reps']}, reliable {res['reliable']}); phase 2: "
+        f"{row['ms']:.4f} ms")
+    log(f"  its element_apply_flops rate and roofline: {rf}")
+    check(res["reliable"] and abs(ms - row["ms"]) <= TIME_STEP_REL * row["ms"],
+          f"time_step's {ms:.4f} ms within {TIME_STEP_REL:.0%} of phase 2's "
+          f"{row['ms']:.4f} ms")
+    out["seconds"] = time.perf_counter() - t_3w
+    log(f"  phase 3w took {out['seconds']:.1f} s {at()}")
 
 
 def main() -> int:
@@ -3282,6 +3573,11 @@ def main() -> int:
     # -- 3v. the fused CG kernels' far split -----------------------------------
     phase_3v(dev, at, drive, profile_solve, solves, rows,
              dict(problems=problems, forcings=forcings))
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
+    # -- 3w. Gmsh I/O, the native locator, the timing utils ------------------
+    phase_3w(dev, at, drive, profile_solve, solves, rows,
+             dict(problems=problems))
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 
     # -- 4. manufactured solutions --------------------------------------------

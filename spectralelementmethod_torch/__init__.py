@@ -25,7 +25,7 @@ from . import config
 __version__ = "0.1.0"
 
 _SUBPACKAGES = ("basis", "mesh", "core", "ops", "solver", "models", "utils",
-                "interop")
+                "plot2d", "native", "interop")
 
 __all__ = ["config", "__version__", *_SUBPACKAGES]
 

@@ -8,9 +8,8 @@ Parity: reference ``Mapping.inv`` (Newton inverse map,
 Data-dependent trial loops stay on the host (SURVEY.md §7 "hard parts" #6);
 the per-element interpolation itself reuses the basis tensor kernels.
 
-A numpy copy of the JAX package's ``core/pointlocate.py``.  Its ``native``
-fast path (the C++ bin-grid locator) is not ported (ROADMAP Queue 1 item
-14): :func:`locate_points` always takes the per-point scan.
+A numpy copy of the JAX package's ``core/pointlocate.py``, with its
+``native`` fast path (the C++ bin-grid locator of :mod:`..native`).
 """
 
 from __future__ import annotations
@@ -109,12 +108,25 @@ def locate_points(disc, points, extrapolate_tol: float = 0.0,
                   max_candidates: int = 16):
     """Batched point location: (elem (Q,), xi (Q, ndim)).
 
-    The per-point scan of :func:`find_element_containing_point`
-    (``max_candidates`` is the native locator's option, which is not
-    ported; the scan visits every element in centroid order, as the JAX
-    package's fallback does).  ``elem`` is -1 for points outside the mesh.
+    Uses the native C++ locator (bin-grid candidate search + Newton inverse
+    map, ``..native.meshkit``, at most ``max_candidates`` elements per
+    point) when the toolchain is available — the framework's counterpart
+    of the reference's C interpolation prototype (``sem/bary_interp.c``) —
+    and falls back to the per-point Python scan (every element in centroid
+    order).  ``elem`` is -1 for points outside the mesh.
     """
+    from .. import native
+
     points = np.asarray(points, dtype=np.float64).reshape(-1, disc.ndim)
+    if disc.ndim == 2 and native.available():
+        b0 = disc.map_basis.subbases[0]
+        b1 = disc.map_basis.subbases[1]
+        return native.locate_points(
+            disc.mesh.centroids, disc.x_coeffs, disc.J,
+            b0.nodes, b0.bary_wts, b1.nodes, b1.bary_wts,
+            points, extrapolate_tol=extrapolate_tol,
+            max_candidates=max_candidates,
+        )
     elem = np.full(points.shape[0], -1, dtype=np.int64)
     xi = np.zeros((points.shape[0], disc.ndim))
     for q, pt in enumerate(points):

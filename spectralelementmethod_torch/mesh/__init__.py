@@ -2,7 +2,9 @@
 
 Numpy copies of the JAX package's mesh modules (the port imports nothing
 of that package), p-order remapping (:func:`.porder.mesh_with_order`, the
-p-multigrid coarse level) among them; Gmsh import is not ported yet.
+p-multigrid coarse level) among them; Gmsh 2.2 / 4.1 import and export in
+:mod:`.gmsh` (``from spectralelementmethod_torch.mesh.gmsh import
+load_msh``), as in the JAX package.
 
 Covers reference layers L2/L4 and the mesh half of L3 (SURVEY.md §1):
 ``sem/geometry.py``, ``sem/discrete.py:777-1127``, ``sem/grid_importers.py``.

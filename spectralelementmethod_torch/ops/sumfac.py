@@ -1,12 +1,13 @@
 """Matrix-free Laplacian on L-vectors and global vectors (PyTorch port).
 
-Port of the parts of the JAX package's ``ops/sumfac.py`` that the 2D and 3D
-solves run.  The global-vector helpers (:func:`gather`, :func:`scatter_add`,
-:func:`laplacian_apply_local`, :func:`laplacian_apply`,
+Port of the JAX package's ``ops/sumfac.py``.  The global-vector helpers
+(:func:`gather`, :func:`scatter_add`, :func:`laplacian_apply_local`,
+:func:`laplacian_apply`, :func:`laplacian_apply_fused`,
 :func:`make_poisson_operator`, :func:`laplacian_diag_local`,
-:func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` and
-fixed-order sums (:func:`.exchange.accumulate`), as the reference leaves
-them to XLA.
+:func:`mass_apply_local`, :func:`masked`) are plain ``torch.einsum`` /
+``torch.matmul`` and fixed-order sums (:func:`.exchange.accumulate`), as
+the reference leaves them to XLA; :func:`element_apply_flops` counts an
+element apply's work for GFLOP/s figures.
 
 On the transposed (n, E) layout (the main path's): on an affine cell the local
 weak Laplacian collapses to ``A_e = a0(e) K0 + a1(e) K1 + a2(e) K2`` with
@@ -166,6 +167,26 @@ def make_stacked_derivative(D0, D1):
     Dr = np.kron(np.asarray(D0), np.eye(n1, dtype=np.asarray(D0).dtype))
     Ds = np.kron(np.eye(n0, dtype=np.asarray(D1).dtype), np.asarray(D1))
     return np.concatenate([Dr, Ds], axis=0)
+
+
+def laplacian_apply_fused(u, gather_nodes, Gf, Dhat, n_nodes):
+    """Matrix-free weak Laplacian via the stacked derivative matrix.
+
+    ``Gf``: (E, 3, n) flattened geometric factors [G00, G01, G11];
+    ``Dhat``: (2n, n) from :func:`make_stacked_derivative` (tensors on
+    one device).  Numerically the quadrature of :func:`laplacian_apply`,
+    as two large matrix products (``torch.matmul``, as the reference
+    leaves them to XLA) and the fixed-order DSS sum.
+    """
+    n = Dhat.shape[1]
+    ue = u[gather_nodes.reshape(-1)].reshape(-1, n)     # (E, n)
+    grads = torch.matmul(ue, Dhat.T)                    # (E, 2n)
+    ur, us = grads[:, :n], grads[:, n:]
+    fr = Gf[:, 0] * ur + Gf[:, 1] * us
+    fs = Gf[:, 1] * ur + Gf[:, 2] * us
+    flux = torch.cat([fr, fs], dim=1)                   # (E, 2n)
+    ve = torch.matmul(flux, Dhat)
+    return accumulate(n_nodes, gather_nodes.reshape(-1), ve.reshape(-1))
 
 
 def affine_factorization(Gf, W, rel_tol: float | None = None):
@@ -650,14 +671,17 @@ class LaplacianEN(torch.nn.Module):
     ``free_local`` (optional (E, n) bool) masks input and output, as in
     :class:`LaplacianT`; ``compute_dtype`` (``"xla"`` only) and
     ``precision`` as there.  ``_structure`` and ``_backend`` name the
-    resolved choice, as the reference's operator does.
+    resolved choice, as the reference's operator does.  ``device``: as at
+    every entry point (:func:`..config.resolve_device`: None is the card,
+    and raises where there is none).
     """
 
     def __init__(self, Gf, Dhat, hier, dss, *, backend: str = "xla",
                  affine=None, free_local=None, dtype=torch.float32,
-                 device="cpu", compute_dtype=None,
+                 device=None, compute_dtype=None,
                  precision: str = "highest"):
         super().__init__()
+        device = resolve_device(device)
         self.precision = check_precision(precision)
         self.compute_dtype = torch_dtype(compute_dtype)
         if backend == "pallas" and compute_dtype is not None:
@@ -1289,3 +1313,11 @@ def make_laplacian_3d(exchange, G, basis, *, dtype, device,
                        for d in range(3)]
             kw["wd"] = [on(w) for w in ws]
     return Laplacian3D(exchange, structure, shape, free=free, **kw)
+
+
+def element_apply_flops(E: int, p0: int, p1: int) -> int:
+    """FLOPs of one batched Laplacian element apply (matmuls + pointwise);
+    ``p0``, ``p1``: nodes per axis."""
+    matmul = 2 * E * (2 * p0 * p0 * p1 + 2 * p0 * p1 * p1)
+    pointwise = 6 * E * p0 * p1
+    return matmul + pointwise

@@ -1,6 +1,7 @@
-"""Auxiliary subsystems: host setup-stage accounting, logging and HDF5
-checkpointing."""
+"""Auxiliary subsystems: host setup-stage accounting, logging, HDF5
+checkpointing, invariant checks, chain-differenced timing and perf
+instrumentation."""
 
-from . import checkpoint, logging, stages
+from . import checkpoint, checks, logging, perf, stages, timing
 
-__all__ = ["checkpoint", "logging", "stages"]
+__all__ = ["checkpoint", "checks", "logging", "perf", "stages", "timing"]

@@ -23,6 +23,7 @@ both circles and a Neumann flux on the symmetry axis.  Covered:
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,7 +177,7 @@ def test_en_operator_matches_reference(case):
     u = np.random.RandomState(5).standard_normal(
         (ex_t.E, ex_t.n_loc)).astype(dtype)
     got = A_t(torch.as_tensor(u)).numpy()
-    ref = np.asarray(A_j(jnp.asarray(u)))
+    ref = np.asarray(jax.jit(A_j)(jnp.asarray(u)))
     tol = 2e-5 if dtype == np.float32 else 1e-12
     np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * np.abs(ref).max())
 

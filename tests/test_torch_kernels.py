@@ -8,6 +8,7 @@ kernel tests' (``tests/test_cg_fused.py``); the apply is held to 1e-5 of
 its max in float32 because the two sum in different orders.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,7 +73,7 @@ def test_affine_apply_dss_plain_matches_pallas_and_xla(nx, ny, p, pad,
 
     A_xla = sumfac.make_local_laplacian_operator(
         ex, Gf, Dhat, backend="xla", vector_layout="ne")
-    refs = [np.asarray(A_xla(jnp.asarray(u)))]
+    refs = [np.asarray(jax.jit(A_xla)(jnp.asarray(u)))]
     if pallas:
         kernel = make_fused_affine_laplacian_T(ex, Kcat, a, target_win=128,
                                                interpret=True)

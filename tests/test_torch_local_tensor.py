@@ -241,7 +241,8 @@ def test_en_operator_tables_match_its_Dh():
     Dhat = sumfac.make_stacked_derivative(hm._D0_host, hm._D1_host)
     Dhat = Dhat + 1e-3 * np.random.RandomState(0).standard_normal(Dhat.shape)
     op = sumfac.LaplacianEN(hm._G_host.reshape(disc.E, 3, -1), Dhat,
-                            lap.hier.numpy(), lap.dss, backend="pallas")
+                            lap.hier.numpy(), lap.dss, backend="pallas",
+                            device="cpu")
     assert op.factors is None
 
 

@@ -29,6 +29,7 @@ test time.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -341,6 +342,7 @@ def test_emulated_sums_match_plain_and_reference(name, k, dtype):
                    lambda i: (words >> cls["bit"][i]) & 1 == 1, A.structure)
     ref = plain(torch.as_tensor(u.reshape(k * 4, ex.E)), *ops, plan)
     ref = ref.numpy().reshape(k, 4, ex.E)
+    A_xla = jax.jit(A_xla)               # one program, not one per op
     want = np.stack([np.asarray(A_xla(jnp.asarray(u[j]))) for j in range(k)])
     tol = 1e-12 if dtype == np.float64 else 1e-6
     assert _rel(got, ref) < tol

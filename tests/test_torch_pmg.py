@@ -33,6 +33,7 @@ Small meshes, one reference problem per module, shared by the tests:
 import functools
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,8 +236,9 @@ def test_chebyshev_matches_reference():
     assert 0.97 * 1.05 * top <= lam_t <= 1.05 * top * (1 + 1e-12)
     lam_j = lam_t
     r = rng.standard_normal(24)
-    zj = jax_pmg.chebyshev_smoother(lambda v: Sj @ v, lambda v: dj * v,
-                                    lam_j, lam_j / 4.0, 3)(jnp.asarray(r))
+    zj = jax.jit(jax_pmg.chebyshev_smoother(
+        lambda v: Sj @ v, lambda v: dj * v, lam_j, lam_j / 4.0, 3))(
+        jnp.asarray(r))
     zt = pmg.chebyshev_smoother(lambda v: St @ v, lambda v: dt * v, lam_t,
                                 lam_t / 4.0, 3)(torch.tensor(r))
     assert _rel(zt, zj) <= 1e-13
@@ -260,16 +262,20 @@ def test_levels_match_reference(kind):
     assert Mt._levels == Mj._levels == ((3 if kind == "lattice" else 4), 1)
     assert abs(Mt._lmax_f - Mj._lmax_f) <= 1e-12 * Mj._lmax_f
     r = _masked_random(ctx, 1)
-    rc = _np(Mj._restrict(jnp.asarray(r)))
+    # the reference's pieces each compiled as one program (eagerly, each
+    # of their operations would compile on its own)
+    rc = _np(jax.jit(Mj._restrict)(jnp.asarray(r)))
     assert _rel(Mt._restrict(torch.tensor(r)), rc) <= 1e-13
-    assert _rel(Mt._prolong(torch.tensor(rc)), Mj._prolong(jnp.asarray(rc))) \
-        <= 1e-13
+    assert _rel(Mt._prolong(torch.tensor(rc)),
+                jax.jit(Mj._prolong)(jnp.asarray(rc))) <= 1e-13
     # the lattice's scatter-set takes one of the copies of each shared
     # node; the restricted residual's copies agree to rounding only
-    assert _rel(Mt._coarse(torch.tensor(rc)), Mj._coarse(jnp.asarray(rc))) \
+    assert _rel(Mt._coarse(torch.tensor(rc)),
+                jax.jit(Mj._coarse)(jnp.asarray(rc))) \
         <= (1e-12 if kind == "lattice" else 1e-13)
-    assert _rel(Mt._S_f(torch.tensor(r)), Mj._S_f(jnp.asarray(r))) <= 1e-13
-    assert _rel(Mt(torch.tensor(r)), Mj(jnp.asarray(r))) <= 1e-12
+    assert _rel(Mt._S_f(torch.tensor(r)), jax.jit(Mj._S_f)(jnp.asarray(r))) \
+        <= 1e-13
+    assert _rel(Mt(torch.tensor(r)), jax.jit(Mj)(jnp.asarray(r))) <= 1e-12
 
 
 def test_float32_cycle_matches_reference():
@@ -289,7 +295,7 @@ def test_float32_cycle_matches_reference():
     r = _masked_random(ctx, 2)
     zt = Mt(torch.tensor(r))
     assert zt.dtype == torch.float64
-    assert _rel(zt, Mj(jnp.asarray(r))) <= 1e-5
+    assert _rel(zt, jax.jit(Mj)(jnp.asarray(r))) <= 1e-5
 
 
 def test_stacked_cycle_is_the_cycle_of_each_rhs():
@@ -459,7 +465,7 @@ def test_backend_rule(case, backend):
     assert _rel(Ax(u), A(u)) <= tol
     if backend == "xla":
         Aj = _reference_xla_operator(*case)
-        assert _rel(Ax(u), Aj(jnp.asarray(u.numpy()))) <= tol
+        assert _rel(Ax(u), jax.jit(Aj)(jnp.asarray(u.numpy()))) <= tol
     k3 = _operator(*case, stacked=3)
     U = torch.randn((3, A.n_loc, A.E), dtype=_tdt(case[1]))
     assert k3._backend == backend

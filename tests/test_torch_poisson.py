@@ -115,7 +115,16 @@ def test_entry_point_needs_a_device():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, spectralelementmethod_torch as m\n"
+    """Every module of the port imports without JAX, h5py or anything of
+    the JAX package; ``plot2d`` without matplotlib (blocked here, as the
+    card's machine has none)."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] == 'matplotlib':\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import spectralelementmethod_torch as m\n"
             "import spectralelementmethod_torch.interop\n"
             "import spectralelementmethod_torch.models.poisson\n"
             "import spectralelementmethod_torch.models.helmholtz\n"
@@ -126,6 +135,14 @@ def test_import_pulls_in_no_jax():
             "import spectralelementmethod_torch.solver.condensation\n"
             "import spectralelementmethod_torch.core.pointlocate\n"
             "import spectralelementmethod_torch.utils.checkpoint\n"
+            "import spectralelementmethod_torch.mesh.gmsh\n"
+            "import spectralelementmethod_torch.native\n"
+            "import spectralelementmethod_torch.ops.sp_array\n"
+            "import spectralelementmethod_torch.plot2d\n"
+            "import spectralelementmethod_torch.utils.checks\n"
+            "import spectralelementmethod_torch.utils.perf\n"
+            "import spectralelementmethod_torch.utils.timing\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "bad = [k for k in sys.modules if k in ('jax', 'h5py') or "
             "k.startswith('jax.') or k.startswith('spectralelementmethod_tpu')]"
             "\nprint(bad)\nassert not bad, bad\n")

@@ -27,6 +27,7 @@ Seven reference solves in all, each seconds of JAX tracing and compiling.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -234,13 +235,14 @@ def test_box_roll_dss_matches_reference(dims):
     assert tex.deltas == jex.deltas
     rng = np.random.RandomState(0)
     v = rng.standard_normal((td.E, td.n_loc))
-    ref = np.asarray(jex.dss(v))
+    jdss = jax.jit(jex.dss)               # one program, not one per op
+    ref = np.asarray(jdss(v))
     _close(tex.dss(torch.as_tensor(v)), ref, 1e-14)
     _close(tex.dss_T(torch.as_tensor(np.ascontiguousarray(v.T))).T, ref,
            1e-14)
     # a stack, each on its own; the reference stacks trailing components
     vk = rng.standard_normal((2, td.E, td.n_loc))
-    ref_k = np.moveaxis(np.asarray(jex.dss(np.moveaxis(vk, 0, -1))), -1, 0)
+    ref_k = np.moveaxis(np.asarray(jdss(np.moveaxis(vk, 0, -1))), -1, 0)
     _close(tex.dss(torch.as_tensor(vk)), ref_k, 1e-14)
     np.testing.assert_array_equal(tex._mask_lo, np.asarray(jex._mask_lo))
     np.testing.assert_array_equal(tex._mask_hi, np.asarray(jex._mask_hi))

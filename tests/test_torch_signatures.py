@@ -48,6 +48,11 @@ torch.set_num_threads(2)
 SLICE_MODULES = ("solver.gmres", "solver.condensation", "solver.rootfind",
                  "utils.logging", "utils.checkpoint", "core.pointlocate",
                  "models.advection_diffusion", "models.squirmer")
+# the host surface: Gmsh I/O, the native meshkit, the Kronecker arrays, the
+# checks, timing and perf utils, and plot2d
+HOST_MODULES = ("mesh.gmsh", "native", "ops.sp_array", "utils.checks",
+                "utils.timing", "utils.perf", "plot2d.contours",
+                "plot2d.mesh")
 
 
 def _module_pair(path):
@@ -66,7 +71,7 @@ def _public(mod):
 
 def _slice_pairs():
     pairs = {}
-    for path in SLICE_MODULES:
+    for path in SLICE_MODULES + HOST_MODULES:
         port, ref = _module_pair(path)
         for name, robj in _public(ref).items():
             pobj = getattr(port, name)
@@ -144,6 +149,9 @@ PAIRS.update({
     "exchange.BoxRollExchange3D": (t_ex.BoxRollExchange3D,
                                    j_ex.BoxRollExchange3D),
 })
+PAIRS.update({f"sumfac.{name}": (getattr(t_sumfac, name),
+                                 getattr(j_sumfac, name))
+              for name in ("element_apply_flops", "laplacian_apply_fused")})
 PAIRS.update(_slice_pairs())
 
 
@@ -170,7 +178,7 @@ def test_signature_matches_reference(name):
             assert d_port == d_ref, pname
 
 
-@pytest.mark.parametrize("path", SLICE_MODULES)
+@pytest.mark.parametrize("path", SLICE_MODULES + HOST_MODULES)
 def test_slice_modules_export_the_reference_names(path):
     """Every public function and class of the reference's module is in the
     port's, and the result types have the reference's fields."""
@@ -195,6 +203,18 @@ def test_slice_package_exports():
     assert set(port.__all__) == set(ref.__all__) & slice_names
     from spectralelementmethod_torch.solver import cg as cg_module
     assert inspect.ismodule(cg_module)
+
+
+def test_host_package_exports():
+    """``plot2d`` exports the reference's names, ``ops`` the Kronecker
+    array, and ``utils`` the reference's modules (and its own)."""
+    port, ref = _module_pair("plot2d")
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    port, ref = _module_pair("ops")
+    assert port.KroneckerArray is importlib.import_module(
+        "spectralelementmethod_torch.ops.sp_array").KroneckerArray
+    port, ref = _module_pair("utils")
+    assert set(ref.__all__) <= set(port.__all__)
 
 
 def test_the_named_default_differences_exist():

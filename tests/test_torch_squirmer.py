@@ -132,8 +132,10 @@ def test_residual_and_jacobian_match_reference(ref):
     args = (sq._Grho, sq._JxW, sq._inv_rho, sq._invJ,
             sq._rho * sq._rho * sq._JxW, jnp.asarray(0.5))
     axes = (0, 0, 0, 0, 0, 0, None)
-    res = jax.vmap(local_residual, in_axes=axes)(x_flat, *args)
-    jac = jax.vmap(jac_fn, in_axes=axes)(x_flat, *args)
+    # each compiled as one program (called eagerly, each of its
+    # operations would compile on its own)
+    res = jax.jit(jax.vmap(local_residual, in_axes=axes))(x_flat, *args)
+    jac = jax.jit(jax.vmap(jac_fn, in_axes=axes))(x_flat, *args)
     perm = np.asarray(sq._ldof_perm)
     ref_rhs = -np.asarray(res)[:, perm]
     ref_mat = np.asarray(jac)[:, perm][:, :, perm]
