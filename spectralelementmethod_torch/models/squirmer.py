@@ -146,10 +146,12 @@ class SphereWithSlipVel:
 
         # ---- geometry fields (device) ----
         rho = disc.x_coeffs[:, 0]
+        z = disc.x_coeffs[:, 1]
         scale = float(np.max(np.abs(rho)))
         inv_rho = np.where(rho > 1e-12 * scale, 1.0 / np.maximum(rho, 1e-300),
                            0.0)
         self._rho = t(rho)
+        self._z = t(z)
         self._inv_rho = t(inv_rho)
         self._JxW = t(disc.detJxW)
         self._invJ = t(disc.invJ)
@@ -194,11 +196,39 @@ class SphereWithSlipVel:
         self._step_fn = None  # the Newton step of the linear solver
 
     def shard_elements(self, device_mesh, axis: str = "elements") -> None:
-        """Element-shard the Newton pipeline over a device mesh — not
-        ported: multi-device sharding is ROADMAP Queue 1 item 12."""
-        raise NotImplementedError(
-            "Squirmer.shard_elements (element sharding over several "
-            "devices) is not ported yet (ROADMAP Queue 1 item 12)")
+        """Element-shard the Newton pipeline over ``device_mesh`` (a
+        :func:`...parallel.sharding.device_mesh` on the model's device).
+
+        The per-element operands (``_rho``, ``_z``, ``_inv_rho``, ``_JxW``,
+        ``_invJ``, ``_Grho``) are padded to a multiple of the mesh's shards
+        by repeating element 0 (valid geometry: no NaN), and the element
+        residual and its ``jacfwd`` Jacobian run in one ``vmap`` over the
+        padded stack (the shards' blocks side by side: on one device a
+        loop over the blocks gives the same bits).  Their outputs are
+        sliced back to the real E before the static condensation, which,
+        with the condensed assembly and dense solve, runs over all the
+        elements as before (the reference replicates that part too).  The
+        Newton step is rebuilt at its next use.  ``axis`` names the mesh
+        axis and is not read here.
+        """
+        from ..config import canonical_device
+
+        if canonical_device(device_mesh.device) != self.device:
+            raise ValueError(
+                f"the shards are simulated on the model's device "
+                f"({self.device}); the mesh is on {device_mesh.device}")
+        n_sh = int(device_mesh.size)
+        E = self.disc.E
+        Ep = -(-E // n_sh) * n_sh
+        for name in ("_rho", "_z", "_inv_rho", "_JxW", "_invJ", "_Grho"):
+            arr = getattr(self, name)[:E]
+            if Ep > E:
+                arr = torch.cat([arr, arr[:1].expand(Ep - E,
+                                                     *arr.shape[1:])])
+            setattr(self, name, arr.contiguous())
+        # the cached vmaps and Newton step captured the unpadded operands
+        self._sys_cache = None
+        self._step_fn = None
 
     # -- reference-parity views --------------------------------------------
 
@@ -409,6 +439,17 @@ class SphereWithSlipVel:
         value_and_jac = torch.func.jacfwd(with_value, has_aux=True)
         return local_residual, value_and_jac
 
+    def _elem_gather(self) -> torch.Tensor:
+        """The gather map of the element vmaps, padded like the element
+        operands (``shard_elements`` repeats element 0); the caller slices
+        the vmap outputs back to the real count."""
+        g = self.disc.gather_nodes
+        Ep = int(self._Grho.shape[0])
+        if Ep > g.shape[0]:
+            g = np.concatenate([g, np.repeat(g[:1], Ep - g.shape[0],
+                                             axis=0)])
+        return torch.as_tensor(g, device=self.device)
+
     def _local_systems(self, soln_global, n_rey, free_ext):
         """Element residuals and Jacobians in the hier-interleaved order:
         ``(lrhs, lmat)`` = (-R_e, dR_e/dx_e), (E, nd) and (E, nd, nd).
@@ -425,8 +466,7 @@ class SphereWithSlipVel:
             _res, value_and_jac = self._local_system_fns()
             batched = torch.func.vmap(value_and_jac,
                                       in_dims=(0, 0, 0, 0, 0, 0, None))
-            gather = torch.as_tensor(self.disc.gather_nodes,
-                                     device=self.device)
+            gather = self._elem_gather()
             rs_jxw = self._rho * self._rho * self._JxW   # Me diagonal
             ext_gidx = torch.as_tensor(self.csys.ext_dof_gidx,
                                        device=self.device)
@@ -438,6 +478,8 @@ class SphereWithSlipVel:
         x_flat = soln_global[gather].reshape(-1, nd)
         jac, res = batched(x_flat, self._Grho, self._JxW, self._inv_rho,
                            self._invJ, rs_jxw, n_rey)
+        E = self.disc.E
+        jac, res = jac[:E], res[:E]          # drop the shards' padding
         perm = self._ldof_perm
         lrhs = -res[:, perm]
         lmat = jac[:, perm][:, :, perm]

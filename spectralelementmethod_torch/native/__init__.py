@@ -149,7 +149,9 @@ def locate_points(centroids, x_coeffs, j_coeffs, nodes0, w0, nodes1, w1,
                   max_candidates: int = 16):
     """Batched 2D point location (bin-grid search + Newton inverse map).
 
-    Returns (elem (Q,) int64 with -1 = not found, xi (Q, 2) float64).
+    Returns (elem (Q,) int64 with -1 = not found, xi (Q, 2) float64;
+    xi is zero where elem is -1, as the numpy scan leaves it: the C++
+    locator writes no xi for a point it does not find).
     Parity: ``sem/mapping.py:146-178`` (it_max=8, tol=1e-8) +
     ``sem/discrete.py:263-280`` (centroid-distance candidate order).
     """
@@ -162,7 +164,7 @@ def locate_points(centroids, x_coeffs, j_coeffs, nodes0, w0, nodes1, w1,
     Q = points.shape[0]
     n0, n1 = x_coeffs.shape[-2], x_coeffs.shape[-1]
     elem = np.empty(Q, dtype=np.int64)
-    xi = np.empty((Q, 2), dtype=np.float64)
+    xi = np.zeros((Q, 2), dtype=np.float64)
     lib.semn_locate_points(
         centroids, E, x_coeffs, j_coeffs, n0, n1,
         np.ascontiguousarray(nodes0, dtype=np.float64),

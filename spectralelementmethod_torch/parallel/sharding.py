@@ -1,16 +1,24 @@
-"""Element-axis sharding of the L-vector Poisson solve (PyTorch port).
+"""Element-axis sharding of the Poisson solve (PyTorch port).
 
-Port of the JAX package's ``parallel/sharding.py`` for the element-sharded
-L-vector path, :func:`sharded_local_poisson_problem` (the reference's
-production multi-chip path).  The reference shards over a
-``jax.sharding.Mesh``; the port's :func:`device_mesh` is single-controller
-on one device: ``size`` shards, each a contiguous column block of the
-(n, E) L-vectors, and :mod:`.halo` moves the boundary strips between them
-as explicit copies.  Shards on several cards (``torch.distributed``),
-``hybrid_device_mesh`` (multi-slice TPU fleets) and the replicated-vector
-``sharded_poisson_problem`` are not ported (ROADMAP Queue 1).  The 3D
-:func:`sharded_local_poisson_problem_3d` shards the lexicographic (E, n)
-L-vectors of a box mesh the same way, in element blocks.
+Port of the JAX package's ``parallel/sharding.py``.  The reference shards
+over a ``jax.sharding.Mesh``; the port's :class:`DeviceMesh` is
+single-controller on one device: ``size`` shards, each a contiguous block
+of the element axis, and the reference's collectives become explicit
+copies and sums between the blocks.
+
+* :func:`device_mesh` / :func:`hybrid_device_mesh` — the 1D meshes (the
+  hybrid one with contiguous pseudo-slices, ``shard_slice_ids``);
+* :func:`make_sharded_poisson_operator` / :func:`sharded_poisson_problem`
+  — the replicated-vector scheme: each shard applies its elements into a
+  full-length partial, and the partials are summed in shard order (the
+  reference's ``psum``);
+* :func:`sharded_local_poisson_problem` — the element-sharded L-vector
+  path (the reference's production multi-chip path) with Jacobi or the
+  sharded p-multigrid V-cycle (a padded coarse level);
+* :func:`sharded_local_poisson_problem_3d` — the 3D box-mesh L-vectors,
+  sharded the same way in element blocks.
+
+Shards on several cards (``torch.distributed``) are ROADMAP work.
 """
 
 from __future__ import annotations
@@ -20,17 +28,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, torch_dtype
 from ..ops import sumfac
 from .halo import ELEM_AXIS
 
 
 class DeviceMesh(NamedTuple):
-    """A 1D mesh of ``size`` element shards on one ``device``."""
+    """A 1D mesh of ``size`` element shards on one ``device``;
+    ``shard_slice_ids`` gives each shard's (pseudo-)slice on a
+    :func:`hybrid_device_mesh` (None on a :func:`device_mesh`)."""
 
     size: int
     device: torch.device
     axis: str = ELEM_AXIS
+    shard_slice_ids: tuple | None = None
 
 
 def device_mesh(n_devices: int | None = None, axis: str = ELEM_AXIS,
@@ -48,6 +59,48 @@ def device_mesh(n_devices: int | None = None, axis: str = ELEM_AXIS,
     if int(n_devices) < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     return DeviceMesh(int(n_devices), dev, axis)
+
+
+def hybrid_device_mesh(n_slices: int | None = None, axis: str = ELEM_AXIS,
+                       devices=None, device=None) -> DeviceMesh:
+    """1D element-axis mesh ordered slice-major over ``n_slices``
+    contiguous pseudo-slices (the reference's multi-slice ICI x DCN mesh
+    off a multi-slice fleet).
+
+    ``devices``: None (one shard per visible card of the device's type, 1
+    on the CPU), a shard count, or a sequence of devices (one shard each;
+    every one must be ``device``: the shards are simulated on one device).
+    The shards split into ``n_slices`` equal runs (None is one slice);
+    ``mesh.shard_slice_ids`` is the tuple of each shard's slice.  An uneven
+    split raises the reference's ``ValueError``.  The element order is the
+    caller's: the halo DSS crosses a slice boundary between two shards as
+    it crosses any other, and keeps its wrap elision for a non-periodic
+    order (:func:`.halo.make_halo_dss_T`).
+    """
+    dev = resolve_device(device)
+    if devices is None:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    elif isinstance(devices, (int, np.integer)):
+        n = int(devices)
+    else:
+        devices = list(devices)
+        other = [d for d in devices
+                 if resolve_device(d) != dev]
+        if other:
+            raise ValueError(
+                f"the shards are simulated on one device ({dev}); got "
+                f"{other}")
+        n = len(devices)
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one shard, got {n}")
+    if n_slices is None:
+        n_slices = 1
+    if n % int(n_slices):
+        raise ValueError(f"{n} devices do not split into {n_slices} equal "
+                         "pseudo-slices")
+    per = n // int(n_slices)
+    ids = tuple(int(i) for i in np.repeat(np.arange(int(n_slices)), per))
+    return DeviceMesh(n, dev, axis, ids)
 
 
 def pad_elements(E: int, n_shards: int) -> int:
@@ -71,6 +124,108 @@ def pad_element_arrays(gather_nodes: np.ndarray, *arrays, n_shards: int):
         pad_a = np.zeros((Ep - E,) + a.shape[1:], a.dtype)
         out.append(np.concatenate([a, pad_a]))
     return tuple(out)
+
+
+def replicated(mesh, *arrays):
+    """Arrays (numpy or tensors) as tensors on the mesh's device (every
+    shard reads them whole)."""
+    return tuple(torch.as_tensor(a if isinstance(a, torch.Tensor)
+                                 else np.array(a), device=mesh.device)
+                 for a in arrays)
+
+
+def shard_element_arrays(mesh, *arrays, axis: str = ELEM_AXIS):
+    """Element-axis arrays as tensors on the mesh's device, their leading
+    axis split into ``mesh.size`` equal blocks (an axis that does not
+    divide raises, as the reference's even sharding does).  ``axis`` names
+    the mesh axis and is not read here."""
+    out = replicated(mesh, *arrays)
+    for t in out:
+        if t.shape[0] % mesh.size:
+            raise ValueError(
+                f"leading axis {t.shape[0]} does not split into "
+                f"{mesh.size} shards; pad it (pad_element_arrays)")
+    return out
+
+
+def make_sharded_poisson_operator(
+    mesh, gather_nodes, G, D0, D1, n_nodes: int, free_mask,
+    axis: str = ELEM_AXIS, D2=None,
+):
+    """Element-sharded matrix-free weak Laplacian on replicated global
+    vectors: the psum-of-partials DSS.
+
+    ``gather_nodes``/``G``: the padded element arrays
+    (:func:`pad_element_arrays`, :func:`shard_element_arrays`); pad
+    elements carry zero factors.  ``free_mask`` and the vectors are
+    replicated (n_nodes,).  Each of the ``mesh.size`` shards masks the
+    input, applies :func:`..ops.sumfac.laplacian_apply` (with ``D2``:
+    :func:`..ops.sumfac.laplacian_apply_3d`, ``G`` the 6 packed 3D
+    components) over its element block into a full-length partial, and
+    the partials are summed in shard order (the reference's ``psum``); the
+    sum is masked.  Returns ``A(u)`` on (n_nodes,) tensors of ``G``'s
+    dtype.
+    """
+    S = int(mesh.size)
+    gix, G = shard_element_arrays(mesh, gather_nodes, G, axis=axis)
+    free, *D = replicated(mesh, free_mask, D0, D1,
+                          *(() if D2 is None else (D2,)))
+    D = [d.to(G.dtype) for d in D]
+    apply = (sumfac.laplacian_apply if D2 is None
+             else sumfac.laplacian_apply_3d)
+    blocks = list(zip(gix.split(gix.shape[0] // S),
+                      G.split(G.shape[0] // S)))
+
+    def A(u):
+        u = sumfac.masked(u, free)
+        total = None
+        for g_b, G_b in blocks:
+            partial = apply(u, g_b, G_b, *D, n_nodes)
+            total = partial if total is None else total + partial
+        return sumfac.masked(total, free)
+
+    return A
+
+
+def sharded_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS):
+    """Shard a :class:`..models.poisson.Poisson` problem (2D or 3D) over
+    the element axis with replicated global vectors.
+
+    Returns ``(A, r, M, u_dirichlet, mesh)`` for ``cg(A, r, M=M)``: the
+    operator of :func:`make_sharded_poisson_operator` on the padded
+    element arrays, the eliminated right-hand side, point Jacobi and the
+    Dirichlet lift; the solution is ``u_dirichlet + x``.  ``mesh``: a
+    :func:`device_mesh` (None: one shard per visible card).
+    """
+    from ..solver.cg import jacobi_preconditioner
+
+    if mesh is None:
+        mesh = device_mesh()
+    dev = mesh.device
+    dt = torch_dtype(problem.dtype)
+    gix, G = pad_element_arrays(np.asarray(problem.disc.gather_nodes),
+                                np.asarray(problem._G_host),
+                                n_shards=mesh.size)
+    gix, G = shard_element_arrays(mesh, gix, G, axis=axis)
+    free, u_d = replicated(mesh, ~problem._dirichlet_mask, np.where(
+        problem._dirichlet_mask, problem._dirichlet_vals, 0.0))
+    u_d = u_d.to(dt)
+    A = make_sharded_poisson_operator(
+        mesh, gix, G, *problem._D_hosts()[:2], problem.disc.n_nodes, free,
+        axis=axis, D2=getattr(problem, "_D2_host", None))
+    b = replicated(mesh, np.asarray(problem._b) + problem._neumann)[0].to(dt)
+    r = _dirichlet_rhs(problem, A, b, u_d, free)
+    M = jacobi_preconditioner(
+        replicated(mesh, problem.operator_diagonal())[0].to(dt), free)
+    return A, r, M, u_d, mesh
+
+
+def _dirichlet_rhs(problem, A_masked, b, u_d, free):
+    """r_f = (b - A u_d)|_free with the *unmasked-input* operator: the
+    sharded operator masks its input, so the Dirichlet values go through
+    the problem's raw apply (setup only)."""
+    v = problem.apply_operator(u_d, device=u_d.device)
+    return sumfac.masked(b - v, free)
 
 
 COMMS = ("propagation", "shardmap", "shardmap-fused")
@@ -99,10 +254,18 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
     * ``"shardmap-fused"`` — transposed vectors, the block kernel per shard
       (:func:`.halo.make_sharded_fused_operator`; float32 affine meshes).
 
-    ``precond``: ``"jacobi"``; the sharded ``"pmg"`` (or a dict of its
-    options) is not ported yet and raises (ROADMAP Queue 1 item 12: the
-    reference composes the V-cycle with the sharded operator and a padded
-    coarse level).
+    ``precond``: ``"jacobi"`` (point Jacobi), or ``"pmg"`` — the two-level
+    p-multigrid V-cycle of :func:`..solver.pmg.make_pmg_preconditioner`
+    composed with the sharded operator (the transposed comms only; a dict
+    ``{"pmg": {...}}`` passes its options): ``p_coarse=1``, the cycle in
+    the problem's dtype, and a coarse level padded to the fine one's
+    element count (``coarse_pad_to=Ep``), so the transfers are per-element
+    products that never cross a shard; its output is zeroed on the pad
+    columns, and ``M._coarse_kind``, ``M._levels`` and ``M._pmg`` (the
+    V-cycle) are set.  Under ``"shardmap-fused"`` the V-cycle's fine
+    applies are the sharded operator's block kernels too (the cycle's
+    float32 is the problem's dtype); under ``"shardmap"`` the V-cycle
+    keeps its own fine operator, as the reference's does.
 
     Returns ``(A, r, M, u_dL, exchange, mesh)``; solve with
     ``cg(A, r, M=M, dot=exchange.dot)`` (``dot_T`` for the transposed
@@ -115,13 +278,13 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
 
     if comm not in COMMS:
         raise ValueError(f"unknown comm {comm!r}")
-    if precond == "pmg" or isinstance(precond, dict):
-        raise NotImplementedError(
-            "the sharded precond='pmg' is not ported yet (ROADMAP Queue 1 "
-            "item 12, sharding)")
-    if precond != "jacobi":
+    pmg = precond == "pmg" or isinstance(precond, dict)
+    if not pmg and precond != "jacobi":
         raise ValueError(f"unknown precond {precond!r}")
     transposed = comm != "propagation"
+    if pmg and not transposed:
+        raise ValueError("precond='pmg' requires a transposed comm "
+                         "('shardmap'/'shardmap-fused')")
     if mesh is None:
         mesh = device_mesh()
     dev = mesh.device
@@ -188,8 +351,41 @@ def sharded_local_poisson_problem(problem, mesh=None, axis: str = ELEM_AXIS,
         return torch.where(free_d, A_raw(torch.where(free_d, u, 0.0)), 0.0)
 
     r = torch.where(free_d, bL_d - A_raw(u_dL_d), 0.0)
-    M = jacobi_preconditioner(diag_d, free_d)
+    if pmg:
+        M = _sharded_pmg(problem, ex, Gf[:E], A, free_d, precond, dtype,
+                         dev, A if comm == "shardmap-fused" else None)
+    else:
+        M = jacobi_preconditioner(diag_d, free_d)
     return A, r, M, u_dL_d, ex, mesh
+
+
+def _sharded_pmg(problem, ex, Gf, A, free_d, precond, dtype, dev, A_fine):
+    """The sharded p-multigrid ``M`` (:func:`sharded_local_poisson_
+    problem`): the V-cycle on the padded exchange with a coarse level
+    padded alike, ``A_fine`` (if given, and the cycle runs in ``dtype``)
+    as its fine operator, and its output zeroed where ``free_d`` is
+    False (the pad columns: the V-cycle's masks come from gathered global
+    nodes, which alias node 0 there)."""
+    from ..solver.pmg import make_pmg_preconditioner
+
+    kw = dict(precond.get("pmg", {})) if isinstance(precond, dict) else {}
+    kw.setdefault("p_coarse", 1)
+    kw.setdefault("cycle_dtype", np.dtype(dtype))
+    kw.setdefault("device", dev)
+    M_pmg = make_pmg_preconditioner(
+        problem.disc, ex, Gf, A, ~problem._dirichlet_mask,
+        np.asarray(problem.operator_diagonal()), dtype=np.dtype(dtype),
+        coarse_pad_to=ex.E, **kw)
+    if A_fine is not None and M_pmg._cycle_dtype == np.dtype(dtype):
+        M_pmg = M_pmg.with_fine_operator(A_fine)
+
+    def M(r):
+        return torch.where(free_d, M_pmg(r), 0.0)
+
+    M._coarse_kind = M_pmg._coarse_kind
+    M._levels = M_pmg._levels
+    M._pmg = M_pmg
+    return M
 
 
 def sharded_local_poisson_problem_3d(problem, mesh=None,

@@ -39,12 +39,14 @@ The 3D factory (:func:`make_pmg_preconditioner_3d`, which
 lexicographic (E, n) L-vectors: a p_c = 2 coarse level rediscretized on
 the shared-node coarse mesh, Chebyshev-Jacobi smoothing on the outer
 solve's operator in its dtype, and the exact :class:`GridFDM3D` lattice
-solve on box meshes (else a Chebyshev sweep).  Sharded coarse padding is
-not ported yet; it raises with its ROADMAP item.
+solve on box meshes (else a Chebyshev sweep).  The 2D factory's
+``coarse_pad_to`` pads the coarse level to the sharded callers' fine
+element count (:func:`..parallel.sharding.sharded_local_poisson_problem`).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
@@ -784,6 +786,20 @@ class PMGPreconditioner:
         #: (fine smoother, fine operator, coarse solve) per stack size
         self._per_k = {None: (self._S_f, A_f, C)}
 
+    def with_fine_operator(self, A_f) -> "PMGPreconditioner":
+        """This V-cycle with ``A_f`` as its fine operator: the same masked
+        fine operator in the cycle dtype, in another form (the sharded
+        callers' per-shard applies).  The smoother is rebuilt on it with
+        the same ``lmax`` estimate; the copy takes one RHS (``A_f`` has no
+        ``.stacked`` form)."""
+        M = copy.copy(self)
+        M._A_f = A_f
+        M._S_f = chebyshev_smoother(A_f, self._B_f, self._lmax_f,
+                                    self._lmax_f / self._alpha, self._degree)
+        M._per_k = {None: (M._S_f, A_f, self._coarse)}
+        M._ops = dict(self._ops, fine=A_f)
+        return M
+
     def _level(self, k):
         """The smoother, fine operator and coarse solve on k-stacks (one
         RHS for ``k=None``): the operators' ``.stacked(k)`` forms, built
@@ -816,7 +832,13 @@ class PMGPreconditioner:
         return z.to(self._out_dtype)
 
 
-_ITEM = "(ROADMAP Queue 1 item {})"
+def _padded(G: np.ndarray, E: int) -> np.ndarray:
+    """Factor rows ``G`` with zero rows appended up to ``E`` (the inert
+    pad elements of a padded exchange)."""
+    if G.shape[0] >= E:
+        return G
+    return np.concatenate([G, np.zeros((E - G.shape[0],) + G.shape[1:],
+                                       G.dtype)])
 
 
 @_staged_factory
@@ -880,8 +902,11 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         ``-div(c grad u) + k u``: adds the collocated coarse mass term to
         the coarse operator and its diagonal, and the fine term to the
         V-cycle's fine apply.
-    coarse_pad_to : a padded coarse element count (sharded callers); only
-        None is ported (ROADMAP Queue 1 item 12).
+    coarse_pad_to : optional padded coarse element count.  Sharded
+        callers pass the fine exchange's (shard-divisible) padded E: the
+        coarse exchange is padded alike with inert elements (zero factors
+        and dot weights, a pad-inert DSS), and the transfers act on the
+        real elements and leave the pad columns zero.
     cycle_backend : the backend of the V-cycle's fine and coarse (n, E)
         operators (:func:`..ops.sumfac.make_local_laplacian_operator`):
         "auto" takes the apply kernels where the reference's rule admits
@@ -927,10 +952,6 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         raise NotImplementedError("pmg supports 2D and 3D meshes")
     if smoother not in ("jacobi", "fdm"):
         raise ValueError(f"unknown smoother {smoother!r}")
-    if coarse_pad_to is not None:
-        raise NotImplementedError(
-            "coarse_pad_to (the sharded pmg's padded coarse level) is not "
-            "ported yet " + _ITEM.format(12))
     if mm_precision not in ("float32", None):
         raise NotImplementedError(
             f"mm_precision={mm_precision!r}: the V-cycle's matmuls run in "
@@ -957,7 +978,7 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
     mesh_c = mesh_with_order(disc.mesh, p_coarse)
     basis_c = gll_basis_2d(p_coarse)
     disc_c = Discretization(mesh_c, basis_c)
-    ex_c = make_exchange(disc_c)
+    ex_c = make_exchange(disc_c, pad_to=coarse_pad_to)
     if ex_c.E_real != ex_f.E_real:
         raise AssertionError("fine/coarse exchanges disagree on E_real")
     Er, Ef, Ec = ex_f.E_real, ex_f.E, ex_c.E
@@ -1006,7 +1027,7 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         ).reshape(Er, -1)[:, ex_c.hier]
 
     lap_c = sumfac.make_local_laplacian_operator(
-        ex_c, Gc_np, Dhat_c, free_c, structure=structure_c,
+        ex_c, _padded(Gc_np, Ec), Dhat_c, free_c, structure=structure_c,
         backend=cycle_backend, vector_layout="ne",
         assume_masked_input=True, device=dev)
     A_c = (lap_c if kM_c_np is None else sumfac.LocalHelmholtzOperator(
@@ -1045,7 +1066,8 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
 
     # ---- internal fine apply (cycle dtype) -----------------------------------
     lap_f_cyc = sumfac.make_local_laplacian_operator(
-        ex_f, np.asarray(Gf, dtype=cyc), sumfac.make_stacked_derivative(
+        ex_f, _padded(np.asarray(Gf, dtype=cyc), Ef),
+        sumfac.make_stacked_derivative(
             np.asarray(basis_f.get_D1_matrix(0)),
             np.asarray(basis_f.get_D1_matrix(1))),
         free_f, structure="auto", backend=cycle_backend,

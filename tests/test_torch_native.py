@@ -8,6 +8,11 @@ package's own native tests skip without it), and a build that fails is
 logged.
 """
 
+import fcntl
+import os
+import sysconfig
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +34,33 @@ from spectralelementmethod_torch.mesh import (annulus_mesh, box_mesh,
 torch.set_num_threads(2)
 
 ANNULUS = dict(n_theta=6, n_r=8)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_library(tmp_path_factory):
+    """The reference's native library, loaded in this worker.
+
+    The reference compiles ``meshkit.cpp`` into one temporary name that
+    every process shares and remembers a failed build for the life of the
+    process, so on a tree with no library two xdist workers building at
+    once can spoil each other's build and leave one of them without it.
+    When the first load fails, wait (under a lock the workers share) for a
+    finished library to be in place, forget the failure and load again."""
+    if jnative._load() is not None:
+        return
+    lock = tmp_path_factory.getbasetemp().parent / "reference-meshkit.lock"
+    out = os.path.join(os.path.dirname(jnative.__file__), "_meshkit"
+                       + (sysconfig.get_config_var("EXT_SUFFIX") or ".so"))
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        deadline = time.monotonic() + 120.0
+        while True:
+            if os.path.exists(out) or time.monotonic() > deadline:
+                jnative._TRIED = False
+                if jnative._load() is not None or \
+                        time.monotonic() > deadline:
+                    return
+            time.sleep(0.5)
 
 
 @pytest.fixture(scope="module")

@@ -363,7 +363,10 @@ def test_signature_and_defaults_match_reference():
     # against the reference's)
     pytest.param(dict(smoother="fdm"), None, None,
                  id="kw0-NotImplementedError-item 8"),
-    (dict(coarse_pad_to=128), NotImplementedError, "item 12"),
+    # the padded coarse level is ported since (the sharded pmg): its
+    # V-cycle equals the unpadded one (the pads are inert)
+    pytest.param(dict(coarse_pad_to=128), None, None,
+                 id="kw1-NotImplementedError-item 12"),
     # the other mm_precision tiers: a pinned divergence (ROADMAP Queue 3)
     pytest.param(dict(mm_precision="bfloat16"), NotImplementedError,
                  "ROADMAP Queue 3", id="kw2-NotImplementedError-item 15"),
@@ -373,7 +376,7 @@ def test_unported_options_raise(kw, exc, match):
     _, port = _pair("grid")
     ctx = port._local_setup(CPU)
 
-    def build():
+    def build(kw=kw):
         return pmg.make_pmg_preconditioner(
             port.disc, ctx["ex"], port._G_host.reshape(port.disc.E, 3, -1),
             ctx["A"], ~port._dirichlet_mask, port.operator_diagonal(),
@@ -386,6 +389,13 @@ def test_unported_options_raise(kw, exc, match):
         z = M(r)
         assert z.shape == r.shape and bool(torch.isfinite(z).all())
         assert float(torch.sum(z * r)) > 0
+        if "coarse_pad_to" in kw:
+            # the float32 cycle: the padded coarse level keeps the p = 1
+            # apply kernel (its plain version here)
+            assert M._A_c._backend == "fused" and M._coarse_kind == "fdm"
+            z0 = build({})(r)
+            torch.testing.assert_close(z, z0, rtol=0, atol=1e-12 * float(
+                z0.abs().max()))
         return
     with pytest.raises(exc, match=match):
         build()

@@ -479,12 +479,18 @@ def test_unported_and_refused_options_raise():
     _, t64 = _pair(np.float64)
     _, t32 = _pair(np.float32)
     cpu = sh.device_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        sh.sharded_local_poisson_problem(t64, cpu, comm="shardmap",
+    # the sharded pmg (ported since): the reference's refusal of the
+    # untransposed comm, and the V-cycle built on the transposed one
+    # (tests/test_torch_sharded_pmg.py holds its solves against the
+    # reference's)
+    with pytest.raises(ValueError, match="transposed"):
+        sh.sharded_local_poisson_problem(t64, cpu, comm="propagation",
                                          precond="pmg")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        sh.sharded_local_poisson_problem(t64, cpu, comm="shardmap",
-                                         precond={"pmg": {}})
+    M = sh.sharded_local_poisson_problem(t64, cpu, comm="shardmap",
+                                         precond={"pmg": {}})[2]
+    assert (M._coarse_kind, M._levels) == ("fdm", (3, 1))
+    with pytest.raises(ValueError, match="precond"):
+        sh.sharded_local_poisson_problem(t64, cpu, precond="ilu")
     with pytest.raises(ValueError, match="f32"):
         sh.sharded_local_poisson_problem(t64, cpu, comm="shardmap-fused")
     _, curved = _pair(np.float32, 16, 8, 3, lambda x, y: 1 + x**2 * y**2)

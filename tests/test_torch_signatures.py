@@ -118,7 +118,10 @@ PAIRS.update({f"parallel.{name}": (getattr(t_par, name), getattr(mod, name))
               for mod, names in (
                   (j_sh, ("device_mesh", "pad_elements", "pad_element_arrays",
                           "sharded_local_poisson_problem",
-                          "sharded_local_poisson_problem_3d")),
+                          "sharded_local_poisson_problem_3d",
+                          "hybrid_device_mesh", "shard_element_arrays",
+                          "replicated", "make_sharded_poisson_operator",
+                          "sharded_poisson_problem")),
                   (j_halo, ("global_roll", "make_halo_dss_T",
                             "stack_class_masks",
                             "make_sharded_fused_operator",
@@ -140,6 +143,8 @@ PAIRS.update({f"sumfac.{name}": (getattr(t_sumfac, name),
                            "laplacian_apply_local_3d_T",
                            "laplacian_apply_local_3d_separable_T")})
 PAIRS.update({
+    "pmg.make_pmg_preconditioner": (t_pmg.make_pmg_preconditioner,
+                                    j_pmg.make_pmg_preconditioner),
     "pmg.make_pmg_preconditioner_3d": (t_pmg.make_pmg_preconditioner_3d,
                                        j_pmg.make_pmg_preconditioner_3d),
     "pmg.GridFDM3D.try_build": (t_pmg.GridFDM3D.try_build,

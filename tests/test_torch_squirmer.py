@@ -51,6 +51,7 @@ from spectralelementmethod_torch.core.discretization import Discretization
 from spectralelementmethod_torch.interop import squirmer_state_from_numpy
 from spectralelementmethod_torch.mesh import annulus_mesh, rectangle_mesh
 from spectralelementmethod_torch.models import squirmer as tsq
+from spectralelementmethod_torch.parallel import device_mesh
 from spectralelementmethod_torch.solver import condensation as sc
 from spectralelementmethod_torch.solver.rootfind import SolverFailure
 
@@ -199,11 +200,16 @@ def test_device_newton_loop_is_host_loop(linear_solver):
 
 def test_solver_failure_as_in_reference(ref):
     sq, start = ref
+    # the element-sharded model (3 shards: E = 60 as it is) fails as the
+    # reference's and the unsharded one do
+    sharded = _port()
+    sharded.shard_elements(device_mesh(3, device="cpu"))
     for model, exc, kw in ((jsq.Squirmer(jax_annulus(**COARSE), order=6),
                             JaxSolverFailure, {}),
                            (_port(), SolverFailure, {}),
                            (_port(), SolverFailure,
-                            dict(newton_loop="device"))):
+                            dict(newton_loop="device")),
+                           (sharded, SolverFailure, {})):
         model.set_initial_guess()
         model.compute_operators(1.0)
         model.set_boundary_conditions(speed=1.0, beta=1.0)
@@ -211,8 +217,11 @@ def test_solver_failure_as_in_reference(ref):
             model.solve(it_max=1, tol=1e-14, verbose=False, **kw)
     with pytest.raises(ValueError, match="linear_solver"):
         _port(linear_solver="lu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        _port().shard_elements(None)
+    # 7 shards pad E = 60 to 63 by repeating element 0
+    padded = _port()
+    padded.shard_elements(device_mesh(7, device="cpu"))
+    assert padded._Grho.shape[0] == 63 and torch.equal(
+        padded._Grho[60:], padded._Grho[:1].expand(3, -1, -1, -1))
 
 
 @pytest.mark.parametrize("newton_loop", ["host", "device"])
