@@ -171,7 +171,17 @@ Phases (any failure exits non-zero and prints no result line):
    with the Chebyshev coarse level padded by 2 elements on the p = 1
    kernel), ``sharded_poisson_problem``'s Jacobi CG within 2 of plain
    CG's 392 iterations, and ``Squirmer.shard_elements`` on 8 shards: the
-   golden speed within 1e-9 of phase 3u's;
+   golden speed within 1e-9 of phase 3u's; (3y) one rank per card: in
+   process, a world-size-1 NCCL process group drives the rectangle's
+   float32 ``shardmap-fused`` pmg (phase 3x's iterations exactly; the
+   sharded apply bit for bit against the single-controller one) and its
+   padded Chebyshev coarse level, and config 5's float64 pmg at NX5_3Y
+   (the reference's iterations, agreement with the single-device ladder)
+   through ``device_mesh()``'s process-group mesh, the block kernel and
+   the p = 1 block apply launched and each held against its plain version
+   at the rank's shapes; with more than one card,
+   ``scripts/torch_multicard.py`` on every card by
+   ``torch.distributed.run``, held to its bars;
 4. solve three manufactured problems (u = 0.1 (x + y) on a rectangle,
    Dirichlet + Neumann; u = ln r on the annulus, Dirichlet + natural; the
    reference's config-3 Helmholtz solution on a graded annulus through the
@@ -297,6 +307,11 @@ C5_WEAK_ITS, C5_WEAK_BAR = 13, 2
 C5_AGREE = 1e-10
 S_PAD = 3
 SQ_SHARD_BAR = 2e-6
+# phase 3y, one rank per card: config 5 at a reduced depth (65,536
+# elements) through the process-group path, and the multi-card worker's
+# wall-clock limit
+NX5_3Y = 256
+MULTICARD_TIMEOUT = 600
 # the 3D local apply's flops per element (bench.py:233-236: six (p1, p1)
 # products over p1^2 lines and ~15 pointwise per node)
 def flops3(p1: int) -> int:
@@ -772,6 +787,208 @@ def phase_3x(dev, at, drive, profile_solve, solves, env) -> None:
           f"of the unsharded speed and {SQ_SHARD_BAR} of {GOLDEN_SPEED}")
     out["seconds"] = time.perf_counter() - t_3x
     log(f"  phase 3x took {out['seconds']:.1f} s {at()}")
+
+
+def phase_3y(dev, at, drive, profile_solve, solves, env) -> None:
+    """One rank per card.  (a) In this process, a world-size-1 NCCL group
+    (a file store in a temporary directory), so ``device_mesh()`` is the
+    process-group mesh: one rank, this card, the rank's block the whole
+    element axis.  The float32 rectangle's ``comm="shardmap-fused"`` pmg
+    to TOL_PMG: phase 3x's iterations exactly, the true residual, the
+    sharded apply bit for bit against the single-controller apply on one
+    and on S_SH shards; its padded Chebyshev coarse level (the p = 1 block
+    apply); config 5's float64 pmg at NX5_3Y through
+    ``scripts/torch_config5_1m.py`` (its reference iterations, agreement
+    with the single-device ladder); the block kernel and the p = 1 block
+    apply at the rank's shapes against their plain versions.  The group
+    is destroyed after.  (b) With more than one card,
+    ``scripts/torch_multicard.py`` (the rectangle's cases at full size) on
+    every card by ``torch.distributed.run``, held to its bars."""
+    import datetime
+    import importlib.util
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from spectralelementmethod_torch.ops import kernels, sumfac
+    from spectralelementmethod_torch.parallel import halo
+    from spectralelementmethod_torch.parallel import sharding as sh
+    from spectralelementmethod_torch.solver.cg import cg
+
+    t_3y = time.perf_counter()
+    out = solves.setdefault("phase_3y", {})
+    log(f"[3y] one rank per card: a world-size-1 NCCL group in process "
+        f"{at()}")
+    prob, ctx = env["problems"]["rect"]
+    n, E = ctx["ex"].n_loc, prob.disc.E
+    W = prob.disc.basis.weight_grid().reshape(-1)
+    Kcat = sumfac.make_affine_element_matrices(
+        sumfac.make_stacked_derivative(prob._D0_host, prob._D1_host), W,
+        order=ctx["ex"].hier)
+    g = torch.Generator(device=dev).manual_seed(23)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = sh.device_mesh()
+            check(mesh.group is not None and mesh.size == 1
+                  and mesh.rank == 0 and mesh.device == dev,
+                  f"device_mesh() under the group: one rank on {dev}")
+            for name, pre, name_3x in (
+                    ("3y-pmg-fused", "pmg", "3x-pmg-fused"),
+                    ("3y-pmg-fused-cheb", {"pmg": {"coarse": "chebyshev"}},
+                     "3x-pmg-fused-cheb-pad")):
+                t0 = time.perf_counter()
+                A, r, M, u_dL, ex, _ = sh.sharded_local_poisson_problem(
+                    prob, mesh, comm="shardmap-fused", precond=pre)
+                torch.cuda.synchronize()
+                t_setup = time.perf_counter() - t0
+                w = ex.weights_T(torch.float32, dev)
+                res, dt = drive(name, lambda: cg(
+                    A, r, M=M, tol=TOL_PMG, max_iter=MAX_ITER,
+                    dot_weight=w))
+                c_ = kernels.launch_counts_by_n()
+                blk = c_["affine_block_apply_dss"].get(n, 0)
+                p1 = c_["affine_block_apply_dss"].get(4, 0)
+                whole = c_["affine_apply_dss"].get(n, 0)
+                its, issued = int(res.iterations), int(res.issued)
+                u = ex.global_from_local_T(
+                    sh.gather_blocks(mesh, u_dL + res.x).cpu().numpy())
+                rel64 = true_rel64(prob, u, dev)
+                rec = dict(iterations=its, issued=issued, seconds=dt,
+                           setup_s=t_setup, ms_per_issued=1e3 * dt / issued,
+                           true_rel_f64=rel64, block_launches=blk,
+                           p1_block_launches=p1, coarse_kind=M._coarse_kind,
+                           coarse_backend=M._pmg._A_c._backend)
+                out[name] = rec
+                log(f"  {name}: {its} iterations / {issued} issued in "
+                    f"{dt:.3f} s ({1e3 * dt / issued:.3f} ms per issued "
+                    f"iteration; setup {t_setup:.2f} s), true (float64) "
+                    f"relative residual {rel64:.3e}; block kernel {blk} "
+                    f"launches at n = {n}, {p1} at n = 4, whole-mesh "
+                    f"applies {whole}; coarse {M._coarse_kind} {at()}")
+                rel_3x = solves["phase_3x"][name_3x]["true_rel_f64"]
+                check(bool(res.converged) and np.isfinite(u).all()
+                      and rel64 <= 2 * rel_3x, f"{name}: converged, "
+                      f"float64 true residual {rel64:.3e} within 2x of "
+                      f"{name_3x}'s {rel_3x:.3e}")
+                check(blk > 0 and blk >= its and whole == 0, f"{name}: the "
+                      f"block kernel on the rank's card ({blk} launches), "
+                      "no whole-mesh fine apply")
+                if pre == "pmg":
+                    its_3x = solves["phase_3x"]["3x-pmg-fused"]["iterations"]
+                    check(its == its_3x, f"{name}: {its} iterations, phase "
+                          f"3x's {its_3x} on {S_SH} simulated shards")
+                    # the sharded apply, bit for bit against the
+                    # single-controller operator on one and on S_SH shards
+                    x = torch.randn(tuple(r.shape), generator=g, device=dev)
+                    got = A(x)
+                    for S in (1, S_SH):
+                        Ai = sh.sharded_local_poisson_problem(
+                            prob, sh.DeviceMesh(S, dev),
+                            comm="shardmap-fused")[0]
+                        same = bool(torch.equal(got, Ai(x)))
+                        rec[f"apply_bits_equal_{S}"] = same
+                        log(f"  {name}: the rank's apply equals the "
+                            f"single-controller apply on {S} shard(s) bit "
+                            f"for bit: {same}")
+                        check(same or S != 1, f"{name}: the rank's apply "
+                              "bit for bit the single-controller one")
+                    rec["profile"] = profile_solve(
+                        name, lambda tol, max_iter: cg(
+                            A, r, M=M, tol=tol, max_iter=max_iter,
+                            dot_weight=w), 32)
+                else:
+                    its_3p = solves[f"pmg-rect-cheb@{TOL_PMG:g}"][
+                        "iterations"][0]
+                    check(M._coarse_kind == "chebyshev" and p1 > 0
+                          and abs(its - its_3p) <= 2, f"{name}: the p = 1 "
+                          f"block apply ({p1} launches), {its} iterations "
+                          f"within 2 of pmg-rect-cheb's {its_3p}")
+                # each kernel at the rank's shapes against its plain
+                # version: the fine level's block apply, the coarse level's
+                if pre == "pmg":
+                    Gf = np.zeros((ex.E, 3, n))
+                    Gf[:E] = prob._G_host.reshape(E, 3, -1)
+                    A_ = halo.make_sharded_fused_operator(
+                        ex, Kcat, sumfac.affine_factorization(Gf, W)[0],
+                        mesh)
+                else:
+                    A_ = M._pmg._A_c
+                Kb, ab, mb, fb = A_._block_operands
+                n_ = Kb.shape[-1]
+                xb = torch.randn((n_, ex.E), generator=g, device=dev)
+                args = (A_._extended([xb], 0), Kb, ab[0], mb[0],
+                        A_._block_plan)
+                err = rel_err(kernels.affine_block_apply_dss(
+                    *args, factors=fb),
+                    kernels.affine_block_apply_dss_plain(*args))[1]
+                rec[f"block_rel_err_n{n_}"] = err
+                log(f"  {name}: affine_block_apply_dss at n = {n_}, E = "
+                    f"{ex.E} + 2 x {A_._halo} against its plain version: "
+                    f"rel {err:.2e}")
+                check(err <= 1e-5, f"{name}: the block apply at n = {n_} "
+                      "matches its plain version (1e-5 of max)")
+                del A, A_, r, M, u_dL, ex, w, res
+
+            # config 5, float64, at a reduced depth
+            spec = importlib.util.spec_from_file_location(
+                "torch_config5_1m", ROOT / "scripts" / "torch_config5_1m.py")
+            c5 = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(c5)
+            kernels.reset_launch_counts()
+            c5o = c5.run(nx=NX5_3Y, device=dev, slices=None,
+                         log=lambda m: log(f"  config5 {m}"))
+            n_k = sum(kernels.launch_counts().values())
+            c5o.pop("setup_stages", None)
+            out["config5"] = c5o
+            log(f"  config5 at E = {c5o['elements']} on the group: "
+                f"{c5o['its']} iterations (reference {C5_ITS}), degree-1 "
+                f"arm {c5o['its_weak']}, single-device ladder "
+                f"{c5o['its_single']}, agreement {c5o['agreement']:.3e}; "
+                f"sharded CG {c5o['sharded_cg_s']:.3f} s {at()}")
+            check(c5o["converged"] and abs(c5o["its"] - C5_ITS) <= C5_ITS_BAR
+                  and c5o["converged_weak"]
+                  and abs(c5o["its_weak"] - C5_WEAK_ITS) <= C5_WEAK_BAR
+                  and c5o["agreement"] <= C5_AGREE and n_k == 0,
+                  f"config5 on the group: {c5o['its']} and "
+                  f"{c5o['its_weak']} iterations, agreement "
+                  f"{c5o['agreement']:.2e}, no kernel (float64)")
+        finally:
+            dist.destroy_process_group()
+
+    # -- (b) every card, one process each --------------------------------------
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(cards),
+               str(ROOT / "scripts" / "torch_multicard.py"), "--size", "full",
+               "--cases", "roll,fused32,cheb32,replicated", "--out",
+               str(OUT / "multicard")]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=MULTICARD_TIMEOUT,
+                                  env=dict(os.environ,
+                                           OMP_NUM_THREADS="1"))
+            rc, tail = proc.returncode, proc.stdout[-3000:] + proc.stderr[
+                -2000:]
+        except subprocess.TimeoutExpired:
+            rc, tail = None, "timed out"
+        out["multicard"] = dict(cards=cards, rc=rc,
+                                seconds=time.perf_counter() - t0)
+        log(f"  multi-card: {cards} cards, rc {rc} in "
+            f"{out['multicard']['seconds']:.1f} s\n{tail}")
+        check(rc == 0, f"multi-card: scripts/torch_multicard.py on {cards} "
+              "cards held to its bars")
+    else:
+        out["multicard"] = "not run (1 card)"
+        log("  multi-card: not run (1 card)")
+    out["seconds"] = time.perf_counter() - t_3y
+    log(f"  phase 3y took {out['seconds']:.1f} s {at()}")
 
 
 def phase_3t(dev, at, drive, profile_solve, solves) -> None:
@@ -3899,6 +4116,11 @@ def main() -> int:
 
     # -- 3x. element sharding: config 5, sharded pmg, squirmer ---------------
     phase_3x(dev, at, drive, profile_solve, solves,
+             dict(problems=problems))
+    (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
+
+    # -- 3y. one rank per card (torch.distributed) ----------------------------
+    phase_3y(dev, at, drive, profile_solve, solves,
              dict(problems=problems))
     (OUT / "chip_smoke_solves.json").write_text(json.dumps(solves, indent=1))
 

@@ -17,10 +17,16 @@ the same problems and arms):
 The default problem is the oscillatory manufactured one (forcing
 frequencies k1 = nx/8, k2 = nx/4, Dirichlet data 0.1 sin(3 pi (x + 0.7
 y))); ``--trivial`` takes linear Dirichlet data.  The shards run on one
-device (the CUDA card unless ``--device cpu``).  Prints each phase's
-seconds as it ends and one JSON line last.  Run:
+device (the CUDA card unless ``--device cpu``), or, launched by
+``torch.distributed.run``, one per rank (NCCL, each rank on its card;
+``--device cpu`` takes gloo): the hybrid mesh then makes each node a
+slice (``--slices`` splits the ranks into that many pseudo-slices), and
+rank 0 runs the single-device ladder on the whole problem.  Prints each
+phase's seconds as it ends and one JSON line last (rank 0).  Run:
 
     python3 scripts/torch_config5_1m.py [--its 48] [--nx 1024] [--device cpu]
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        scripts/torch_config5_1m.py --slices 2
 """
 
 from __future__ import annotations
@@ -39,13 +45,20 @@ import numpy as np  # noqa: E402
 
 
 def run(nx: int = 1024, order: int = 2, its: int = 48, trivial: bool = False,
-        msh: str | None = None, device=None, shards: int = 8,
-        slices: int = 2, log=print, hook=None) -> dict:
+        msh: str | None = None, device=None, shards: int | None = 8,
+        slices: int | None = 2, log=print, hook=None) -> dict:
     """The config-5 pipeline; returns its numbers (seconds per phase,
     iterations, residuals, agreement, setup stages).  ``hook``, if given,
     is called after the sharded solve as ``hook(A=, r=, M=, w=, its=)``
     (the sharded operator, right-hand side, preconditioner, dot weights and
-    the solve's iterations) and its result is kept as ``out["hook"]``."""
+    the solve's iterations) and its result is kept as ``out["hook"]``.
+
+    Under an initialised process group the shards are the ranks
+    (``shards`` is not read; ``slices`` None makes each node a slice): the
+    tensors are each rank's blocks, every rank returns the same
+    iterations, and ``agreement`` (the single-device ladder, on rank 0
+    alone: the whole problem with its V-cycle simulated on as many blocks
+    of rank 0's device) reaches every rank."""
     import torch
 
     from spectralelementmethod_torch.basis import gll_basis_2d
@@ -57,11 +70,14 @@ def run(nx: int = 1024, order: int = 2, its: int = 48, trivial: bool = False,
     from spectralelementmethod_torch.models.poisson import Poisson
     from spectralelementmethod_torch.ops import sumfac
     from spectralelementmethod_torch.parallel import partition as pt
+    from spectralelementmethod_torch.parallel import comm
     from spectralelementmethod_torch.parallel import sharding as sh
     from spectralelementmethod_torch.solver.cg import cg
     from spectralelementmethod_torch.utils import stages
 
-    dev = resolve_device(device)
+    ranked = torch.distributed.is_initialized()
+    dev = (sh.device_mesh(device=device).device if ranked
+           else resolve_device(device))
     out = {}
     t_all = time.perf_counter()
 
@@ -123,8 +139,11 @@ def run(nx: int = 1024, order: int = 2, its: int = 48, trivial: bool = False,
 
     snap0 = stages.snapshot()
     t0 = time.perf_counter()
-    hmesh = sh.hybrid_device_mesh(n_slices=slices, devices=shards,
+    hmesh = sh.hybrid_device_mesh(n_slices=slices,
+                                  devices=None if ranked else shards,
                                   device=dev)
+    out["shards"] = hmesh.size
+    out["slice_ids"] = list(hmesh.shard_slice_ids)
     A, r, M, u_dL, ex, _ = sh.sharded_local_poisson_problem(
         prob, hmesh, comm="shardmap",
         precond={"pmg": {"degree": 7, "alpha": 30.0}})
@@ -161,7 +180,22 @@ def run(nx: int = 1024, order: int = 2, its: int = 48, trivial: bool = False,
     out["its_weak"] = int(res3.iterations)
     out["converged_weak"] = bool(res3.converged)
     out["resnorm_weak"] = float(res3.residual_norm)
-    u_sh = ex.global_from_local_T((u_dL + res.x).cpu().numpy())
+    u_sh = ex.global_from_local_T(
+        sh.gather_blocks(hmesh, u_dL + res.x).cpu().numpy())
+    if ranked:
+        # rank 0 runs the single-device ladder below on the whole problem
+        # (its V-cycle simulated on as many blocks of its device); the
+        # others wait for its numbers
+        out["its_single"] = out["agreement"] = None
+        if hmesh.rank == 0:
+            smesh = sh.DeviceMesh(hmesh.size, dev)
+            _, r, M, u_dL, ex, _ = sh.sharded_local_poisson_problem(
+                prob, smesh, comm="shardmap",
+                precond={"pmg": {"degree": 7, "alpha": 30.0}})
+            w = ex._weights_as(np.float64, dev, transposed=True)
+        else:
+            phase("single_device_cg_s", time.perf_counter())
+            return _shared(comm, hmesh, out, t_all, stages)
 
     # the same ladder on one device: the padded exchange's unsharded "xla"
     # operator, the same M
@@ -180,6 +214,24 @@ def run(nx: int = 1024, order: int = 2, its: int = 48, trivial: bool = False,
     out["its_single"] = int(res1.iterations)
     u_1 = ex.global_from_local_T((u_dL + res1.x).cpu().numpy())
     out["agreement"] = float(np.abs(u_sh - u_1).max() / np.abs(u_1).max())
+    if ranked:
+        return _shared(comm, hmesh, out, t_all, stages)
+    out["setup_stages"] = stages.snapshot()
+    out["total_s"] = time.perf_counter() - t_all
+    return out
+
+
+def _shared(comm, mesh, out, t_all, stages):
+    """Rank 0's single-device numbers on every rank (one all-gather)."""
+    import torch
+
+    mine = torch.tensor([float("nan") if out["agreement"] is None
+                         else out["agreement"],
+                         -1.0 if out["its_single"] is None
+                         else out["its_single"]], dtype=torch.float64,
+                        device=mesh.device)
+    first = comm.gather_blocks(mesh, mine[None], 0)[0].tolist()
+    out["agreement"], out["its_single"] = first[0], int(first[1])
     out["setup_stages"] = stages.snapshot()
     out["total_s"] = time.perf_counter() - t_all
     return out
@@ -197,13 +249,40 @@ def main(argv=None):
                     help="linear Dirichlet data, no forcing")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--slices", type=int, default=2,
+                    help="pseudo-slices of the hybrid mesh (0: under a "
+                         "process group, a node per slice)")
     args = ap.parse_args(argv)
+    group = "RANK" in os.environ
+    if group:
+        _init_group(args.device)
     out = run(nx=args.nx, order=args.order, its=args.its,
-              trivial=args.trivial, msh=args.msh, device=args.device)
-    print(json.dumps(out))
+              trivial=args.trivial, msh=args.msh, device=args.device,
+              slices=args.slices or None)
+    if not group or int(os.environ["RANK"]) == 0:
+        print(json.dumps(out))
+    if group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     ok = (out["agreement"] < 1e-10 and out["converged"]
           and out["converged_weak"] and out["coarse_kind"] == "fdm")
     return 0 if ok else 1
+
+
+def _init_group(device, timeout_s: float = 900.0):
+    """The process group of a ``torch.distributed.run`` launch: NCCL with
+    each rank on its card, or gloo for ``--device cpu``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    cpu = device is not None and str(device).startswith("cpu")
+    if not cpu:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            timeout=datetime.timedelta(seconds=timeout_s))
 
 
 if __name__ == "__main__":

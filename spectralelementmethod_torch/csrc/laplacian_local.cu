@@ -251,15 +251,16 @@ __global__ void __launch_bounds__(aff_threads<N>(), kLocalMinBlocks)
   }
 }
 
-// The dynamic shared memory of one variant, set once per kernel (internal
-// linkage, as curved_smem_attribute).
+// The dynamic shared memory of one variant, set once per kernel and device
+// (internal linkage, as curved_smem_attribute).
 template <int N, bool VEC, int NU>
 static cudaError_t local_smem_attribute() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      laplacian_local_kernel<N, VEC, NU>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(LocalSmem<N, NU>)));
-  return err;
+  static OncePerDevice once;
+  return once([] {
+    return cudaFuncSetAttribute(laplacian_local_kernel<N, VEC, NU>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(sizeof(LocalSmem<N, NU>)));
+  });
 }
 
 template <int N, bool VEC, int NU>

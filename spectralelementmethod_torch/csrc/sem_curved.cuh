@@ -108,16 +108,18 @@ __device__ __forceinline__ void gen_stage_factors(CurvedSmem<N>& sm,
 }
 
 // The dynamic shared memory of a kernel on this tile (above the 48 KB of
-// static shared memory at p = 8): set once per kernel.  Internal linkage:
-// a process may load several builds of one source, each with its own CUDA
-// runtime, and a static of an external template would be shared by all of
-// them (so only the first would set its attribute).
+// static shared memory at p = 8): set once per kernel and device.  Internal
+// linkage: a process may load several builds of one source, each with its
+// own CUDA runtime, and a static of an external template would be shared by
+// all of them (so only the first would set its attribute).
 template <int N, typename Kernel>
 static cudaError_t curved_smem_attribute(Kernel kernel) {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(CurvedSmem<N>)));
-  return err;
+  static OncePerDevice once;
+  return once([kernel] {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(sizeof(CurvedSmem<N>)));
+  });
 }
 
 extern __shared__ __align__(16) unsigned char curved_smem[];

@@ -29,6 +29,30 @@
 
 namespace sem {
 
+// A function attribute (the dynamic shared memory limit) belongs to the
+// kernel on one device, so a process that drives several cards sets it on
+// each: ``once(set)`` runs ``set`` the first time it is called with a
+// device current and returns that result there after.  One static object
+// per kernel variant; two host threads setting it twice is harmless.
+struct OncePerDevice {
+  static constexpr int kMaxDevices = 64;
+  bool done[kMaxDevices];
+  cudaError_t err[kMaxDevices];
+
+  template <typename Set>
+  cudaError_t operator()(Set set) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!done[dev]) {
+      err[dev] = set();
+      done[dev] = true;
+    }
+    return err[dev];
+  }
+};
+
 constexpr int kThreads = 256;
 
 template <typename T>

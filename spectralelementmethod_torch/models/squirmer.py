@@ -59,6 +59,7 @@ from ..config import resolve_device, torch_dtype
 from ..core.discretization import Discretization
 from ..solver import condensation as sc
 from ..ops.exchange import accumulate
+from ..parallel import comm
 from ..solver.gmres import gmres
 from ..solver.rootfind import SolverFailure, secant
 from ..utils import checkpoint as ckpt
@@ -210,13 +211,21 @@ class SphereWithSlipVel:
         elements as before (the reference replicates that part too).  The
         Newton step is rebuilt at its next use.  ``axis`` names the mesh
         axis and is not read here.
+
+        On a process-group mesh (one rank per card, the model built on the
+        rank's device) each rank computes the residuals and Jacobians of
+        its own block of the padded elements; the blocks are all-gathered
+        in rank order, and the static condensation, the assembly and the
+        float64 LU run whole on every rank (the reference replicates them
+        too), so every rank takes the same Newton steps.
         """
         from ..config import canonical_device
 
         if canonical_device(device_mesh.device) != self.device:
             raise ValueError(
-                f"the shards are simulated on the model's device "
-                f"({self.device}); the mesh is on {device_mesh.device}")
+                f"the mesh's device ({device_mesh.device}) is not the "
+                f"model's ({self.device})")
+        self._shard_mesh = device_mesh
         n_sh = int(device_mesh.size)
         E = self.disc.E
         Ep = -(-E // n_sh) * n_sh
@@ -476,8 +485,17 @@ class SphereWithSlipVel:
                                        interior)
         batched, gather, rs_jxw, ext_gidx, interior = cache
         x_flat = soln_global[gather].reshape(-1, nd)
-        jac, res = batched(x_flat, self._Grho, self._JxW, self._inv_rho,
-                           self._invJ, rs_jxw, n_rey)
+        mesh = getattr(self, "_shard_mesh", None)
+        ops = (x_flat, self._Grho, self._JxW, self._inv_rho, self._invJ,
+               rs_jxw)
+        if comm.distributed(mesh):
+            # this rank's elements only; the blocks all-gathered
+            jac, res = batched(*(comm.block_of(mesh, t, 0) for t in ops),
+                               n_rey)
+            jac = comm.gather_blocks(mesh, jac, 0)
+            res = comm.gather_blocks(mesh, res, 0)
+        else:
+            jac, res = batched(*ops, n_rey)
         E = self.disc.E
         jac, res = jac[:E], res[:E]          # drop the shards' padding
         perm = self._ldof_perm

@@ -351,7 +351,16 @@ def _ptr(t) -> int | None:
 
 
 def _stream(device) -> int:
+    """The current stream of ``device`` (the tensors' card)."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(device, fn, *args) -> int:
+    """Call a kernel's C entry point with ``device`` (the tensors' card)
+    current: the runtime launches on the current device, whose stream
+    ``_stream(device)`` passes, so a process may drive any of its cards."""
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def _local_product(uT, Kst, aT):
@@ -676,9 +685,9 @@ def _launch_p1(lib, fn, what, uT, tables, coef, masks, plan, k: int,
                      device=dev) if aux else None)
     words = p1_mask_words(plan) if masks is None else None
     cls = p1_classes(plan, P1_TILES if k == 1 else P1_TILES_STACK)
-    rc = fn(_ptr(uT), tables, _ptr(coef), _ptr(masks), _ptr(words),
-            cls.ctypes.data, _ptr(out), _ptr(B), E, plan.nb, k,
-            _stream(dev))
+    rc = _launch(dev, fn, _ptr(uT), tables, _ptr(coef), _ptr(masks),
+                 _ptr(words), cls.ctypes.data, _ptr(out), _ptr(B), E, plan.nb,
+                 k, _stream(dev))
     _check(lib, rc, f"{what} (n=4, E={E}, k={k})")
     return out, B
 
@@ -721,10 +730,9 @@ def _launch_apply(uT, Kst, aT, plan, k: int, factors, aux: bool = False):
                           aux)
     out = torch.empty_like(uT)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    rc = lib.sem_affine_apply_dss(
-        _ptr(uT), tables, _ptr(aT), _ptr(out), _ptr(B),
-        _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
-        n, E, plan.nb, k, _stream(dev))
+    rc = _launch(dev, lib.sem_affine_apply_dss, _ptr(uT), tables, _ptr(aT),
+                 _ptr(out), _ptr(B), _ptr(plan.row_ptr), _ptr(plan.entries),
+                 _ptr(plan.masks), n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"affine_apply_dss (n={n}, E={E}, k={k})")
     return out, B
 
@@ -879,15 +887,16 @@ def _launch_a(r, p, inv, x, beta, alpha_prev, Kst, aT, plan, k, tables,
         x_out = None
         fn = (lib.sem_cg_kernel_a_defer_bf16 if bf16
               else lib.sem_cg_kernel_a_defer_f32)
-        rc = fn(_ptr(r), _ptr(p), _ptr(inv), tables, _ptr(aT), _ptr(beta),
-                _ptr(p_out), _ptr(ap), _ptr(B), _ptr(dparts), *dss, *tail)
+        rc = _launch(dev, fn, _ptr(r), _ptr(p), _ptr(inv), tables, _ptr(aT),
+                     _ptr(beta), _ptr(p_out), _ptr(ap), _ptr(B), _ptr(dparts),
+                     *dss, *tail)
     else:
         _require(x, "x", f32, shape, dev)
         x_out = torch.empty_like(x)
         fn = lib.sem_cg_kernel_a_bf16 if bf16 else lib.sem_cg_kernel_a_f32
-        rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), tables, _ptr(aT),
-                _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out),
-                _ptr(ap), _ptr(B), _ptr(dparts), *dss, *tail)
+        rc = _launch(dev, fn, _ptr(r), _ptr(p), _ptr(inv), _ptr(x), tables,
+                     _ptr(aT), _ptr(beta), _ptr(alpha_prev), _ptr(p_out),
+                     _ptr(x_out), _ptr(ap), _ptr(B), _ptr(dparts), *dss, *tail)
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
     return p_out, ap, x_out, dparts, B
 
@@ -1041,8 +1050,9 @@ def _launch_b(r, Ap, inv, w_free, alpha, k, what, far=None):
     bf16 = inv.dtype == torch.bfloat16
     if far is None:
         fn = lib.sem_cg_kernel_b_bf16 if bf16 else lib.sem_cg_kernel_b_f32
-        rc = fn(_ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free), _ptr(alpha),
-                _ptr(r_out), _ptr(parts), per, blocks, k, _stream(dev))
+        rc = _launch(dev, fn, _ptr(r), _ptr(Ap), _ptr(inv), _ptr(w_free),
+                     _ptr(alpha), _ptr(r_out), _ptr(parts), per, blocks, k,
+                     _stream(dev))
     else:
         aux, far_plan = far
         _check_plan(far_plan, dev)
@@ -1053,10 +1063,10 @@ def _launch_b(r, Ap, inv, w_free, alpha, k, what, far=None):
         _require(aux, "aux", f32, (k, far_plan.nb, E), dev)
         fn = (lib.sem_cg_kernel_b_far_bf16 if bf16
               else lib.sem_cg_kernel_b_far_f32)
-        rc = fn(_ptr(r), _ptr(Ap), _ptr(aux), _ptr(far_plan.masks),
-                far_tables(far_plan).ctypes.data, _ptr(inv), _ptr(w_free),
-                _ptr(alpha), _ptr(r_out), _ptr(parts), E, n, far_plan.nb,
-                blocks, k, _stream(dev))
+        rc = _launch(dev, fn, _ptr(r), _ptr(Ap), _ptr(aux),
+                     _ptr(far_plan.masks), far_tables(far_plan).ctypes.data,
+                     _ptr(inv), _ptr(w_free), _ptr(alpha), _ptr(r_out),
+                     _ptr(parts), E, n, far_plan.nb, blocks, k, _stream(dev))
     _check(lib, rc, f"{what} (shape={tuple(r.shape)}, k={k}, "
                     f"inv {inv.dtype})")
     return r_out, parts[0], parts[1]
@@ -1260,10 +1270,9 @@ def _launch_general_apply(uT, gT, Dh, plan, k: int, tables: int,
                           aux)
     out = torch.empty_like(uT)
     B = torch.empty((k, max(plan.nb, 1), E), dtype=torch.float32, device=dev)
-    rc = lib.sem_general_apply_dss(
-        _ptr(uT), tables, _ptr(gT), _ptr(out), _ptr(B),
-        _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks),
-        n, E, plan.nb, k, _stream(dev))
+    rc = _launch(dev, lib.sem_general_apply_dss, _ptr(uT), tables, _ptr(gT),
+                 _ptr(out), _ptr(B), _ptr(plan.row_ptr), _ptr(plan.entries),
+                 _ptr(plan.masks), n, E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"general_apply_dss (n={n}, E={E}, k={k})")
     return out, B
 
@@ -1358,10 +1367,11 @@ def _launch_a_general(r, p, inv, x, beta, alpha_prev, gT, Dh, plan, k,
     lib = _lib(_GEN_CG_A)
     fn = (lib.sem_cg_kernel_a_general_bf16 if p.dtype == torch.bfloat16
           else lib.sem_cg_kernel_a_general_f32)
-    rc = fn(_ptr(r), _ptr(p), _ptr(inv), _ptr(x), tables, _ptr(gT),
-            _ptr(beta), _ptr(alpha_prev), _ptr(p_out), _ptr(x_out), _ptr(ap),
-            _ptr(B), _ptr(dparts), _ptr(plan.row_ptr), _ptr(plan.entries),
-            _ptr(plan.masks), n, E, plan.nb, k, _stream(dev))
+    rc = _launch(dev, fn, _ptr(r), _ptr(p), _ptr(inv), _ptr(x), tables,
+                 _ptr(gT), _ptr(beta), _ptr(alpha_prev), _ptr(p_out),
+                 _ptr(x_out), _ptr(ap), _ptr(B), _ptr(dparts),
+                 _ptr(plan.row_ptr), _ptr(plan.entries), _ptr(plan.masks), n,
+                 E, plan.nb, k, _stream(dev))
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k}, p {p.dtype})")
     return p_out, ap, x_out, dparts, B
 
@@ -1507,10 +1517,10 @@ def affine_block_apply_dss(uT_ext: torch.Tensor, Kst: torch.Tensor,
         out = torch.empty_like(uT_ext)
         B = torch.empty((max(block_plan.nb, 1), E), dtype=torch.float32,
                         device=dev)
-        rc = lib.sem_affine_block_apply_dss(
-            _ptr(uT_ext), tables, _ptr(aT_ext), _ptr(M_ext), _ptr(out),
-            _ptr(B), _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n,
-            E, block_plan.nb, _stream(dev))
+        rc = _launch(dev, lib.sem_affine_block_apply_dss, _ptr(uT_ext), tables,
+                     _ptr(aT_ext), _ptr(M_ext), _ptr(out), _ptr(B),
+                     _ptr(block_plan.row_ptr), _ptr(block_plan.entries), n, E,
+                     block_plan.nb, _stream(dev))
         _check(lib, rc, f"affine_block_apply_dss (n={n}, E={E})")
     _count(affine_block_apply_dss, Kst.shape[-1])
     return out
@@ -1596,8 +1606,8 @@ def far_update(out: torch.Tensor, aux: torch.Tensor,
                          f"{far_plan.nb}")
     tables = far_tables(far_plan)
     lib = _lib(_FAR)
-    rc = lib.sem_far_update(_ptr(out), _ptr(aux), _ptr(far_plan.masks),
-                            tables.ctypes.data, E, _stream(dev))
+    rc = _launch(dev, lib.sem_far_update, _ptr(out), _ptr(aux),
+                 _ptr(far_plan.masks), tables.ctypes.data, E, _stream(dev))
     _check(lib, rc, f"far_update (E={E}, {far_plan.n_entries} entries)")
     _count(far_update, out.shape[0])
     return out
@@ -1669,14 +1679,15 @@ def _launch_single(r, Ap, p, x, inv, w_free, alpha_prev, beta, Kst, aT,
         x_out = None
         fn = (lib.sem_cg_kernel_single_defer_bf16 if bf16
               else lib.sem_cg_kernel_single_defer_f32)
-        rc = fn(*head, *ops, _ptr(r_out), _ptr(p_out), _ptr(ap), *tail)
+        rc = _launch(dev, fn, *head, *ops, _ptr(r_out), _ptr(p_out), _ptr(ap),
+                     *tail)
     else:
         _require(x, "x", f32, shape, dev)
         x_out = torch.empty_like(x)
         fn = (lib.sem_cg_kernel_single_bf16 if bf16
               else lib.sem_cg_kernel_single_f32)
-        rc = fn(*head, _ptr(x), *ops, _ptr(r_out), _ptr(p_out), _ptr(ap),
-                _ptr(x_out), *tail)
+        rc = _launch(dev, fn, *head, _ptr(x), *ops, _ptr(r_out), _ptr(p_out),
+                     _ptr(ap), _ptr(x_out), *tail)
     _check(lib, rc, f"{what} (n={n}, E={E}, p {p.dtype})")
     return r_out, p_out, ap, x_out, parts
 
@@ -1837,8 +1848,8 @@ def _launch_local(uL, g, Dh, hier, k: int, estride: int, cstride: int,
     out = torch.empty_like(uL)
     vec = local_vec(n, E, estride, cstride, (_ptr(uL), _ptr(g), _ptr(out)))
     lib = _lib(_LOCAL)
-    rc = lib.sem_laplacian_local(_ptr(uL), _ptr(g), tables, _ptr(out), n, E,
-                                 k, estride, cstride, int(vec), _stream(dev))
+    rc = _launch(dev, lib.sem_laplacian_local, _ptr(uL), _ptr(g), tables,
+                 _ptr(out), n, E, k, estride, cstride, int(vec), _stream(dev))
     _check(lib, rc, f"{what} (n={n}, E={E}, k={k})")
     return out
 

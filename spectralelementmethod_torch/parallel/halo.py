@@ -2,20 +2,24 @@
 
 Port of the JAX package's ``parallel/halo.py``.  There the operator runs
 inside ``jax.shard_map`` over a device mesh and ``jax.lax.ppermute`` moves
-each shard's boundary strip to its ring neighbour.  Here the program is
-single-controller as well, on one device: vectors stay whole (n, E)
-tensors, the shards are their S contiguous column blocks of E / S
-elements, and every strip a shard receives is an explicit copy of its
-neighbour's boundary columns — the ppermute, made visible.  On the CPU this
-has the reference's semantics on its virtual mesh; on a card it runs S
-simulated shards (shards on several cards are ROADMAP work).
+each shard's boundary strip to its ring neighbour.  Here each function is
+written once against a mesh (:mod:`.comm`): on a simulated mesh (a shard
+count or a single-controller :class:`.sharding.DeviceMesh`) the program
+holds whole (n, E) tensors whose S contiguous column blocks are the
+shards, and every strip a shard receives is a copy of its neighbour's
+boundary columns; on a mesh over a ``torch.distributed`` process group each
+rank holds its own (n, E / S) block on its own card and the strips travel
+as messages, one packed buffer per neighbour and direction per DSS or
+apply.
 
 * :func:`global_roll` — ``torch.roll`` along the sharded element axis, as
-  per-block shifts plus the ring's strip copies (the wrap-around pair
-  elided where the class masks discard it, :func:`_class_uses_wrap`);
-* :func:`make_halo_dss_T` — the roll-class DSS built on it;
+  per-block shifts plus the ring's strips (the wrap-around pair elided
+  where the class masks discard it, :func:`_class_uses_wrap`);
+* :func:`make_halo_dss_T` — the roll-class DSS on each block extended by
+  its neighbours' strips;
 * :func:`block_roll` and :func:`make_halo_dss_3d` — any-offset block
-  rolls and the 3D plane-roll DSS built on them;
+  rolls (from the at most two source shards) and the 3D plane-roll DSS
+  built on them;
 * :func:`make_sharded_local_operator` — the per-shard local product
   (plain PyTorch, any dtype) and the halo DSS;
 * :func:`make_sharded_fused_operator` — per shard, the strips, the block
@@ -25,107 +29,111 @@ simulated shards (shards on several cards are ROADMAP work).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
 from ..config import check_precision
 from ..ops import kernels, sumfac
+from . import comm
 
 ELEM_AXIS = "elements"
 
 
-def _blocks(x: torch.Tensor, n_shards: int):
-    """The shards' column blocks (views) of the last axis."""
-    E = x.shape[-1]
-    if E % n_shards:
-        raise ValueError(f"E={E} not divisible by {n_shards} shards; pad the "
-                         "exchange (pad_to)")
-    return x.split(E // n_shards, dim=-1)
-
-
-def global_roll(x, delta: int, axis_name: str, n_shards: int,
+def global_roll(x, delta: int, axis_name: str, n_shards,
                 wrap: bool = True):
     """``torch.roll(x, -delta, dims=-1)`` over a last axis split into
-    ``n_shards`` blocks.
+    element shards.
 
-    ``x`` is the whole (..., E) tensor (the reference takes one shard's
-    block inside ``shard_map``; ``axis_name`` names the mesh axis there and
-    is not read here).  Each block shifts by ``delta`` within itself and
-    takes the ``|delta|``-wide boundary strip of its ring neighbour, a copy.
-    ``wrap=False`` drops the global wrap-around pair of the ring: the shard
-    that would receive it gets zeros, which is exact whenever the class
-    mask discards every wrapped lane (any non-periodic element order).
+    ``n_shards``: a shard count or a simulated mesh (``x`` is the whole
+    (..., E) tensor), or a mesh over a process group (``x`` is the rank's
+    (..., E / S) block, as the reference's is inside ``shard_map``).
+    ``axis_name`` names the mesh axis there and is not read here.  Each
+    block shifts by ``delta`` within itself and takes the ``|delta|``-wide
+    boundary strip of its ring neighbour.  ``wrap=False`` drops the global
+    wrap-around pair of the ring: the shard that would receive it gets
+    zeros, which is exact whenever the class mask discards every wrapped
+    lane (any non-periodic element order).
     """
     if delta == 0:
         return x
-    if n_shards == 1:
+    mesh = comm.as_mesh(n_shards)
+    if not comm.distributed(mesh) and mesh.size == 1:
         return torch.roll(x, -delta, dims=-1)
-    blocks = _blocks(x, n_shards)
-    Eb, S = blocks[0].shape[-1], n_shards
+    blocks = comm.split(mesh, x)
+    Eb, S = blocks[0].shape[-1], int(mesh.size)
     if abs(delta) >= Eb:
         raise ValueError(
             f"roll offset {delta} exceeds the per-shard block ({Eb}); "
             f"use fewer shards or a locality-preserving element order")
-    out = []
-    for i, blk in enumerate(blocks):
+
+    def need(i):
         if delta > 0:
-            recv = (blocks[(i + 1) % S][..., :delta] if wrap or i != S - 1
-                    else torch.zeros_like(blk[..., :delta]))
-            out.append(torch.cat([blk[..., delta:], recv], dim=-1))
-        else:
-            d = -delta
-            recv = (blocks[(i - 1) % S][..., Eb - d:] if wrap or i != 0
-                    else torch.zeros_like(blk[..., :d]))
-            out.append(torch.cat([recv, blk[..., :Eb - d]], dim=-1))
-    return torch.cat(out, dim=-1)
+            return [(i, delta, Eb),
+                    ((i + 1) % S, 0, delta) if wrap or i != S - 1
+                    else (None, 0, delta)]
+        d = -delta
+        return [((i - 1) % S, Eb - d, Eb) if wrap or i != 0
+                else (None, 0, d), (i, 0, Eb - d)]
+
+    return comm.join(mesh, comm.fetch(mesh, blocks, need))
 
 
-
-def block_roll(x: torch.Tensor, shift: int, n_shards: int,
+def block_roll(x: torch.Tensor, shift: int, n_shards,
                dim: int = 0) -> torch.Tensor:
-    """``torch.roll(x, shift, dims=dim)`` over an axis split into
-    ``n_shards`` equal blocks, for any ``shift``: each block of the result
-    is the concatenation of copies from the (at most two) source blocks
-    that hold its elements — the 3D plane rolls, whose offsets (``ny nz``
-    along the first axis) may exceed a shard's block."""
-    if n_shards == 1:
+    """``torch.roll(x, shift, dims=dim)`` over an axis split into equal
+    element shards, for any ``shift``: each block of the result is the
+    concatenation of the (at most two) source blocks' pieces that hold its
+    elements — the 3D plane rolls, whose offsets (``ny nz`` along the first
+    axis) may exceed a shard's block.  ``n_shards`` as in
+    :func:`global_roll` (on a process group ``x`` is the rank's block and
+    the pieces come from the source ranks)."""
+    mesh = comm.as_mesh(n_shards)
+    if not comm.distributed(mesh) and mesh.size == 1:
         return torch.roll(x, shift, dims=dim)
-    E = x.shape[dim]
-    if E % n_shards:
-        raise ValueError(f"E={E} not divisible by {n_shards} shards; pad the "
-                         "exchange (pad_to)")
-    Eb = E // n_shards
-    blocks = x.split(Eb, dim)
-    out = []
-    for i in range(n_shards):
+    blocks = comm.split(mesh, x, dim)
+    S = int(mesh.size)
+    Eb = blocks[0].shape[dim]
+    E = S * Eb
+
+    def need(i):
         q, r = divmod((i * Eb - shift) % E, Eb)
-        parts = [blocks[q].narrow(dim, r, Eb - r)]
+        parts = [(q, r, Eb)]
         if r:
-            parts.append(blocks[(q + 1) % n_shards].narrow(dim, 0, r))
-        out.append(torch.cat(parts, dim))
-    return torch.cat(out, dim)
+            parts.append(((q + 1) % S, 0, r))
+        return parts
+
+    return comm.join(mesh, comm.fetch(mesh, blocks, need, dim), dim)
 
 
 def make_halo_dss_3d(exchange, axis_name: str = ELEM_AXIS,
-                     n_shards: int = 1):
+                     n_shards=1):
     """Plane-roll DSS of lexicographic (E, n) 3D L-vectors (or stacks) over
-    ``n_shards`` element blocks: :meth:`..ops.exchange.BoxRollExchange3D.
-    dss` with every element-axis roll of a face plane made by
-    :func:`block_roll` (per-block copies, the reference's
-    collective-permutes made visible).  ``axis_name`` names the mesh axis
-    and is not read here."""
+    element shards: :meth:`..ops.exchange.BoxRollExchange3D.dss` with
+    every element-axis roll of a face plane made by :func:`block_roll`
+    (the reference's collective-permutes).  ``n_shards`` as in
+    :func:`global_roll`: on a process group the DSS takes the rank's
+    (E / S, n) block and reads its block of the neighbour masks.
+    ``axis_name`` names the mesh axis and is not read here."""
     from ..ops.exchange import BoxRollExchange3D
 
     ex = exchange
     if not isinstance(ex, BoxRollExchange3D):
         raise ValueError("the 3D halo DSS requires a BoxRollExchange3D "
                          "(a lexicographic box element order)")
-    if ex.E % n_shards:
-        raise ValueError(f"E={ex.E} not divisible by {n_shards} shards; pad "
-                         "the exchange (pad_to)")
+    mesh = comm.as_mesh(n_shards)
+    comm.block_size(mesh, ex.E)
+    if comm.distributed(mesh):
+        # the rank's view: its block of the neighbour masks, its own cache
+        # of device copies
+        ex = copy.copy(ex)
+        ex._dev_cache = {}
+        ex._mask_lo = comm.block_of(mesh, ex._mask_lo)
+        ex._mask_hi = comm.block_of(mesh, ex._mask_hi)
 
     def roll(x, shift, dims):
-        return block_roll(x, shift, n_shards, dims)
+        return block_roll(x, shift, mesh, dims)
 
     def dss(vL: torch.Tensor) -> torch.Tensor:
         L = vL.dim() - 2
@@ -163,22 +171,44 @@ def _check_exchange(exchange):
     return ex
 
 
-def make_halo_dss_T(exchange, axis_name: str = ELEM_AXIS,
-                    n_shards: int = 1):
-    """Roll-class DSS of transposed L-vectors over ``n_shards`` element
-    blocks.
+def _ring_widths(edge_classes, vert_classes):
+    """``(left, right, wrap_left, wrap_right)`` of a class list (tuples
+    with the delta third and the wrap flag last): the strip each block
+    needs from its left neighbour (the largest -delta) and its right one
+    (the largest delta), and whether any class reading that side keeps the
+    ring's wrap-around pair."""
+    cls = [(int(c[2]), bool(c[-1])) for c in list(edge_classes)
+           + list(vert_classes)]
+    left = max([-d for d, _w in cls if d < 0] + [0])
+    right = max([d for d, _w in cls if d > 0] + [0])
+    return (left, right, any(w for d, w in cls if d < 0),
+            any(w for d, w in cls if d > 0))
 
-    Returns ``dss(vT, masks) -> vT``: ``vT`` the (n_loc, E) tensor, ``masks``
-    the (C, E) bool stack of the class masks (edge classes first, then
-    vertex classes — :func:`stack_class_masks`).  Mirrors the reference's
-    (``RollExchange._dss_T_2d`` with :func:`global_roll` in place of the
-    roll); ``dss._edge_wrap`` / ``dss._vert_wrap`` record which classes keep
-    the ring's wrap-around pair.
+
+def make_halo_dss_T(exchange, axis_name: str = ELEM_AXIS,
+                    n_shards=1):
+    """Roll-class DSS of transposed L-vectors over element shards.
+
+    Returns ``dss(vT, masks) -> vT``: ``vT`` the (n_loc, E) tensor (on a
+    process group the rank's (n_loc, E / S) block), ``masks`` the (C, E)
+    bool stack of the class masks (edge classes first, then vertex classes
+    — :func:`stack_class_masks`; on a process group the rank's block of
+    it).  ``n_shards`` as in :func:`global_roll`.  The boundary rows of
+    each block (the edge and vertex slots) are extended by the strips of
+    its two ring neighbours, as wide as the widest class offset on that
+    side (one packed message per neighbour on a process group), and every
+    class roll is a slice of the extended block: the reference's
+    ``RollExchange._dss_T_2d`` with :func:`global_roll` in place of the
+    roll, its sums in the same order.  ``dss._edge_wrap`` /
+    ``dss._vert_wrap`` record which classes keep the ring's wrap-around
+    pair; a side whose classes all discard it (any non-periodic element
+    order) does not exchange it, on both ends of the pair alike.
     """
     ex = _check_exchange(exchange)
+    mesh = comm.as_mesh(n_shards)
     neb = ex.n_edge_block
     eo, el = ex.edge_off, ex.edge_len
-    oe, ov = ex.off_edge, ex.off_vert
+    ov, rows = ex.off_vert, ex.off_int
     # per-class wrap elision: a class whose mask discards every wrapped
     # lane (any non-periodic element order) skips the wrap-around pair
     edge_classes = [(d, s, int(dl), bool(f), _class_uses_wrap(m, int(dl)))
@@ -186,33 +216,40 @@ def make_halo_dss_T(exchange, axis_name: str = ELEM_AXIS,
     vert_classes = [(d, s, int(dl), _class_uses_wrap(m, int(dl)))
                     for d, s, dl, m in ex.vert_classes]
     n_e = len(edge_classes)
+    left, right, wrap_l, wrap_r = _ring_widths(edge_classes, vert_classes)
 
     def dss(vT, masks):
+        ext = comm.ring_extend(mesh, comm.split(mesh, vT[:rows]), left,
+                               right, wrap_l, wrap_r)
+        X = torch.stack(ext) if len(ext) > 1 else ext[0][None]
+        Mk = comm.split(mesh, masks)
+        Mk = torch.stack(Mk) if len(Mk) > 1 else Mk[0][None]
+        Eb = Mk.shape[-1]
+
+        def rolled(lo, hi, delta):
+            return X[:, lo:hi, left + delta:left + delta + Eb]
+
+        V = rolled(0, rows, 0)
+        parts = []
         if neb > 0:
-            F = vT[oe:oe + neb]
+            F = V[:, :neb]
             recv = torch.zeros_like(F)
-            for ci, (d_f, s_f, delta, flip, wrp) in enumerate(edge_classes):
-                src = global_roll(vT[oe + eo[s_f]: oe + eo[s_f] + el[s_f]],
-                                  delta, axis_name, n_shards, wrap=wrp)
+            for ci, (d_f, s_f, delta, flip, _w) in enumerate(edge_classes):
+                src = rolled(eo[s_f], eo[s_f] + el[s_f], delta)
                 if flip:
-                    src = src.flip(0)
-                src = torch.where(masks[ci:ci + 1], src, 0.0)
-                recv[eo[d_f]:eo[d_f] + el[d_f]] += src
-            edges = F + recv
-        else:
-            edges = None
-
-        vsum = vT[ov:ov + 4].clone()
-        for cj, (d_s, s_s, delta, wrp) in enumerate(vert_classes):
-            src = global_roll(vT[ov + s_s], delta, axis_name, n_shards,
-                              wrap=wrp)
-            vsum[d_s] += torch.where(masks[n_e + cj], src, 0.0)
-
-        if edges is not None:
-            return torch.cat([edges, vsum, vT[ex.off_int:]], dim=0)
-        out = vT.clone()
-        out[ov:ov + 4] = vsum
-        return out
+                    src = src.flip(1)
+                src = torch.where(Mk[:, ci:ci + 1], src, 0.0)
+                recv[:, eo[d_f]:eo[d_f] + el[d_f]] += src
+            parts.append(F + recv)
+        vsum = V[:, ov:ov + 4].clone()
+        for cj, (d_s, s_s, delta, _w) in enumerate(vert_classes):
+            src = rolled(ov + s_s, ov + s_s + 1, delta)[:, 0]
+            vsum[:, d_s] += torch.where(Mk[:, n_e + cj], src, 0.0)
+        parts.append(vsum)
+        out = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        out = (out[0] if out.shape[0] == 1
+               else out.permute(1, 0, 2).reshape(rows, -1))
+        return torch.cat([out, vT[rows:]], dim=0)
 
     dss._edge_wrap = [c[4] for c in edge_classes]
     dss._vert_wrap = [c[3] for c in vert_classes]
@@ -273,13 +310,14 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     """Element-sharded affine apply+DSS: per shard, the strips, the block
     kernel, the centre.
 
-    Each shard copies the ``H``-wide boundary strips of its two ring
-    neighbours (``H`` = the largest |delta| of any class, the wrap-around
-    pair included) onto its (n_loc, Eb) block, runs
-    :func:`..ops.kernels.affine_block_apply_dss` on the (n_loc, Eb + 2H)
-    extended block with its slices of the global affine scales and class
-    masks, and keeps the centre columns.  One block launch per shard and
-    apply.
+    Each shard takes the ``H``-wide boundary strips of its two ring
+    neighbours (``H`` = the largest |delta| of any class; the wrap-around
+    pair only where a class keeps it, :func:`_ring_widths`) around its
+    (n_loc, Eb) block, runs :func:`..ops.kernels.affine_block_apply_dss` on
+    the (n_loc, Eb + 2H) extended block with its slices of the global
+    affine scales and class masks, and keeps the centre columns.  One
+    block launch per shard and apply: on a process group, one per rank on
+    its own card, the strips one packed message per neighbour.
 
     ``Kcat``: (n, 3n) assembled element stiffness
     (:func:`..ops.sumfac.make_affine_element_matrices`; the block kernel
@@ -288,16 +326,21 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     ``Kcat`` without them raises); ``a``: (E, 3)
     affine scales of the exchange's (padded) elements; ``mesh``: a
     :func:`.sharding.device_mesh` (its ``size`` shards, its ``device``);
-    ``free_local``: optional (n, E) bool Dirichlet mask.  Returns ``A(uT)``
-    on (n_loc, E) float32 tensors.  ``precision``: ``"highest"``, ``"high"``
-    or ``"default"`` (another raises ``ValueError``); the kernel computes
-    true float32 at every tier (ROADMAP Queue 3).  ``interpret=True`` raises
-    (a Pallas mode; CPU tensors run the kernel's plain version).
+    ``free_local``: optional (n, E) bool Dirichlet mask (on a process
+    group, the whole mask or the rank's (n, Eb) block).  Returns ``A(uT)``
+    on (n_loc, E) float32 tensors, or on the rank's (n_loc, Eb) blocks.
+    ``precision``: ``"highest"``, ``"high"`` or ``"default"`` (another
+    raises ``ValueError``); the kernel computes true float32 at every tier
+    (ROADMAP Queue 3).  ``interpret=True`` raises (a Pallas mode; CPU
+    tensors run the kernel's plain version).
 
     Unlike the reference, the halo is not rounded up to 128 lanes and needs
     no tiling search, so a shard block only has to be as wide as ``H``.
     Redundant compute: each shard re-applies the operator on its 2H halo
-    columns, a 2 H S / E fraction.
+    columns, a 2 H S / E fraction.  ``A._block_operands`` holds the held
+    shards' slices (index them by position in ``comm.owned(mesh)``) and
+    ``A._extended(blocks, s)`` makes shard ``s``'s extended input from the
+    whole list of blocks (a simulated mesh's, or ``[x]`` at one rank).
     """
     check_precision(precision)
     if interpret:
@@ -331,36 +374,48 @@ def make_sharded_fused_operator(exchange, Kcat, a, mesh,
     factors = sumfac._operator_factors(Kcat, dev)
     aT_g = np.ascontiguousarray(np.asarray(a, np.float64).T)      # (3, E)
     M_g = stack_class_masks(ex)                                  # (C, E)
+    wraps = ([(d, s, int(dl), _class_uses_wrap(m, int(dl)))
+              for d, s, dl, _f, m in ex.edge_classes]
+             + [(d, s, int(dl), _class_uses_wrap(m, int(dl)))
+                for d, s, dl, m in ex.vert_classes])
+    _l, _r, wrap_l, wrap_r = _ring_widths(wraps, [])
     if M_g.shape[0] == 0:
         M_g = np.zeros((1, E), dtype=bool)
+    held = comm.owned(mesh)
     idx = (np.arange(-H, Eb + H)[None, :]
-           + (np.arange(S) * Eb)[:, None]) % E                   # (S, Eext)
+           + (np.asarray(held) * Eb)[:, None]) % E           # (S_own, Eext)
     a_stack = torch.as_tensor(
         np.ascontiguousarray(aT_g[:, idx].transpose(1, 0, 2)),
-        device=dev).to(torch.float32)                        # (S, 3, Eext)
+        device=dev).to(torch.float32)                    # (S_own, 3, Eext)
     m_stack = torch.as_tensor(
         np.ascontiguousarray(M_g[:, idx].transpose(1, 0, 2)),
-        device=dev)                                          # (S, C, Eext)
-    free = (None if free_local is None
-            else torch.as_tensor(free_local, device=dev))
+        device=dev)                                      # (S_own, C, Eext)
+    free = None
+    if free_local is not None:
+        free = torch.as_tensor(free_local, device=dev)
+        if comm.distributed(mesh) and free.shape[-1] == E:
+            free = comm.block_of(mesh, free).contiguous()
 
     def extended(blocks, s):
         """Shard ``s``'s block with its neighbours' strips: the left one
         from shard s - 1's end, the right one from shard s + 1's start."""
-        left = blocks[(s - 1) % S][:, Eb - H:]
-        right = blocks[(s + 1) % S][:, :H]
+        k = len(blocks)
+        left = blocks[(s - 1) % k][:, Eb - H:]
+        right = blocks[(s + 1) % k][:, :H]
         return torch.cat([left, blocks[s], right], dim=1)
 
     def A(uT):
         if free is not None:
             uT = torch.where(free, uT, 0.0)
-        blocks = _blocks(uT, S)
-        out = torch.empty_like(uT)
-        for s in range(S):
+        ext = comm.ring_extend(mesh, comm.split(mesh, uT), H, H, wrap_l,
+                               wrap_r)
+        outs = []
+        for k in range(len(held)):
             blk = kernels.affine_block_apply_dss(
-                extended(blocks, s), Kst, a_stack[s], m_stack[s], block_plan,
-                factors=factors)
-            out[:, s * Eb:(s + 1) * Eb] = blk[:, H:H + Eb]
+                ext[k].contiguous(), Kst, a_stack[k], m_stack[k],
+                block_plan, factors=factors)
+            outs.append(blk[:, H:H + Eb])
+        out = comm.join(mesh, outs, dim=1)
         if free is not None:
             out = torch.where(free, out, 0.0)
         return out
@@ -381,9 +436,11 @@ def make_sharded_local_operator(exchange, Gf, Dhat, mesh,
     ``Gf``: (E, 3, n) geometric factors, zero-padded here to the exchange's
     element count (``E`` must divide by the mesh size); ``Dhat``: (2n, n)
     stacked derivative in lex order; ``free_local``: optional (n, E)
-    Dirichlet mask.  Returns ``A(uT)`` on (n_loc, E) tensors of the factors'
-    dtype (float64 works: no kernel is involved).  The local product runs
-    per shard block in plain PyTorch; only the DSS strips cross blocks.
+    Dirichlet mask (on a process group, the whole mask or the rank's
+    block).  Returns ``A(uT)`` on (n_loc, E) tensors of the factors' dtype
+    (float64 works: no kernel is involved), or on the rank's (n_loc, E /
+    S) blocks under a process group.  The local product runs per shard
+    block in plain PyTorch; only the DSS strips cross blocks.
     ``precision`` as in :func:`make_sharded_fused_operator`: every tier
     computes in the factors' dtype.
     """
@@ -402,12 +459,16 @@ def make_sharded_local_operator(exchange, Gf, Dhat, mesh,
     dt = torch.float64 if Gf.dtype == np.float64 else torch.float32
     Dhat_h = torch.as_tensor(np.asarray(Dhat, np.float64)[:, ex.hier],
                              device=dev).to(dt)
-    gT = torch.as_tensor(np.ascontiguousarray(Gf.transpose(1, 2, 0)),
-                         device=dev).to(dt)                       # (3, n, E)
-    masks = torch.as_tensor(stack_class_masks(ex), device=dev)
-    dss = make_halo_dss_T(ex, axis, S)
-    free = (None if free_local is None
-            else torch.as_tensor(free_local, device=dev))
+    gT = torch.as_tensor(np.ascontiguousarray(comm.block_of(
+        mesh, Gf.transpose(1, 2, 0))), device=dev).to(dt)   # (3, n, E[b])
+    masks = torch.as_tensor(np.ascontiguousarray(comm.block_of(
+        mesh, stack_class_masks(ex))), device=dev)
+    dss = make_halo_dss_T(ex, axis, mesh)
+    free = None
+    if free_local is not None:
+        free = torch.as_tensor(free_local, device=dev)
+        if comm.distributed(mesh) and free.shape[-1] == E:
+            free = comm.block_of(mesh, free).contiguous()
 
     def local(u_blk, g_blk):
         grads = torch.matmul(Dhat_h, u_blk)                      # (2n, Eb)
@@ -419,8 +480,9 @@ def make_sharded_local_operator(exchange, Gf, Dhat, mesh,
     def A(uT):
         if free is not None:
             uT = torch.where(free, uT, 0.0)
-        S_loc = torch.cat([local(u_b, g_b) for u_b, g_b in
-                           zip(_blocks(uT, S), _blocks(gT, S))], dim=-1)
+        S_loc = comm.join(mesh, [local(u_b, g_b) for u_b, g_b in
+                                 zip(comm.split(mesh, uT),
+                                     comm.split(mesh, gT))])
         vT = dss(S_loc, masks)
         if free is not None:
             vT = torch.where(free, vT, 0.0)

@@ -95,31 +95,64 @@ def _ladder_size(max_iter: int, issued: int, block: int) -> int:
     return min(block, remaining)
 
 
+def _ranks_of(w):
+    """The process-group mesh whose rank's block the dot weights ``w`` are
+    (a :class:`..parallel.sharding.RankExchange`'s ``weights_T`` and
+    ``_weights_as`` carry it), else None."""
+    from ..parallel import comm
+
+    return None if w is None else comm.mesh_of(w)
+
+
+def _rank_sum(mesh):
+    """The sum over ``mesh``'s ranks of a rank's partial
+    (:func:`..parallel.comm.rank_sum`: the same bits on every rank); the
+    identity without a mesh."""
+    from ..parallel import comm
+
+    return _identity if mesh is None else (lambda t: comm.rank_sum(mesh, t))
+
+
 def _pcg(A: Callable, M: Callable, dot: Callable | None,
-         w: torch.Tensor | None):
+         w: torch.Tensor | None, mesh=None):
     """``(wsum, step)`` of preconditioned CG: the inner product (``sum(w u
     v)`` with the diagonal weights ``w``, else ``dot``, else Euclidean) and
     one iteration on a :class:`_State`.  With ``w`` the step folds the
-    weight into each vector pass once (``w*Ap``, ``w*z``)."""
+    weight into each vector pass once (``w*Ap``, ``w*z``).  With ``w`` a
+    rank's block on the process-group ``mesh`` the weighted sums are the
+    ranks' partials summed in rank order, the iteration's two closing sums
+    in one ``all_gather`` (``dot`` is a global inner product already)."""
+    red = None if w is None or mesh is None else _rank_sum(mesh)
     if w is not None:
         def wsum(u, v):
-            return torch.sum(u * v * w)
+            s = torch.sum(u * v * w)
+            return s if red is None else red(s)
     elif dot is not None:
         wsum = dot
     else:
         def wsum(u, v):
             return torch.sum(u * v)
 
+    def closing(r, z):
+        if red is None:
+            return (wsum(r, z) if w is None else torch.sum(r * (w * z)),
+                    wsum(r, r))
+        from ..parallel import comm
+
+        return comm.rank_sums(mesh, torch.sum(r * (w * z)),
+                              torch.sum(r * r * w))
+
     def step(s: _State) -> _State:
         done = _done(s.rn2, s.k, s.stop2, s.max_it, s.rn2_min)
         Ap = A(s.p)
         denom = wsum(s.p, Ap) if w is None else torch.sum(s.p * (w * Ap))
+        if red is not None:
+            denom = red(denom)
         alpha = torch.where(done, 0.0, s.rz / _safe(denom))
         x = s.x + alpha * s.p
         r = s.r - alpha * Ap
         z = M(r)
-        rz_n = wsum(r, z) if w is None else torch.sum(r * (w * z))
-        rn2 = wsum(r, r)
+        rz_n, rn2 = closing(r, z)
         beta = rz_n / _safe(s.rz)
         p = z + beta * s.p
         k = s.k + (~done).to(s.k.dtype)
@@ -167,10 +200,18 @@ def cg(
     stops the ladder when a whole block of at least 64 iterations shrinks
     ``||r||^2`` by less than that factor while above tolerance; the result
     then has ``stalled=True`` and the best block-boundary state.
+
+    On a process-group mesh, where each rank holds its block of ``b``,
+    ``dot`` is a global inner product (a :class:`..parallel.sharding.
+    RankExchange`'s ``dot_T``) and ``dot_weight`` the rank's block of the
+    weights (the exchange's ``weights_T``, which carries its mesh): the
+    weighted sums are then the ranks' partials summed in rank order, so
+    the scalars, the ladder's stops and its block ends are the same on
+    every rank.
     """
     if M is None:
         M = _identity
-    wsum, step = _pcg(A, M, dot, dot_weight)
+    wsum, step = _pcg(A, M, dot, dot_weight, _ranks_of(dot_weight))
     x0 = torch.zeros_like(b) if x0 is None else x0
     stop2 = torch.clamp_min(tol * tol * wsum(b, b), atol * atol)
     state = _pcg_init(x0, b - A(x0), M, wsum, stop2, max_iter)
@@ -244,20 +285,22 @@ def cg_refined(
     One planned divergence from the reference: ``stall_cut`` defaults to
     None (there 4.0), so an honestly but slowly converging inner ladder
     (Jacobi on an ill-conditioned system) is not cut; the certified solve
-    passes its own.
+    passes its own.  A rank's ``dot_weight`` (:func:`cg`) sums the
+    float64 norms over the ranks too.
     """
     if A_hi is not None and dot is not None and dot_weight is None:
         raise ValueError("A_hi anchoring supports dot_weight or the "
                          "Euclidean dot (the float64 anchor norm must match "
                          "the inner stopping norm)")
     w = dot_weight
+    red = _rank_sum(_ranks_of(w))
 
     def nrm2(v) -> float:
         if w is not None:
-            return float(torch.sum(w * v * v))
+            return float(red(torch.sum(w * v * v)))
         if dot is not None:
             return float(dot(v, v))
-        return float(torch.sum(v * v))
+        return float(red(torch.sum(v * v)))
 
     if A_hi is not None:
         b_h = (b if b_hi is None else b_hi).to(torch.float64)
@@ -341,6 +384,8 @@ def cg_refined_static(
     (a planned divergence: the reference's flag cannot be true) is set when
     the solve is not converged and the last segment run shrank the anchored
     ``||r||^2`` by less than 4x, the rule of :func:`cg_refined`'s outer loop.
+    A rank's ``dot_weight`` (:func:`cg`) sums the float64 norms over the
+    ranks too.
     """
     if M is None:
         M = _identity
@@ -349,10 +394,13 @@ def cg_refined_static(
     f2 = float(inner_tol_factor) ** 2
     b_h = b_hi.to(torch.float64)
     w32 = None if dot_weight is None else dot_weight.to(dtype)
-    wsum, step = _pcg(A, M, None, w32)
+    mesh = _ranks_of(dot_weight)
+    wsum, step = _pcg(A, M, None, w32, mesh)
+    red = _rank_sum(mesh)
 
     def wsum64(v):
-        return torch.sum(v * v) if w32 is None else torch.sum(w32 * v * v)
+        return red(torch.sum(v * v) if w32 is None
+                   else torch.sum(w32 * v * v))
 
     rn2_0 = wsum64(b_h)
     atol2_i = (f2 * (tol2 * rn2_0)).to(dtype)
@@ -411,7 +459,8 @@ def cg_host(
     ``dot``: the inner product (the exchange's weighted ``dot`` for
     L-vectors); Euclidean by default.  Stops when ``||r|| <= max(tol
     ||b||, atol)`` in the ``dot``-induced norm.  ``issued`` is the
-    iteration count.
+    iteration count.  On a process-group mesh's rank blocks ``dot`` is a
+    :class:`..parallel.sharding.RankExchange`'s (summed over the ranks).
     """
     if M is None:
         M = _identity

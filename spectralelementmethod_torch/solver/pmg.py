@@ -101,21 +101,30 @@ def chebyshev_smoother(A, B, lmax: float, lmin: float, degree: int):
 
 
 def estimate_lmax(A, B, shape, dtype=np.float32, iters: int = 30,
-                  safety: float = 1.05, device=None) -> float:
+                  safety: float = 1.05, device=None, mesh=None) -> float:
     """Power-iteration estimate of ``lmax(B A)`` (masked subspace).
 
     The reference's deterministic start vector (``RandomState(0)``, made on
     the host in ``dtype``), ``iters`` applications as a plain loop on
     ``device`` and one host read at the end.  ``safety`` pads the estimate
-    (Chebyshev bounds must cover the top eigenvalue).
+    (Chebyshev bounds must cover the top eigenvalue).  ``mesh``: on a
+    process-group mesh (:mod:`..parallel.comm`) ``A`` and ``B`` act on the
+    rank's column block of the (.., E) ``shape``: each rank takes its block
+    of the same start vector and the norm is summed over the ranks, so
+    every rank reads the same estimate.
     """
+    from ..parallel import comm
+
     rng = np.random.RandomState(0)
-    v = torch.as_tensor(rng.standard_normal(shape).astype(dtype),
-                        device=resolve_device(device))
+    v0 = rng.standard_normal(shape).astype(dtype)
+    if mesh is not None:
+        v0 = np.ascontiguousarray(comm.block_of(mesh, v0))
+    v = torch.as_tensor(v0, device=resolve_device(device))
     nrm = torch.ones((), dtype=v.dtype, device=v.device)
     for _ in range(iters):
         w = B(A(v)).to(v.dtype)
-        nrm = torch.sqrt(torch.sum(w * w))
+        s = torch.sum(w * w)
+        nrm = torch.sqrt(s if mesh is None else comm.rank_sum(mesh, s))
         v = w / nrm
     return float(nrm) * safety
 
@@ -832,6 +841,37 @@ class PMGPreconditioner:
         return z.to(self._out_dtype)
 
 
+def _ranked_coarse_operator(ex_c, Gc_np, Dhat_c, W_c, a, structure_c, tcyc,
+                            cycle_backend, free_c, mesh):
+    """The coarse level's masked operator on a process group's rank
+    blocks: the sharded block kernel (:func:`..parallel.halo.
+    make_sharded_fused_operator`; at n = 4 the p = 1 apply kernel per
+    rank) for float32 affine levels unless ``cycle_backend="xla"``, else
+    the halo operator in the cycle dtype (``"fused"`` then raises)."""
+    from ..ops import sumfac
+    from ..parallel import halo
+
+    Ec = ex_c.E
+    kernel = (structure_c == "affine" and tcyc == torch.float32
+              and cycle_backend != "xla")
+    if cycle_backend == "fused" and not kernel:
+        raise ValueError("cycle_backend='fused' on a process-group mesh "
+                         "needs a float32 affine coarse level")
+    if kernel:
+        Kcat_c = sumfac.make_affine_element_matrices(Dhat_c, W_c,
+                                                     order=ex_c.hier)
+        op = halo.make_sharded_fused_operator(
+            ex_c, Kcat_c, _padded(np.asarray(a, np.float64), Ec), mesh,
+            free_local=free_c, axis=mesh.axis)
+        op._backend = "fused"
+    else:
+        op = halo.make_sharded_local_operator(
+            ex_c, _padded(np.asarray(Gc_np), Ec), Dhat_c, mesh,
+            free_local=free_c, axis=mesh.axis)
+        op._backend = "xla"
+    return op
+
+
 def _padded(G: np.ndarray, E: int) -> np.ndarray:
     """Factor rows ``G`` with zero rows appended up to ``E`` (the inert
     pad elements of a padded exchange)."""
@@ -915,6 +955,19 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         in true float32 (TF32 off); any other tier raises (ROADMAP Queue 3).
     lmax_iters / lmax_safety : power-iteration count and safety factor of
         :func:`estimate_lmax`.
+
+    A rank's exchange (:class:`..parallel.sharding.RankExchange`) as
+    ``ex_f``, on a process-group mesh, with ``coarse_pad_to`` the padded E
+    (the port's addition): the V-cycle acts on the rank's (n_f, E / S)
+    blocks on ``device``.  ``A_f`` is then its fine operator (masked, in
+    the cycle dtype, on blocks); the transfers stay per element, the
+    coarse DSS is the halo DSS (:func:`..parallel.halo.make_halo_dss_T`),
+    the exact grid solve gathers the coarse vector, solves it whole on
+    every rank and keeps the rank's block (the reference replicates it),
+    and the Chebyshev coarse level runs the sharded block operator (at
+    p_c = 1 the p = 1 apply kernel per rank; float64 or curved: the halo
+    operator).  The FDM smoother and the reaction term are not sharded
+    (``NotImplementedError``).
     """
     from ..basis import gll_basis_2d
     from ..core.discretization import Discretization
@@ -959,6 +1012,15 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
             "(ROADMAP Queue 3)")
     if coarse not in ("auto", "fdm", "chebyshev"):
         raise ValueError(f"unknown coarse solve {coarse!r}")
+    from ..parallel import comm, halo
+
+    mesh = getattr(ex_f, "_mesh", None)
+    ranked = comm.distributed(mesh)
+    if ranked and (smoother != "jacobi" or reaction_fn is not None
+                   or coarse_pad_to is None):
+        raise NotImplementedError(
+            "pmg on a process-group mesh: the Jacobi smoother, no reaction "
+            "term, and coarse_pad_to (the sharded callers' padded E)")
     dev = resolve_device(device)
     if p_coarse is None:
         p_coarse = 1
@@ -969,6 +1031,13 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
 
     def on(a, dt=tcyc):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dt)
+
+    def cols(a, dt=None):
+        """A host (.., E) array's columns of this rank (all of them
+        single-controller) on the device."""
+        t = torch.as_tensor(np.ascontiguousarray(
+            comm.block_of(mesh, a) if ranked else a), device=dev)
+        return t if dt is None else t.to(dt)
 
     basis_f = disc.basis
     W_f = basis_f.weight_grid().reshape(-1)
@@ -989,7 +1058,7 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         np.asarray(basis_c.get_D1_matrix(0)),
         np.asarray(basis_c.get_D1_matrix(1)))
     free_c_np = np.asarray(free_global, bool)[ex_c.gather_hier]
-    free_c = torch.as_tensor(np.ascontiguousarray(free_c_np.T), device=dev)
+    free_c = cols(free_c_np.T)
 
     # coarse reaction mass (Helmholtz shift), collocated: k * detJxW_c
     kM_c_np = None
@@ -1026,10 +1095,15 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
             np.asarray(basis_c.get_D1_matrix(1))
         ).reshape(Er, -1)[:, ex_c.hier]
 
-    lap_c = sumfac.make_local_laplacian_operator(
-        ex_c, _padded(Gc_np, Ec), Dhat_c, free_c, structure=structure_c,
-        backend=cycle_backend, vector_layout="ne",
-        assume_masked_input=True, device=dev)
+    if ranked:
+        lap_c = _ranked_coarse_operator(
+            ex_c, Gc_np, Dhat_c, W_c, a, structure_c, tcyc, cycle_backend,
+            free_c, mesh)
+    else:
+        lap_c = sumfac.make_local_laplacian_operator(
+            ex_c, _padded(Gc_np, Ec), Dhat_c, free_c, structure=structure_c,
+            backend=cycle_backend, vector_layout="ne",
+            assume_masked_input=True, device=dev)
     A_c = (lap_c if kM_c_np is None else sumfac.LocalHelmholtzOperator(
         lap_c, ex_c.dss_T, on(kM_c_np.T), free_c))
 
@@ -1037,7 +1111,8 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
         d_loc = d_loc + np.asarray(kM_c_np[:Er])
     d_glob = np.zeros(disc.mesh.n_nodes)
     np.add.at(d_glob, np.asarray(ex_c.gather_hier[:Er]), d_loc)
-    B_c = jacobi_preconditioner(on(d_glob[ex_c.gather_hier].T), free_c)
+    B_c = jacobi_preconditioner(cols(d_glob[ex_c.gather_hier].T, tcyc),
+                                free_c)
 
     # ---- transfers -----------------------------------------------------------
     P = np.ones((1, 1))
@@ -1048,30 +1123,49 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
     P = P[np.ix_(np.asarray(ex_f.hier), np.asarray(ex_c.hier))]
     P_d = on(P)                                               # (n_f, n_c)
     P_t = P_d.T.contiguous()
-    w_f = ex_f._weights_as(cyc, dev, transposed=True)
     free_f_np = np.asarray(free_global, bool)[ex_f.gather_hier]
-    free_f = torch.as_tensor(np.ascontiguousarray(free_f_np.T), device=dev)
+    free_f = cols(free_f_np.T)
+    if ranked:
+        # the rank's block: the pad columns (the last ranks') zeroed where
+        # the single-controller cycle cuts and pads them
+        w_f = cols(np.asarray(ex_f.weights).T, tcyc)
+        real = cols(np.arange(Ef) < Er)
+        dss_c = halo.make_halo_dss_T(ex_c, mesh.axis, mesh)
+        masks_c = cols(halo.stack_class_masks(ex_c))
+        free_fr = free_f & real
 
-    def restrict(r):
-        loc = P_t @ (w_f * r)[..., :Er]
-        if Ec > Er:
-            loc = torch.nn.functional.pad(loc, (0, Ec - Er))
-        return torch.where(free_c, ex_c.dss_T(loc), 0.0)
+        def restrict(r):
+            loc = torch.where(real, P_t @ (w_f * r), 0.0)
+            return torch.where(free_c, dss_c(loc, masks_c), 0.0)
 
-    def prolong(ec):
-        ef = P_d @ ec[..., :Er]
-        if Ef > Er:
-            ef = torch.nn.functional.pad(ef, (0, Ef - Er))
-        return torch.where(free_f, ef, 0.0)
+        def prolong(ec):
+            return torch.where(free_fr, P_d @ ec, 0.0)
+    else:
+        w_f = ex_f._weights_as(cyc, dev, transposed=True)
+
+        def restrict(r):
+            loc = P_t @ (w_f * r)[..., :Er]
+            if Ec > Er:
+                loc = torch.nn.functional.pad(loc, (0, Ec - Er))
+            return torch.where(free_c, ex_c.dss_T(loc), 0.0)
+
+        def prolong(ec):
+            ef = P_d @ ec[..., :Er]
+            if Ef > Er:
+                ef = torch.nn.functional.pad(ef, (0, Ef - Er))
+            return torch.where(free_f, ef, 0.0)
 
     # ---- internal fine apply (cycle dtype) -----------------------------------
-    lap_f_cyc = sumfac.make_local_laplacian_operator(
-        ex_f, _padded(np.asarray(Gf, dtype=cyc), Ef),
-        sumfac.make_stacked_derivative(
-            np.asarray(basis_f.get_D1_matrix(0)),
-            np.asarray(basis_f.get_D1_matrix(1))),
-        free_f, structure="auto", backend=cycle_backend,
-        vector_layout="ne", assume_masked_input=True, device=dev)
+    if ranked:
+        lap_f_cyc = A_f
+    else:
+        lap_f_cyc = sumfac.make_local_laplacian_operator(
+            ex_f, _padded(np.asarray(Gf, dtype=cyc), Ef),
+            sumfac.make_stacked_derivative(
+                np.asarray(basis_f.get_D1_matrix(0)),
+                np.asarray(basis_f.get_D1_matrix(1))),
+            free_f, structure="auto", backend=cycle_backend,
+            vector_layout="ne", assume_masked_input=True, device=dev)
     if reaction_fn is None:
         A_f_cyc = lap_f_cyc
     else:
@@ -1092,11 +1186,11 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
                                       device=dev)
     else:
         B_f = jacobi_preconditioner(
-            on(np.asarray(diag_global)[ex_f.gather_hier].T), free_f)
+            cols(np.asarray(diag_global)[ex_f.gather_hier].T, tcyc), free_f)
     with _true_f32():
         lmax_f = estimate_lmax(A_f_cyc, B_f, (n_f, Ef), dtype=cyc,
                                iters=lmax_iters, safety=lmax_safety,
-                               device=dev)
+                               device=dev, mesh=mesh)
 
     # ---- coarse solve ----------------------------------------------------------
     grid = None
@@ -1115,11 +1209,17 @@ def make_pmg_preconditioner(disc, ex_f, Gf, A_f, free_global, diag_global,
     coarse_cheb = None
     if grid is not None:
         C, coarse_kind = grid, "fdm"
+        if ranked:
+            def C(rc):
+                # the reference replicates the coarse solve: every rank
+                # solves the gathered vector and keeps its block
+                return comm.block_of(mesh, grid(comm.gather_blocks(
+                    mesh, rc))).contiguous()
     else:
         with _true_f32():
             lmax_c = estimate_lmax(A_c, B_c, (n_c, Ec), dtype=cyc,
                                    iters=lmax_iters, safety=lmax_safety,
-                                   device=dev)
+                                   device=dev, mesh=mesh)
         C = chebyshev_smoother(A_c, B_c, lmax_c, lmax_c / coarse_interval,
                                coarse_degree)
         coarse_kind = "chebyshev"
